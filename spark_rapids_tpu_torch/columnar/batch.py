@@ -1,0 +1,277 @@
+"""ColumnarBatch: the unit of execution (port of
+spark_rapids_tpu/columnar/batch.py, numeric types only).
+
+A batch's row count may be a Python int or a device scalar still being
+computed; reading `.num_rows` of a device count syncs, while
+`.num_rows_i32` / `.row_mask()` / `.maybe_nonempty()` stay on the device.
+A batch may be SPARSE: `sparse` is a device bool mask selecting its live
+rows (filters defer compaction; sparse-aware consumers fold the mask into
+their own row masking, everyone else calls `.dense()`).
+
+Batches also carry deferred validity `checks` (device bool scalars)
+registered by optimistic fast paths; see utils/checks.py.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.vector import (
+    MIN_CAPACITY, ColumnVector, bucket_capacity, resolve_device)
+
+
+class ColumnarBatch:
+    """schema + padded device columns + (possibly lazy) row count."""
+
+    __slots__ = ("schema", "columns", "_rows", "checks", "sparse")
+
+    def __init__(self, schema: T.Schema, columns: list[ColumnVector],
+                 num_rows, checks: tuple = (), sparse=None):
+        self.schema = schema
+        self.columns = columns
+        self.sparse = sparse
+        if num_rows is None:
+            if sparse is None:
+                raise ValueError("num_rows=None needs a sparse mask")
+            num_rows = sparse.sum().to(torch.int32)
+        self._rows = num_rows
+        self.checks = tuple(checks)
+        if len(self.columns) != len(self.schema.fields):
+            raise ValueError(f"{len(self.columns)} columns for "
+                             f"{len(self.schema.fields)} fields")
+        caps = {c.capacity for c in self.columns}
+        if len(caps) > 1:
+            raise ValueError(f"ragged capacities {caps}")
+
+    def dense(self) -> "ColumnarBatch":
+        """Compact a sparse batch to the dense rows-first layout."""
+        if self.sparse is None:
+            return self
+        from spark_rapids_tpu_torch.ops.sort_encode import masked_positions
+        cap = self.capacity
+        n = self.num_rows_i32
+        idx = masked_positions(self.sparse, cap, fill_value=cap - 1)
+        valid = torch.arange(cap, device=self.device) < n
+        cols = [c.gather(idx, valid) for c in self.columns]
+        rows = self._rows if isinstance(self._rows, int) else n
+        return ColumnarBatch(self.schema, cols, rows, self.checks)
+
+    # -- row count (lazy) ---------------------------------------------------
+    @property
+    def num_rows(self) -> int:
+        """Host row count — SYNCS if the count is still a device scalar."""
+        if not isinstance(self._rows, int):
+            self._rows = int(self._rows.item())
+        return self._rows
+
+    @num_rows.setter
+    def num_rows(self, value):
+        self._rows = value
+
+    @property
+    def num_rows_known(self) -> bool:
+        return isinstance(self._rows, int)
+
+    @property
+    def num_rows_i32(self) -> torch.Tensor:
+        """Row count as an int32 device scalar — never syncs."""
+        if isinstance(self._rows, int):
+            return torch.full((), self._rows, dtype=torch.int32,
+                              device=self.device)
+        return self._rows.to(torch.int32)
+
+    def maybe_nonempty(self) -> bool:
+        """True unless the batch is KNOWN to be empty (no sync)."""
+        return not isinstance(self._rows, int) or self._rows > 0
+
+    def verify_checks(self) -> None:
+        from spark_rapids_tpu_torch.utils import checks as CK
+        CK.verify(self.checks)
+
+    @property
+    def capacity(self) -> int:
+        return self.columns[0].capacity if self.columns else \
+            bucket_capacity(self.num_rows)
+
+    @property
+    def device(self) -> torch.device:
+        if self.columns:
+            return self.columns[0].device
+        if self.sparse is not None:
+            return self.sparse.device
+        if isinstance(self._rows, torch.Tensor):
+            return self._rows.device
+        return torch.device("cpu")
+
+    def column(self, name_or_idx) -> ColumnVector:
+        if isinstance(name_or_idx, str):
+            return self.columns[self.schema.index(name_or_idx)]
+        return self.columns[name_or_idx]
+
+    def row_mask(self) -> torch.Tensor:
+        if self.sparse is not None:
+            return self.sparse
+        return torch.arange(self.capacity, device=self.device) \
+            < self.num_rows_i32
+
+    # -- construction -------------------------------------------------------
+    @staticmethod
+    def from_numpy(data: dict, schema: Optional[T.Schema] = None,
+                   validity: Optional[dict] = None,
+                   capacity: Optional[int] = None,
+                   device="cuda") -> "ColumnarBatch":
+        dev = resolve_device(device)
+        names = list(data)
+        n = len(next(iter(data.values()))) if data else 0
+        cap = capacity or bucket_capacity(n)
+        cols, fields = [], []
+        for name in names:
+            dt = schema.field(name).dtype if schema else None
+            v = validity.get(name) if validity else None
+            c = ColumnVector.from_numpy(np.asarray(data[name]), dt, v, cap,
+                                        device=dev)
+            cols.append(c)
+            fields.append(T.Field(name, c.dtype))
+        return ColumnarBatch(schema or T.Schema(tuple(fields)), cols, n)
+
+    # -- host conversion ----------------------------------------------------
+    def to_pandas(self):
+        import pandas as pd
+        if self.sparse is not None:
+            return self.dense().to_pandas()
+        self.verify_checks()
+        out = {}
+        n = self.num_rows
+        for f, c in zip(self.schema.fields, self.columns):
+            vals, validity = c.to_numpy(n)
+            if validity.all():
+                out[f.name] = pd.Series(vals)
+            else:
+                s = pd.Series(vals).astype(object)
+                s[~validity] = None
+                out[f.name] = s
+        return pd.DataFrame(out)
+
+    # -- structural ---------------------------------------------------------
+    def with_capacity(self, capacity: int) -> "ColumnarBatch":
+        if capacity == self.capacity:
+            return self
+        if self.sparse is not None:
+            return self.dense().with_capacity(capacity)
+        rows = (min(self._rows, capacity) if self.num_rows_known
+                else torch.clamp(self._rows, max=capacity))
+        return ColumnarBatch(
+            self.schema, [c.with_capacity(capacity) for c in self.columns],
+            rows, self.checks)
+
+
+def empty_batch(schema: T.Schema, device) -> ColumnarBatch:
+    """Zero-row batch with properly-typed zero-filled columns."""
+    cols = [ColumnVector(f.dtype,
+                         torch.zeros(MIN_CAPACITY, dtype=f.dtype.torch_dtype,
+                                     device=device),
+                         torch.zeros(MIN_CAPACITY, dtype=torch.bool,
+                                     device=device))
+            for f in schema.fields]
+    return ColumnarBatch(schema, cols, 0)
+
+
+def _fills(values, dev) -> torch.Tensor:
+    """int64 vector of host ints built by fill kernels (a host-to-device
+    copy would wait for the stream)."""
+    return torch.cat([torch.full((1,), int(v), dtype=torch.int64,
+                                 device=dev) for v in values])
+
+
+def concat_batches(batches: list[ColumnarBatch],
+                   sparse_ok: bool = False) -> ColumnarBatch:
+    """Device-side concat: stack padded columns, then gather the live rows
+    of each input into a fresh bucketed batch.  When any input's row count
+    is still a device scalar, the gather indices are computed on the
+    device (no sync) and the output capacity is the bucketed sum of input
+    capacities.  `sparse_ok=True` (consumers that take sparse batches)
+    stacks sparse inputs as they are and keeps the result sparse."""
+    if not batches:
+        raise ValueError("concat_batches needs at least one batch")
+    if len(batches) == 1:
+        return batches[0]
+    if sparse_ok and any(b.sparse is not None for b in batches):
+        return _concat_sparse(batches)
+    batches = [b.dense() for b in batches]
+    schema = batches[0].schema
+    dev = batches[0].device
+    checks = tuple(c for b in batches for c in b.checks)
+    caps = [b.capacity for b in batches]
+    offsets = np.concatenate([[0], np.cumsum(caps)[:-1]])
+    stacked = _stack_columns(batches, schema)
+    if all(b.num_rows_known for b in batches):
+        total = sum(b.num_rows for b in batches)
+        cap = bucket_capacity(total)
+        parts = [torch.arange(b.num_rows, device=dev) + int(off)
+                 for b, off in zip(batches, offsets)]
+        idx = torch.cat(parts + [torch.zeros(cap - total, dtype=torch.int64,
+                                             device=dev)])
+        rows = total
+    else:
+        ns = torch.stack([b.num_rows_i32 for b in batches]).to(torch.int64)
+        cum = torch.cumsum(ns, 0)
+        starts = cum - ns
+        cap = bucket_capacity(int(sum(caps)))
+        i = torch.arange(cap, device=dev)
+        bid = torch.searchsorted(cum, i, right=True).clamp(
+            max=len(batches) - 1)
+        idx = _fills(offsets, dev)[bid] + (i - starts[bid])
+        rows = cum[-1].to(torch.int32)
+        idx = torch.where(i < rows, idx, 0)
+    valid = torch.arange(cap, device=dev) < rows
+    cols = []
+    for (data, validity, narrow), f in zip(stacked, schema.fields):
+        cols.append(ColumnVector(
+            f.dtype, data[idx], validity[idx] & valid,
+            None if narrow is None else narrow[idx]))
+    return ColumnarBatch(schema, cols, rows, checks)
+
+
+def _stack_columns(batches, schema):
+    out = []
+    for ci in range(len(schema.fields)):
+        vecs = [b.columns[ci] for b in batches]
+        narrow = (torch.cat([v.narrow for v in vecs])
+                  if all(v.narrow is not None for v in vecs) else None)
+        out.append((torch.cat([v.data for v in vecs]),
+                    torch.cat([v.validity for v in vecs]), narrow))
+    return out
+
+
+def _concat_sparse(batches) -> ColumnarBatch:
+    """Gather-free concat: stack each input's padded columns and its
+    selection mask; the result stays sparse."""
+    schema = batches[0].schema
+    dev = batches[0].device
+    checks = tuple(c for b in batches for c in b.checks)
+    scap = sum(b.capacity for b in batches)
+    cap = bucket_capacity(scap)
+    pad = cap - scap
+    masks = [b.sparse if b.sparse is not None else b.row_mask()
+             for b in batches]
+    if pad:
+        masks.append(torch.zeros(pad, dtype=torch.bool, device=dev))
+    mask = torch.cat(masks)
+    if all(b.num_rows_known for b in batches):
+        total = sum(b.num_rows for b in batches)
+    else:
+        total = torch.stack([b.num_rows_i32 for b in batches]).sum().to(
+            torch.int32)
+
+    def pad_tail(x):
+        if not pad or x is None:
+            return x
+        return torch.cat([x, x.new_zeros(pad)])
+
+    cols = [ColumnVector(f.dtype, pad_tail(d), pad_tail(v), pad_tail(nw))
+            for (d, v, nw), f in zip(_stack_columns(batches, schema),
+                                     schema.fields)]
+    return ColumnarBatch(schema, cols, total, checks, sparse=mask)

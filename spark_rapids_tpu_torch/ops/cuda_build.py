@@ -1,0 +1,107 @@
+"""Build and load the hand-written CUDA kernels in `csrc/`.
+
+Each `csrc/<name>.cu` has a plain C interface and compiles with `nvcc`
+alone into `csrc/build/lib<name>.so` (no PyTorch headers, so a build takes
+seconds), which is loaded with `ctypes`.  Builds happen at first use:
+`build()` starts one `nvcc` per stale source, all at once, and waits for
+them; `function()` builds what it needs and returns a ctypes function with
+its argument types declared.  Nothing here runs at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+SOURCES = ("q1_fused", "grouped_sum", "window_group_sums")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LOCK = threading.Lock()
+_LIBS: dict = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels are compiled with the CUDA "
+        "toolkit's nvcc (put it on PATH or set CUDA_HOME)")
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = lib_path(name)
+    return (not lib.exists()
+            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+
+
+def build(names=SOURCES) -> dict:
+    """Compile the stale sources among `names`, one nvcc process each,
+    all started together.  Returns {name: compiler output} for what was
+    built; raises with the compiler's output if any build fails."""
+    with _LOCK:
+        todo = [n for n in names if _stale(n)]
+        if not todo:
+            return {}
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        procs = {}
+        for n in todo:
+            tmp = BUILD_DIR / f"lib{n}.so.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT,
+                                         text=True), tmp)
+        logs, failed = {}, []
+        for n, (proc, tmp) in procs.items():
+            out, _ = proc.communicate()
+            logs[n] = out
+            if proc.returncode:
+                failed.append(f"nvcc failed for {n}.cu "
+                              f"(exit {proc.returncode}):\n{out}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, lib_path(n))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return logs
+
+
+def function(name: str, symbol: str, argtypes: list,
+             restype=ctypes.c_int):
+    """The C function `symbol` of `csrc/<name>.cu`, built and loaded on
+    first use, with `argtypes` declared (pointers and the stream as
+    c_void_p, so ctypes never cuts them to 32 bits)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build((name,))
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                lib = _LIBS[name] = ctypes.CDLL(str(lib_path(name)))
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = restype
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err}")

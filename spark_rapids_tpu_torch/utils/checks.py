@@ -1,0 +1,129 @@
+"""Deferred device-side validity checks for optimistic fast paths (port of
+spark_rapids_tpu/utils/checks.py).
+
+A fast path (the dictionary group-by window, the banded lane's f32
+exactness certificate) may produce results whose validity is only known
+on the device as a bool scalar (True = INVALID).  Checks ride along until
+the collect boundary, where `verify` reads them all back in one transfer.
+On failure, `FastPathInvalid` carries recovery callbacks that disable the
+fast paths at fault; `TpuExec.collect` recovers and re-executes the plan.
+
+Checks attach to batches (`ColumnarBatch.checks`) AND register in a
+per-thread pending list, so a check dropped from a batch's tuple still
+fails safe at the next collect.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Callable, Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BatchCheck:
+    # eq=False: identity equality, so list membership never compares flags
+    flag: object                      # device bool scalar; True = invalid
+    origin: str                       # human-readable fast-path name
+    recover: Optional[Callable] = None  # disables the fast path
+
+    #: memoized verify outcome (a check may reach several verify
+    #: boundaries; it is read back once)
+    _resolved = None
+
+    def _memoize(self, bad: bool) -> None:
+        object.__setattr__(self, "_resolved", bool(bad))
+
+
+class FastPathInvalid(Exception):
+    def __init__(self, checks):
+        self.checks = list(checks)
+        super().__init__(
+            "optimistic fast path produced invalid results: "
+            + ", ".join(c.origin for c in self.checks))
+
+    def recover_all(self) -> None:
+        for c in self.checks:
+            if c.recover is not None:
+                c.recover()
+
+
+_STATE = threading.local()
+
+
+def _pending() -> list:
+    p = getattr(_STATE, "pending", None)
+    if p is None:
+        p = _STATE.pending = []
+    return p
+
+
+def set_retrying(flag: bool) -> None:
+    """Marks the last deopt re-execution: optimistic fast paths whose
+    recovery escalates a learned parameter must produce guaranteed-valid
+    results then, and consult this to bypass themselves."""
+    _STATE.retrying = flag
+
+
+def is_retrying() -> bool:
+    return getattr(_STATE, "retrying", False)
+
+
+def register(check: BatchCheck) -> BatchCheck:
+    _pending().append(check)
+    return check
+
+
+def register_deopt(flag, origin: str, recover, checks: tuple) -> tuple:
+    """Append a deferred deopt check to a batch's check tuple.  `flag`
+    None means the fast lane was not taken — nothing to check."""
+    if flag is None:
+        return checks
+    return checks + (register(BatchCheck(flag, origin, recover)),)
+
+
+def verify(checks, scalars=()) -> list:
+    """Resolve `checks` now (one device-to-host transfer for all of them
+    and for `scalars`, extra device int scalars such as a lazy row
+    count); raise FastPathInvalid on any failure.  Returns the scalars'
+    host values in order."""
+    checks = list(checks)
+    items = [(i, c.flag) for i, c in enumerate(checks)
+             if c._resolved is None]
+    vals = [torch.as_tensor(f).reshape(()).to(torch.int64)
+            for _, f in items]
+    vals += [torch.as_tensor(s).reshape(()).to(torch.int64)
+             for s in scalars]
+    if vals:
+        dev = vals[0].device
+        host = torch.stack([v.to(dev) for v in vals]).cpu().tolist()
+    else:
+        host = []
+    for (i, _), v in zip(items, host):
+        checks[i]._memoize(v)
+    scalar_vals = host[len(items):]
+    pending = _pending()
+    for c in checks:
+        try:
+            pending.remove(c)
+        except ValueError:
+            pass
+    bad = [c for c in checks if c._resolved]
+    if bad:
+        raise FastPathInvalid(bad)
+    return scalar_vals
+
+
+def snapshot() -> int:
+    """Mark the registry position; checks registered after it belong to
+    the enclosing execution attempt."""
+    return len(_pending())
+
+
+def drain_since(mark: int) -> list:
+    """Remove and return every check registered after `mark`."""
+    pending = _pending()
+    out = pending[mark:]
+    del pending[mark:]
+    return out

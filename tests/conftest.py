@@ -39,6 +39,9 @@ def pytest_configure(config):
         "markers", "slowish: spawns subprocesses; slower than unit tier")
     config.addinivalue_line(
         "markers", "slow: scale-up workload tier (multi-batch + spill)")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card (CUDA kernels); skips "
+        "without one")
 
 
 @pytest.fixture

@@ -1,0 +1,92 @@
+"""Guards of spark_rapids_tpu_torch: it stands alone, its entry points run
+on the card or refuse, and its kernel wrappers launch nothing for CPU
+tensors."""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.columnar.vector import ColumnVector
+from spark_rapids_tpu_torch.exec.basic import LocalBatchSource
+from spark_rapids_tpu_torch.models import tpch
+from spark_rapids_tpu_torch.ops import grouped_window as GW
+from spark_rapids_tpu_torch.ops import kernels as K
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "spark_rapids_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> list:
+    mods = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.append(node.module)
+    return mods
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_the_reference(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "spark_rapids_tpu"), \
+            f"{path.name} imports {mod}"
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: entry points run there")
+
+
+_ENTRY_POINTS = {
+    "ColumnarBatch.from_numpy": lambda: ColumnarBatch.from_numpy(
+        {"a": np.arange(4, dtype=np.int32)}),
+    "ColumnVector.from_numpy": lambda: ColumnVector.from_numpy(
+        np.arange(4, dtype=np.int64)),
+    "gen_lineitem": lambda: tpch.gen_lineitem(np.random.default_rng(0), 8),
+    "LocalBatchSource": lambda: LocalBatchSource([[]]),
+    "build_q1_fused_kernel": lambda: tpch.build_q1_fused_kernel(1024, 256),
+    "build_q1_kernel": lambda: tpch.build_q1_kernel(1024),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card, name):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _ENTRY_POINTS[name]()
+
+
+def test_cpu_tensors_launch_no_kernel():
+    before = (K.q1_fused.launches, K.grouped_sum.launches,
+              GW.window_group_sums.launches)
+    n = 256
+    i32 = torch.zeros(n, dtype=torch.int32)
+    f32 = torch.ones(n, dtype=torch.float32)
+    table = K.q1_fused(i32, i32, f32, f32, f32, f32, i32, 5, capacity=n,
+                       cutoff=tpch.Q1_CUTOFF_DAYS)
+    assert table[0, 5].item() == 5
+    sums, counts = K.grouped_sum(i32, [f32], n, n_groups=3, capacity=n)
+    assert counts.tolist() == [n, 0, 0]
+    out = GW.window_group_sums(i32, [f32], out_cap=2, capacity=n)
+    assert out[0, 0].item() == n
+    assert (K.q1_fused.launches, K.grouped_sum.launches,
+            GW.window_group_sums.launches) == before == (0, 0, 0)
+
+
+def test_wrappers_refuse_malformed_inputs():
+    i32 = torch.zeros(64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        K.grouped_sum(i32, [i32], 64, n_groups=2, capacity=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        GW.window_group_sums(torch.zeros(128, dtype=torch.int32)[::2],
+                             [torch.ones(64)], out_cap=2, capacity=64)
+    with pytest.raises(ValueError, match="multiple of batch_rows"):
+        K.q1_fused(*([i32] * 2 + [torch.ones(64)] * 4 + [i32]), 1,
+                   capacity=64, cutoff=0, batch_rows=48)

@@ -1,0 +1,103 @@
+"""spark_rapids_tpu_torch's kernel modules against spark_rapids_tpu's Pallas
+kernels.
+
+On the CPU each wrapper runs its plain twin; the reference runs its Pallas
+kernel in interpret mode.  Inputs are made with numpy from a seed and
+handed to both.  Counts must match exactly; f32 sums within rtol 1e-5
+(the two accumulate in different orders).  tests/test_torch_gpu.py holds
+each CUDA kernel against its plain twin on a card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spark_rapids_tpu.ops.grouped_window import \
+    window_group_sums as ref_window_group_sums
+from spark_rapids_tpu.ops.pallas_kernels import (grouped_sum_pallas,
+                                                 q1_fused_pallas)
+from spark_rapids_tpu_torch.models.tpch import (LINEITEM_SCHEMA,
+                                                Q1_CUTOFF_DAYS,
+                                                gen_lineitem_arrays)
+from spark_rapids_tpu_torch.ops import grouped_window as GW
+from spark_rapids_tpu_torch.ops import kernels as K
+
+def _q1_inputs(seed, capacity):
+    cols = gen_lineitem_arrays(np.random.default_rng(seed), capacity)
+    return [cols[c] for c in LINEITEM_SCHEMA.names]
+
+
+def _q1_both(arrays, num_rows, capacity, batch_rows):
+    ref = np.asarray(q1_fused_pallas(
+        *[jnp.asarray(a) for a in arrays], jnp.asarray(num_rows),
+        capacity=capacity, cutoff=Q1_CUTOFF_DAYS, batch_rows=batch_rows,
+        interpret=True))
+    got = K.q1_fused(*[torch.from_numpy(a) for a in arrays],
+                     torch.from_numpy(np.asarray(num_rows, np.int32)),
+                     capacity=capacity, cutoff=Q1_CUTOFF_DAYS,
+                     batch_rows=batch_rows).numpy()
+    return ref, got
+
+
+def _assert_q1_equal(ref, got):
+    assert got.shape == (8, 6) and got.dtype == np.float64
+    np.testing.assert_array_equal(got[:, 5], ref[:, 5])
+    np.testing.assert_allclose(got[:, :5], ref[:, :5], rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["stacked_4x1024", "capacity_64",
+                                  "nan_in_filtered_row"])
+def test_q1_fused_matches_pallas(case):
+    if case == "stacked_4x1024":
+        cap, batch_rows = 4096, 1024
+        arrays = _q1_inputs(1, cap)
+        num_rows = np.array([1024, 1000, 17, 0], np.int32)
+    elif case == "capacity_64":
+        cap, batch_rows = 64, 0
+        arrays = _q1_inputs(2, cap)
+        num_rows = np.array([37], np.int32)
+    else:
+        cap, batch_rows = 2048, 0
+        arrays = _q1_inputs(3, cap)
+        num_rows = np.array([2000], np.int32)
+        price, ship = arrays[3], arrays[6]
+        filtered = np.nonzero(ship > Q1_CUTOFF_DAYS)[0]
+        price[filtered[:5]] = np.nan       # filtered out by shipdate
+        price[2010] = np.nan               # past num_rows
+        arrays[2][2020] = np.inf
+    ref, got = _q1_both(arrays, num_rows, cap, batch_rows)
+    assert np.isfinite(got).all()
+    _assert_q1_equal(ref, got)
+
+
+def test_grouped_sum_matches_pallas():
+    rng = np.random.default_rng(4)
+    n, g = 1 << 11, 37
+    keys = rng.integers(-2, g + 3, n).astype(np.int32)  # incl. out of range
+    vals = [rng.random(n).astype(np.float32),
+            rng.integers(0, 50, n).astype(np.float32)]
+    nrows = n - 17
+    ref_s, ref_c = grouped_sum_pallas(
+        jnp.asarray(keys), tuple(jnp.asarray(v) for v in vals), nrows,
+        n_groups=g, capacity=n, interpret_kernel=True)
+    got_s, got_c = K.grouped_sum(torch.from_numpy(keys),
+                                 [torch.from_numpy(v) for v in vals], nrows,
+                                 n_groups=g, capacity=n)
+    assert got_s.dtype == torch.float64 and got_c.dtype == torch.int32
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(ref_c))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), rtol=1e-5)
+
+
+def test_window_group_sums_matches_pallas():
+    rng = np.random.default_rng(5)
+    n, out_cap = 1 << 11, 300
+    gid = np.sort(rng.integers(0, 400, n)).astype(np.int32)  # past out_cap
+    vals = [rng.random(n).astype(np.float32) for _ in range(3)]
+    ref = np.asarray(ref_window_group_sums(
+        jnp.asarray(gid), tuple(jnp.asarray(v) for v in vals),
+        out_cap=out_cap, capacity=n, interpret_kernel=True))
+    got = GW.window_group_sums(torch.from_numpy(gid),
+                               [torch.from_numpy(v) for v in vals],
+                               out_cap=out_cap, capacity=n)
+    assert got.shape == (out_cap, 3) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
