@@ -2,35 +2,30 @@
 """Where the time goes in spark_rapids_tpu_torch's TPC-H Q1 at scale
 factor 10 on one NVIDIA card.
 
-    python3 scripts/profile_torch_q1.py [--seed N] [--top K] [--trace-dir D]
+    python3 scripts/profile_torch_q1.py [--seed N]
 
-Builds the same 8 x 2^23-capacity lineitem batches as chip_smoke.py, runs
-q1_plan(...).collect() once cold (which learns the banded-lane deopt),
-then profiles one hot collect and one stacked Q1 step with torch.profiler
-(CPU and CUDA activities).  Prints the card, the wall time of each
-profiled run, the device-busy time (sum of kernel time) and idle share,
-and the top kernels by device time; with --trace-dir, also the Chrome
-traces.
+Builds the SF10 lineitem batches of models/tpch_bench.py, as
+chip_smoke.py does, and profiles with torch.profiler (CPU and CUDA
+activities) the first, cold q1_plan(...).collect() of the process (which
+also learns the banded-lane deopt), one hot collect and one stacked Q1
+step.  Prints the card, the wall time of each profiled run, the
+device-busy time (sum of kernel time) and idle share, the top device
+kernels and the top host events by self time.
 """
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-SF10_ROWS = 59_986_052
-N_BATCHES = 8
-BATCH_CAP = 1 << 23
+TOP = 20  # rows printed per table
 
 
-def profiled(torch, fn, label: str, top: int, trace_dir) -> None:
+def profiled(torch, fn, label: str) -> None:
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -41,70 +36,54 @@ def profiled(torch, fn, label: str, top: int, trace_dir) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
     by_name: dict = {}
+    host: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:  # kernels, memcpy, memset
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        else:  # torch ops and CUDA runtime calls, by self time
+            ms, n = host.get(e.name, (0.0, 0))
+            host[e.name] = (ms + e.self_cpu_time_total / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     n_ops = sum(n for _, n in by_name.values())
     print(f"== {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} "
           f"ms, idle share {1 - busy_ms / wall_ms:.3f}, device ops {n_ops}")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
-                                )[:top]:
+                                )[:TOP]:
         print(f"  {ms:9.3f} ms  x{n:5d}  {name[:100]}")
-    if trace_dir is not None:
-        prof.export_chrome_trace(str(trace_dir / f"trace_{label}.json"))
+    print("   host events by self time:")
+    for name, (ms, n) in sorted(host.items(), key=lambda kv: -kv[1][0]
+                                )[:TOP]:
+        print(f"  {ms:9.3f} ms  x{n:5d}  {name[:100]}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--top", type=int, default=25)
-    ap.add_argument("--trace-dir", type=Path, default=None)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_q1: no CUDA device", file=sys.stderr)
         return 2
     from spark_rapids_tpu_torch import config as C
-    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
     from spark_rapids_tpu_torch.exec.basic import LocalBatchSource
     from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
     from spark_rapids_tpu_torch.ops import cuda_build
     dev = torch.device("cuda", 0)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
+    print(TB.card())
     cuda_build.build()
-    rng = np.random.default_rng(args.seed)
-    per = -(-SF10_ROWS // N_BATCHES)
-    sizes = [min(per, SF10_ROWS - i * per) for i in range(N_BATCHES)]
-    batches = [ColumnarBatch.from_numpy(tpch.gen_lineitem_arrays(rng, n),
-                                        tpch.LINEITEM_SCHEMA,
-                                        capacity=BATCH_CAP, device=dev)
-               for n in sizes]
-    if args.trace_dir is not None:
-        args.trace_dir.mkdir(parents=True, exist_ok=True)
-    conf = C.RapidsConf({"spark.rapids.sql.variableFloatAgg.enabled": True,
-                         "spark.rapids.sql.incompatibleOps.enabled": True})
-    with C.session(conf):
+    sizes, _, batches = TB.sf10_lineitem(args.seed, dev)
+    with C.session(C.RapidsConf(TB.BENCH_CONF)):
         plan = tpch.q1_plan(LocalBatchSource([batches], device=dev))
-        t0 = time.perf_counter()
+        profiled(torch, lambda: plan.collect(), "q1_plan_cold")
         plan.collect()
-        print(f"cold collect (learns the deopt): "
-              f"{time.perf_counter() - t0:.3f} s")
-        plan.collect()
-        profiled(torch, lambda: plan.collect(), "q1_plan_hot", args.top,
-                 args.trace_dir)
-    names = tpch.LINEITEM_SCHEMA.names
-    stacked = [torch.cat([b.column(n).data for b in batches])
-               for n in names]
-    nums = torch.tensor(sizes, dtype=torch.int32, device=dev)
-    step = tpch.build_q1_fused_kernel(N_BATCHES * BATCH_CAP, BATCH_CAP,
-                                      device=dev)
+        profiled(torch, lambda: plan.collect(), "q1_plan_hot")
+    stacked, nums = TB.stacked_columns(batches, sizes, dev)
+    step = tpch.build_q1_fused_kernel(TB.N_BATCHES * TB.BATCH_CAP,
+                                      TB.BATCH_CAP, device=dev)
     step(*stacked, nums)
-    profiled(torch, lambda: step(*stacked, nums).cpu(), "stacked_step",
-             args.top, args.trace_dir)
+    profiled(torch, lambda: step(*stacked, nums).cpu(), "stacked_step")
     return 0
 
 

@@ -4,10 +4,12 @@
 // Replaces: spark_rapids_tpu/ops/pallas_kernels.py q1_fused_pallas (body
 // _q1_block_kernel), the Pallas kernel of the stacked Q1 step.
 //
-// What bounds it on an H100: bytes.  Every row is read once (3 int32 + 4
-// f32 columns, 28 B/row) and the work per row is ~80 integer and f32
+// What bounds it on an H100: bytes.  Every live row is read once (3 int32
+// + 4 f32 columns, 28 B/row) and the work per row is ~80 integer and f32
 // instructions, far below the card's ~295 operations per byte, so the
-// floor is 28 B/row over 3.35 TB/s.
+// floor is 28 B per live row over 3.35 TB/s.  Padding rows past
+// num_rows[batch] are skipped before any column is read, so a stacked
+// input of capacity C moves the bytes of its live rows, not of C.
 //
 // Design: each block owns 8192 consecutive rows; each of its 256 threads
 // reads 32 of them (neighbouring threads on neighbouring rows, so loads
@@ -23,8 +25,8 @@
 // Semantics kept from the TPU kernel:
 //   - a row counts when row_in_batch < num_rows[batch] and
 //     shipdate <= cutoff (int32 compare);
-//   - a filtered row is dropped by a select, not multiplied by a 0/1 mask,
-//     so a NaN in a filtered row never reaches a sum;
+//   - a filtered row is skipped, not multiplied by a 0/1 mask, so a NaN
+//     in a filtered row never reaches a sum (the TPU kernel's `where`);
 //   - disc_price = price * (1 - disc) and charge = disc_price * (1 + tax)
 //     are computed in f32.
 #include <cuda_runtime.h>
@@ -60,10 +62,9 @@ q1_fused_kernel(const int* __restrict__ flag, const int* __restrict__ status,
     const int row = base + k * kThreads;
     if (row >= capacity) break;
     const int batch = row / batch_rows;
-    const int local = row - batch * batch_rows;
-    const bool keep = local < __ldg(num_rows + batch) &&
-                      __ldg(ship + row) <= cutoff;
-    const int g = keep ? __ldg(flag + row) * 2 + __ldg(status + row) : 7;
+    if (row - batch * batch_rows >= __ldg(num_rows + batch)) continue;
+    if (__ldg(ship + row) > cutoff) continue;
+    const int g = __ldg(flag + row) * 2 + __ldg(status + row);
     const float q = __ldg(qty + row);
     const float p = __ldg(price + row);
     const float d = __ldg(disc + row);

@@ -30,6 +30,11 @@ def test_cuda_kernels_match_plain(cuda_device):
     f32 sums rtol 1e-5 over these small shapes)."""
     dev = cuda_device
     cols = gen_lineitem_arrays(np.random.default_rng(6), 1 << 16)
+    # NaN in a padding row (batch 1 holds 100 rows) and in a filtered row
+    # must reach no sum
+    cols["l_quantity"][(1 << 14) + 200] = np.nan
+    cut = np.flatnonzero(cols["l_shipdate"][:1 << 14] > Q1_CUTOFF_DAYS)[0]
+    cols["l_extendedprice"][cut] = np.nan
     arrays = [torch.from_numpy(cols[n]).to(dev)
               for n in LINEITEM_SCHEMA.names]
     nums = torch.tensor([1 << 14, 100, 0, 5000], dtype=torch.int32,
@@ -40,6 +45,7 @@ def test_cuda_kernels_match_plain(cuda_device):
     want = K.q1_fused_plain(*arrays, nums, capacity=1 << 16,
                             cutoff=Q1_CUTOFF_DAYS, batch_rows=1 << 14)
     assert K.q1_fused.launches == before + 1
+    assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got[:, 5], want[:, 5], rtol=0, atol=0)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
 
