@@ -9,10 +9,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
   2. build the three CUDA kernels from spark_rapids_tpu_torch/csrc;
   3. hold each kernel against its plain PyTorch twin on the card at the
      main path's shapes (counts exact; f32 sums rtol 1e-5 for q1_fused
-     and 1e-4 for grouped_sum and window_group_sums, whose atomics add
-     in another order than the twin's), and time kernel, plain twin and,
-     where one exists, the single PyTorch call that computes the same
-     function;
+     and 1e-4 for grouped_sum and window_group_sums, which add in another
+     order than the twin's), check that grouped_sum's tiers A and B and
+     window_group_sums give the same bits on a second call, and time the
+     wrapper (`ms`), the kernel alone (`device_ms`, torch.profiler's CUDA
+     time over a batch of launches), the plain twin and, where one
+     exists, the single PyTorch call that computes the same function;
   4. run Q1 through the exec tree, q1_plan(...).collect(), over 8 batches
      under the TPC bench conf, against a float64 numpy golden (keys and
      counts exact, sums and averages rtol 1e-3: f32 accumulation), with
@@ -59,6 +61,29 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, kernel: str, reps: int) -> float:
+    """Mean device time of one launch of the CUDA kernel whose name
+    contains `kernel`, from torch.profiler over `reps` calls of fn()."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    require(bool(times), f"the profiler saw no {kernel} launch")
+    return sum(times) / len(times) / 1e3
+
+
+def same_bits(a, b, what: str) -> None:
+    for x, y in zip(a, b):
+        if not x.equal(y):
+            raise RuntimeError(f"{what}: a second call gave other bits")
 
 
 def bound(nbytes: int, flops: int) -> tuple[float, str]:
@@ -152,14 +177,22 @@ def main() -> int:
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:127",
         "max_abs_err": q1_err, "max_rel_err": q1_rel, "rtol": 1e-5,
         "ms": cuda_ms(torch, q1_call, 20),
+        "device_ms": device_ms(torch, q1_call, "q1_fused_kernel", 10),
         "plain_ms": cuda_ms(torch, q1_plain, 5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"{TB.N_BATCHES}x2^23 stacked"}
 
-    def grouped_case(keys, vals, nrows, n_groups, reps):
-        got_s, got_c = K.grouped_sum(keys, vals, nrows, n_groups=n_groups,
-                                     capacity=keys.numel())
-        used_shared = K.grouped_sum.last_used_shared
+    def grouped_case(keys, vals, nrows, n_groups, tier, reps):
+        def call():
+            return K.grouped_sum(keys, vals, nrows, n_groups=n_groups,
+                                 capacity=keys.numel())
+
+        got_s, got_c = call()
+        require(K.grouped_sum.last_tiers == [tier],
+                f"grouped_sum at G={n_groups} took tiers "
+                f"{K.grouped_sum.last_tiers}, expected {tier}")
+        if tier in ("A", "B"):
+            same_bits((got_s, got_c), call(), f"grouped_sum tier {tier}")
         nr = torch.full((1,), nrows, dtype=torch.int32, device=dev)
         want_s, want_c = K.grouped_sum_plain(
             keys, vals, nr, n_groups=n_groups, capacity=keys.numel())
@@ -184,10 +217,8 @@ def main() -> int:
 
         return {
             "max_abs_err": err, "max_rel_err": rel, "rtol": 1e-4,
-            "used_shared": used_shared,
-            "ms": cuda_ms(torch, lambda: K.grouped_sum(
-                keys, vals, nrows, n_groups=n_groups,
-                capacity=keys.numel()), reps),
+            "tier": tier, "ms": cuda_ms(torch, call, reps),
+            "device_ms": device_ms(torch, call, "grouped_sum", reps),
             "plain_ms": cuda_ms(torch, lambda: K.grouped_sum_plain(
                 keys, vals, nr, n_groups=n_groups,
                 capacity=keys.numel()), reps),
@@ -209,8 +240,7 @@ def main() -> int:
     q1_vals = []
     for v in val_cols:
         q1_vals += [torch.where(keep0, v, 0.0), flag]
-    gs = grouped_case(slot, q1_vals, TB.BATCH_CAP, 26, 20)
-    require(gs["used_shared"], "Q1's grouped_sum did not privatize")
+    gs = grouped_case(slot, q1_vals, TB.BATCH_CAP, 26, "A", 20)
     gs.update(name="grouped_sum", route="cuda",
               source="spark_rapids_tpu_torch/csrc/grouped_sum.cu",
               replaces="spark_rapids_tpu/ops/pallas_kernels.py:291",
@@ -219,14 +249,20 @@ def main() -> int:
     g_rng = torch.Generator(device=dev).manual_seed(args.seed)
     wide_keys = torch.randint(0, 32769, (TB.BATCH_CAP,), generator=g_rng,
                               device=dev, dtype=torch.int32)
-    gs_wide = grouped_case(wide_keys, q1_vals, TB.BATCH_CAP, 32769, 5)
-    require(not gs_wide["used_shared"],
-            "G=32769 grouped_sum did not take the global-atomics branch")
+    gs_wide = grouped_case(wide_keys, q1_vals, TB.BATCH_CAP, 32769, "C", 5)
     gs_wide["shape"] = "2^23 rows, G=32769, M=14"
+    # a table past the lane-private tier: one table per warp
+    mid_keys = torch.remainder(wide_keys, 300)
+    gs_mid = grouped_case(mid_keys, q1_vals, TB.BATCH_CAP, 300, "B", 10)
+    gs_mid["shape"] = "2^23 rows, G=300, M=14"
 
     def window_case(gid, vals, out_cap, reps):
-        got = GW.window_group_sums(gid, vals, out_cap=out_cap,
-                                   capacity=gid.numel())
+        def call():
+            return GW.window_group_sums(gid, vals, out_cap=out_cap,
+                                        capacity=gid.numel())
+
+        got = call()
+        same_bits((got,), (call(),), "window_group_sums")
         want = GW.window_group_sums_plain(gid, vals, out_cap=out_cap)
         err = (got - want).abs().max().item()
         rel = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
@@ -238,8 +274,8 @@ def main() -> int:
         lib_vals = torch.stack(vals, 1)
         return {
             "max_abs_err": err, "max_rel_err": rel, "rtol": 1e-4,
-            "ms": cuda_ms(torch, lambda: GW.window_group_sums(
-                gid, vals, out_cap=out_cap, capacity=n), reps),
+            "ms": cuda_ms(torch, call, reps),
+            "device_ms": device_ms(torch, call, "window_group_sums", reps),
             "plain_ms": cuda_ms(torch, lambda: GW.window_group_sums_plain(
                 gid, vals, out_cap=out_cap), reps),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -269,14 +305,15 @@ def main() -> int:
                 for _ in range(17)]
     wg_big = window_case(big_gid, big_vals, 1 << 20, 10)
     wg_big["shape"] = "2^22 rows, ~10^6 groups, M=17"
-    for k in list(kernels.values()) + [gs_wide, wg_big]:
+    for k in list(kernels.values()) + [gs_mid, gs_wide, wg_big]:
         print(f"kernel {k.get('name', '')} [{k['shape']}]: max_abs_err "
               f"{k['max_abs_err']:.3g} max_rel_err {k['max_rel_err']:.3g} "
-              f"(rtol {k['rtol']}), ms {k['ms']:.4f}, plain_ms "
+              f"(rtol {k['rtol']}), ms {k['ms']:.4f}, device_ms "
+              f"{k['device_ms']:.4f}, plain_ms "
               f"{k['plain_ms']:.4f}, bound_ms {k['bound_ms']:.4f} "
               f"({k['bound_by']}), library_ms {k['library_ms']}",
               flush=True)
-    del wide_keys, big_gid, big_vals, q1_vals, mvals
+    del wide_keys, mid_keys, big_gid, big_vals, q1_vals, mvals
 
     # 4. engine Q1 through the exec tree
     with C.session(C.RapidsConf(TB.BENCH_CONF)):
@@ -356,8 +393,8 @@ def main() -> int:
     kernels["window_group_sums"]["launches"] = \
         engine_launches["window_group_sums"]
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     line = {"kernels": [{k: v[k] for k in keys} for v in kernels.values()]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

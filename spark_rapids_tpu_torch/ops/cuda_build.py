@@ -24,6 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
+_FNS: dict = {}  # (source, symbol) -> loaded ctypes function
 
 
 def nvcc_path() -> str:
@@ -87,7 +88,11 @@ def function(name: str, symbol: str, argtypes: list,
              restype=ctypes.c_int):
     """The C function `symbol` of `csrc/<name>.cu`, built and loaded on
     first use, with `argtypes` declared (pointers and the stream as
-    c_void_p, so ctypes never cuts them to 32 bits)."""
+    c_void_p, so ctypes never cuts them to 32 bits).  Later calls return
+    the same function object."""
+    fn = _FNS.get((name, symbol))
+    if fn is not None:
+        return fn
     lib = _LIBS.get(name)
     if lib is None:
         build((name,))
@@ -98,6 +103,7 @@ def function(name: str, symbol: str, argtypes: list,
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = restype
+    _FNS[(name, symbol)] = fn
     return fn
 
 

@@ -9,6 +9,8 @@ that it went through the kernel.
 """
 from __future__ import annotations
 
+import array
+import contextlib
 import ctypes
 
 import torch
@@ -22,6 +24,7 @@ _Q1_SLOTS, _Q1_MEASURES = 8, 6
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
+_F32 = torch.float32
 
 
 def _check_column(x: torch.Tensor, dtype: torch.dtype, n: int, dev,
@@ -161,17 +164,155 @@ def build_q1_kernel_fused(capacity: int, cutoff: int):
 
 # ---------------------------------------------------------------------------
 # grouped sum/count over dictionary key ids
-def _measure_chunks(vals, limit: int):
-    return [list(vals[i:i + limit]) for i in range(0, len(vals), limit)]
+def _chunks(items, limit: int) -> list:
+    """`items` in consecutive lists of at most `limit`."""
+    return [list(items[i:i + limit]) for i in range(0, len(items), limit)]
 
 
-def _pointer_array(tensors):
-    return (_VP * max(len(tensors), 1))(*[t.data_ptr() for t in tensors])
+def _pointer_array(ptrs) -> array.array:
+    """The device pointers as a host array of 64-bit words; pass its
+    `buffer_info()[0]` and keep it alive over the call."""
+    return array.array("Q", ptrs or [0])
+
+
+def _raw_stream(dev: torch.device) -> int:
+    """The device's current CUDA stream as an integer handle."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is None:
+        return torch.cuda.current_stream(dev).cuda_stream
+    return get(dev.index)
+
+
+def _column_pointers(what: str, n: int, dev, first, first_dtype, vals,
+                     first_name: str = "keys") -> tuple[list, bool]:
+    """Checks that `first` (of `first_dtype`) and every f32 in `vals` is a
+    contiguous 1-D tensor of length `n` on `dev`, with a message only for
+    the column at fault (the loop is on the host path of every launch).
+    Returns their data pointers and whether all are 16-byte aligned."""
+    shape = (n,)
+    where = dev.index if dev.type == "cuda" else -1
+
+    def fits(x, dt) -> bool:
+        return (isinstance(x, torch.Tensor) and x.dtype is dt
+                and x.shape == shape and x.get_device() == where
+                and x.is_contiguous())
+
+    if not fits(first, first_dtype):
+        _check_column(first, first_dtype, n, dev, f"{what} {first_name}")
+    ptrs = [first.data_ptr()]
+    bits = ptrs[0]
+    for x in vals:
+        if (x.__class__ is not torch.Tensor or x.dtype is not _F32
+                or x.shape != shape or x.get_device() != where
+                or not x.is_contiguous()):
+            for i, y in enumerate(vals):
+                if not fits(y, _F32):
+                    _check_column(y, _F32, n, dev, f"{what} vals[{i}]")
+        p = x.data_ptr()
+        ptrs.append(p)
+        bits |= p
+    return ptrs, bits & 15 == 0
+
+
+def _device_scope(dev: torch.device):
+    """The device's context, entered only when it is not current."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 #: measures per launch (kMaxMeasures in grouped_sum.cu and
 #: window_group_sums.cu); wider inputs take several launches
 MAX_MEASURES = 64
+#: shared memory one block may opt into on an H100 (227 KB)
+H100_SMEM_OPTIN = 232_448
+#: warps per block of the lane-private tier: at least this many, at most 8
+LANE_TABLE_MIN_WARPS = 4
+_WARPS = 8  # tiers B and C run 256-thread blocks
+
+# device index -> [SM count, opt-in smem per block, tier-A ticket (int32
+# [1], zeroed once; each launch leaves it at 0), tier-A partial scratch]
+_GS_DEVICE: dict = {}
+_ROW_COUNTS: dict = {}  # (device index, stream, n) -> int32 [1] holding n
+
+
+def grouped_sum_tier(n_groups: int, n_measures: int,
+                     smem_optin: int = H100_SMEM_OPTIN) -> str:
+    """Which table layout grouped_sum.cu uses for a [n_groups,
+    n_measures + 1] table: "A" lane-private copies (4 warps' worth fit in
+    shared memory), "B" one copy per warp or block (one copy fits), "C"
+    the global table (past shared memory)."""
+    table = n_groups * (n_measures + 1) * 4
+    if table * 32 * LANE_TABLE_MIN_WARPS <= smem_optin:
+        return "A"
+    if table <= smem_optin:
+        return "B"
+    return "C"
+
+
+def grouped_sum_plan(n_groups: int, n_measures: int, capacity: int,
+                     sms: int, smem_optin: int = H100_SMEM_OPTIN) -> tuple:
+    """(tier, blocks, threads, table copies, dynamic shared bytes) of one
+    grouped_sum.cu launch."""
+    tier = grouped_sum_tier(n_groups, n_measures, smem_optin)
+    table = n_groups * (n_measures + 1) * 4
+    if tier == "A":
+        # one persistent block per SM, fewer when there are few rows
+        warps = min(_WARPS, smem_optin // (table * 32))
+        blocks = min(sms, -(-capacity // (warps * 32 * 8)))
+        return tier, blocks, warps * 32, warps * 32, warps * 32 * table
+    threads = _WARPS * 32
+    if tier == "B":
+        copies = min(_WARPS, smem_optin // table)
+        per_sm = max(1, min(_WARPS, (smem_optin + 1024)
+                            // (copies * table + 1024)))
+        blocks = min(sms * per_sm, -(-capacity // (threads * 4)))
+        return tier, blocks, threads, copies, copies * table
+    return tier, min(sms * _WARPS, -(-capacity // threads)), threads, 0, 0
+
+
+def _grouped_sum_device(dev: torch.device) -> list:
+    """`dev`'s entry of _GS_DEVICE, made on first use; making it also
+    raises the kernels' shared-memory limit on that device.  Launches on
+    one stream reuse the ticket and scratch in turn."""
+    state = _GS_DEVICE.get(dev.index)
+    if state is None:
+        init = cuda_build.function("grouped_sum", "grouped_sum_init",
+                                   [ctypes.POINTER(ctypes.c_int)] * 2)
+        sms, smem = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            cuda_build.check(init(ctypes.byref(sms), ctypes.byref(smem)),
+                             "grouped_sum init")
+        state = _GS_DEVICE[dev.index] = [
+            sms.value, smem.value,
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.empty(0, dtype=torch.float32, device=dev)]
+    return state
+
+
+def _lane_table_scratch(state: list, n: int) -> torch.Tensor:
+    if state[3].numel() < n:
+        state[3] = torch.empty(n, dtype=state[3].dtype,
+                               device=state[3].device)
+    return state[3]
+
+
+_TIER_CODE = {"A": 0, "B": 1, "C": 2}
+
+
+def _row_count(n, dev, stream: int) -> torch.Tensor:
+    """`num_rows` as an int32 [1] on the device; a Python int is filled
+    once per device, stream and value and then reused (kernels only read
+    it)."""
+    if isinstance(n, torch.Tensor):
+        return _int32_vector(n, dev)
+    key = (dev.index, stream, int(n))
+    t = _ROW_COUNTS.get(key)
+    if t is None:
+        if len(_ROW_COUNTS) >= 256:
+            _ROW_COUNTS.clear()
+        t = _ROW_COUNTS[key] = _int32_vector(int(n), dev)
+    return t
 
 
 def grouped_sum(keys, vals, num_rows, *, n_groups: int, capacity: int):
@@ -179,46 +320,79 @@ def grouped_sum(keys, vals, num_rows, *, n_groups: int, capacity: int):
     [0, n_groups), `vals` a sequence of f32 [capacity].  Rows at or past
     `num_rows`, and rows whose key is out of range, are dropped.  Returns
     ([n_groups, len(vals)] float64 sums of f32 accumulations, [n_groups]
-    int32 counts, exact)."""
+    int32 counts, exact).  On the card, tiers A and B (see
+    grouped_sum_tier) give the same bits on every call."""
     dev = keys.device
-    _check_column(keys, torch.int32, capacity, dev, "grouped_sum keys")
-    for i, v in enumerate(vals):
-        _check_column(v, torch.float32, capacity, dev,
-                      f"grouped_sum vals[{i}]")
+    ptrs, vec = _column_pointers("grouped_sum", capacity, dev, keys,
+                                 torch.int32, vals)
     if n_groups <= 0:
         raise ValueError(f"grouped_sum: n_groups {n_groups} must be > 0")
-    nrows = _int32_vector(num_rows, dev)
     if not _on_cuda(dev, "grouped_sum"):
-        return grouped_sum_plain(keys, vals, nrows, n_groups=n_groups,
-                                 capacity=capacity)
+        return grouped_sum_plain(keys, vals, _int32_vector(num_rows, dev),
+                                 n_groups=n_groups, capacity=capacity)
     launch = cuda_build.function(
         "grouped_sum", "grouped_sum_launch",
-        [_VP, _VP, _INT, _VP, _INT, _INT, _VP, _INT, _VP,
-         ctypes.POINTER(ctypes.c_int), _VP])
-    m = len(vals)
-    sums = torch.zeros((n_groups, m), dtype=torch.float32, device=dev)
-    counts = torch.zeros(n_groups, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    used_shared = ctypes.c_int(0)
-    chunks = _measure_chunks(list(vals), MAX_MEASURES) or [[]]
-    off = 0
-    for ci, chunk in enumerate(chunks):
-        out = sums[:, off:] if m else sums
-        with torch.cuda.device(dev):
-            err = launch(keys.data_ptr(), _pointer_array(chunk), len(chunk),
-                         nrows.data_ptr(), capacity, n_groups,
-                         out.data_ptr(), max(m, 1),
-                         counts.data_ptr() if ci == 0 else None,
-                         ctypes.byref(used_shared), stream)
-        cuda_build.check(err, "grouped_sum launch")
-        grouped_sum.launches += 1
-        off += len(chunk)
-    grouped_sum.last_used_shared = bool(used_shared.value)
-    return sums.to(torch.float64), counts
+        [_INT, _VP, _VP, _INT, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
+         _INT, _VP, _INT, _VP, _INT, _VP, _VP, _VP])
+    state = _grouped_sum_device(dev)
+    sms, smem_optin, ticket = state[0], state[1], state[2]
+    stream = _raw_stream(dev)
+    nrows = _row_count(num_rows, dev, stream)
+    m = len(ptrs) - 1
+    sums = torch.empty((n_groups, m), dtype=torch.float64, device=dev)
+    counts, tiers, off = None, [], 0
+    with _device_scope(dev):
+        for chunk in _chunks(ptrs[1:], MAX_MEASURES) or [[]]:
+            mc = len(chunk)
+            ptr_array = _pointer_array(chunk)
+            tier, blocks, threads, copies, smem = grouped_sum_plan(
+                n_groups, mc, capacity, sms, smem_optin)
+            cnt = None
+            if tier == "A":
+                # per-block rows padded to a multiple of 4 floats
+                scratch = _lane_table_scratch(
+                    state, blocks * (-(-n_groups * (mc + 1) // 4) * 4))
+                stride = 0
+                if counts is None:
+                    cnt = counts = torch.empty(n_groups, dtype=torch.int32,
+                                               device=dev)
+            elif tier == "B":
+                scratch = torch.empty((blocks, n_groups, mc + 1),
+                                      dtype=torch.float32, device=dev)
+                stride = 0
+            else:
+                stride = max(4, -(-mc // 4) * 4)
+                scratch = torch.zeros((n_groups, stride),
+                                      dtype=torch.float32, device=dev)
+                if counts is None:
+                    cnt = counts = torch.zeros(n_groups, dtype=torch.int32,
+                                               device=dev)
+            err = launch(_TIER_CODE[tier], ptrs[0],
+                         ptr_array.buffer_info()[0], mc, nrows.data_ptr(),
+                         capacity, n_groups, blocks, threads, copies, smem,
+                         int(vec), scratch.data_ptr(), stride,
+                         sums.data_ptr() + 8 * off, max(m, 1),
+                         None if cnt is None else cnt.data_ptr(),
+                         ticket.data_ptr(), stream)
+            cuda_build.check(err, "grouped_sum launch")
+            grouped_sum.launches += 1
+            tiers.append(tier)
+            if tier == "B":
+                # float64 combine of the per-block partials; counts exact
+                sums[:, off:off + mc] = torch.sum(
+                    scratch[:, :, :mc], dim=0, dtype=torch.float64)
+                if counts is None:
+                    counts = torch.sum(scratch.view(torch.int32)[:, :, mc],
+                                       dim=0, dtype=torch.int32)
+            elif tier == "C":
+                sums[:, off:off + mc] = scratch[:, :mc]
+            off += mc
+    grouped_sum.last_tiers = tiers
+    return sums, counts
 
 
 grouped_sum.launches = 0
-grouped_sum.last_used_shared = None
+grouped_sum.last_tiers = None
 
 
 #: rows per f32 partial table in grouped_sum_plain

@@ -49,23 +49,97 @@ def test_cuda_kernels_match_plain(cuda_device):
     torch.testing.assert_close(got[:, 5], want[:, 5], rtol=0, atol=0)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
 
-    gen = torch.Generator(device=dev).manual_seed(7)
-    n = 1 << 16
-    vals = [torch.rand(n, generator=gen, device=dev) for _ in range(3)]
-    for g in (37, 40000):  # shared-memory and global-atomics branches
-        keys = torch.randint(-2, g + 3, (n,), generator=gen, device=dev,
-                             dtype=torch.int32)
-        s, c = K.grouped_sum(keys, vals, n - 9, n_groups=g, capacity=n)
-        ws, wc = K.grouped_sum_plain(
-            keys, vals, torch.full((1,), n - 9, dtype=torch.int32,
-                                   device=dev), n_groups=g, capacity=n)
-        assert K.grouped_sum.last_used_shared == (g == 37)
-        torch.testing.assert_close(c, wc, rtol=0, atol=0)
-        torch.testing.assert_close(s, ws, rtol=1e-5, atol=1e-9)
+    torch.cuda.synchronize()
 
-    gid = torch.sort(torch.randint(-1, 5000, (n,), generator=gen,
-                                   device=dev))[0].to(torch.int32)
-    got = GW.window_group_sums(gid, vals, out_cap=4000, capacity=n)
-    want = GW.window_group_sums_plain(gid, vals, out_cap=4000)
+
+def _plain_rows(n, dev):
+    return torch.full((1,), n, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_groups,n_measures,tier", [
+    (26, 14, "A"),     # Q1's dictionary-lane table
+    (37, 3, "A"),
+    (300, 14, "B"),    # a table per warp
+    (3000, 14, "B"),   # one table per block, shared-memory atomics
+    (40000, 3, "C"),   # past shared memory: global vector atomics
+    (5, 70, "A"),      # two launches (64 + 6 measures)
+])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_grouped_sum_tiers_match_plain(cuda_device, n_groups, n_measures,
+                                       tier, aligned):
+    """Each tier against the plain twin (counts exact, f32 sums rtol
+    1e-5), with out-of-range keys, a row count that is no multiple of 8,
+    and columns that are not 16-byte aligned; tiers A and B with a table
+    per warp give the same bits twice."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(n_groups + n_measures)
+    n, nrows = 1 << 16, (1 << 16) - 9
+    lead = 0 if aligned else 1
+    keys = torch.randint(-2, n_groups + 3, (n + lead,), generator=gen,
+                         device=dev, dtype=torch.int32)[lead:]
+    vals = [torch.rand(n + lead, generator=gen, device=dev)[lead:]
+            for _ in range(n_measures)]
+    s, c = K.grouped_sum(keys, vals, nrows, n_groups=n_groups, capacity=n)
+    assert K.grouped_sum.last_tiers[0] == tier
+    ws, wc = K.grouped_sum_plain(keys, vals, _plain_rows(nrows, dev),
+                                 n_groups=n_groups, capacity=n)
+    torch.testing.assert_close(c, wc, rtol=0, atol=0)
+    torch.testing.assert_close(s, ws, rtol=1e-5, atol=1e-9)
+    deterministic = tier == "A" or (tier == "B" and n_groups == 300)
+    if deterministic:
+        s2, c2 = K.grouped_sum(keys, vals, nrows, n_groups=n_groups,
+                               capacity=n)
+        assert torch.equal(s, s2) and torch.equal(c, c2)
+    torch.cuda.synchronize()
+
+
+def _window_case(name, dev):
+    """(gid, out_cap) of one edge case of window_group_sums."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = 1 << 16
+    if name == "random":        # leading -1 ids, gaps, ids past out_cap
+        gid = torch.sort(torch.randint(-1, 5000, (n,), generator=gen,
+                                       device=dev))[0]
+        return gid.to(torch.int32), 4000
+    if name == "one_run":       # a single run over every row and tile
+        return torch.full((n,), 7, dtype=torch.int32, device=dev), 100
+    if name == "empty_batch":   # every row numbered -1
+        return torch.full((n,), -1, dtype=torch.int32, device=dev), 50
+    if name == "big_gaps":      # wide gaps, runs crossing tiles
+        gid = torch.arange(n, device=dev) // 3000 * 1000 + 3
+        return gid.to(torch.int32), 30000
+    if name == "q1_merge":      # 48 live rows, the last id repeated
+        gid = torch.clamp(torch.arange(1 << 14, device=dev) // 8, max=5)
+        return gid.to(torch.int32), 1 << 14
+    # ragged: a capacity that fills no whole tile or quad
+    gid = torch.sort(torch.randint(0, 300, (n - 1001,), generator=gen,
+                                   device=dev))[0]
+    return gid.to(torch.int32), 256
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["random", "one_run", "empty_batch",
+                                  "big_gaps", "q1_merge", "ragged"])
+@pytest.mark.parametrize("n_measures", [17, 70])
+def test_window_group_sums_match_plain(cuda_device, name, n_measures):
+    """The kernel against the plain twin (f32 sums rtol 1e-5; absent ids
+    exactly 0, though the output is not zero-filled first), and the same
+    bits on a second call."""
+    dev = cuda_device
+    gid, out_cap = _window_case(name, dev)
+    gen = torch.Generator(device=dev).manual_seed(n_measures)
+    vals = [torch.rand(gid.numel(), generator=gen, device=dev)
+            for _ in range(n_measures)]
+    # dirty the allocator's free blocks, so unwritten cells would show
+    torch.full((out_cap * n_measures * 2,), float("nan"), device=dev)
+    got = GW.window_group_sums(gid, vals, out_cap=out_cap,
+                               capacity=gid.numel())
+    want = GW.window_group_sums_plain(gid, vals, out_cap=out_cap)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got == 0, want == 0)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    again = GW.window_group_sums(gid, vals, out_cap=out_cap,
+                                 capacity=gid.numel())
+    assert torch.equal(got, again)
     torch.cuda.synchronize()

@@ -70,12 +70,16 @@ def test_q1_fused_matches_pallas(case):
     _assert_q1_equal(ref, got)
 
 
-def test_grouped_sum_matches_pallas():
+@pytest.mark.parametrize("n_groups,n_measures", [
+    (37, 2),    # out-of-range keys, rows past num_rows
+    (151, 2),   # the largest table of the lane-private tier at M = 2
+])
+def test_grouped_sum_matches_pallas(n_groups, n_measures):
     rng = np.random.default_rng(4)
-    n, g = 1 << 11, 37
+    n, g = 1 << 11, n_groups
     keys = rng.integers(-2, g + 3, n).astype(np.int32)  # incl. out of range
     vals = [rng.random(n).astype(np.float32),
-            rng.integers(0, 50, n).astype(np.float32)]
+            rng.integers(0, 50, n).astype(np.float32)][:n_measures]
     nrows = n - 17
     ref_s, ref_c = grouped_sum_pallas(
         jnp.asarray(keys), tuple(jnp.asarray(v) for v in vals), nrows,
@@ -88,16 +92,66 @@ def test_grouped_sum_matches_pallas():
     np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), rtol=1e-5)
 
 
-def test_window_group_sums_matches_pallas():
+@pytest.mark.parametrize("n_groups,n_measures,tier", [
+    (26, 14, "A"),      # Q1's dictionary-lane table
+    (151, 2, "A"),      # 4 lane-private warps still fit
+    (152, 2, "B"),
+    (300, 14, "B"),
+    (3874, 14, "B"),    # one table in 227 KB
+    (3875, 14, "C"),
+    (32769, 14, "C"),
+])
+def test_grouped_sum_tier(n_groups, n_measures, tier):
+    """The table layout each shape gets on an H100 (227 KB of shared
+    memory a block), and the launch that goes with it."""
+    assert K.grouped_sum_tier(n_groups, n_measures) == tier
+    got, blocks, threads, copies, smem = K.grouped_sum_plan(
+        n_groups, n_measures, 1 << 23, 132)
+    assert got == tier and 0 < blocks <= 132 * 8 and threads % 32 == 0
+    assert smem <= K.H100_SMEM_OPTIN
+    if tier == "A":
+        assert blocks == 132 and threads >= 32 * K.LANE_TABLE_MIN_WARPS
+        assert smem == threads * n_groups * (n_measures + 1) * 4
+    elif tier == "B":
+        assert smem == copies * n_groups * (n_measures + 1) * 4
+
+
+def _window_ids(case, rng, n):
+    """(gid, out_cap, whether the reference's assumption holds: a sorted
+    gid that grows by at most 1 per row)."""
+    if case == "past_out_cap":
+        return np.sort(rng.integers(0, 400, n)).astype(np.int32), 300, True
+    if case == "one_run":
+        return np.full(n, 7, np.int32), 100, True
+    if case == "leading_minus_one":
+        gid = np.sort(rng.integers(0, 700, n))
+        gid[:100] = -1
+        return gid.astype(np.int32), 512, False
+    # gaps of 40 ids, and ids past out_cap
+    return (np.arange(n) // 10 * 41).astype(np.int32), 6000, False
+
+
+@pytest.mark.parametrize("case", ["past_out_cap", "one_run",
+                                  "leading_minus_one", "gaps"])
+def test_window_group_sums_matches_pallas(case):
     rng = np.random.default_rng(5)
-    n, out_cap = 1 << 11, 300
-    gid = np.sort(rng.integers(0, 400, n)).astype(np.int32)  # past out_cap
+    n = 1 << 11
+    gid, out_cap, ref_holds = _window_ids(case, rng, n)
     vals = [rng.random(n).astype(np.float32) for _ in range(3)]
-    ref = np.asarray(ref_window_group_sums(
-        jnp.asarray(gid), tuple(jnp.asarray(v) for v in vals),
-        out_cap=out_cap, capacity=n, interpret_kernel=True))
+    if ref_holds:
+        ref = np.asarray(ref_window_group_sums(
+            jnp.asarray(gid), tuple(jnp.asarray(v) for v in vals),
+            out_cap=out_cap, capacity=n, interpret_kernel=True))
+    else:  # float64 sums by numpy
+        keep = (gid >= 0) & (gid < out_cap)
+        ref = np.stack([np.bincount(gid[keep], weights=v[keep],
+                                    minlength=out_cap)[:out_cap]
+                        for v in vals], axis=1)
     got = GW.window_group_sums(torch.from_numpy(gid),
                                [torch.from_numpy(v) for v in vals],
                                out_cap=out_cap, capacity=n)
     assert got.shape == (out_cap, 3) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
+    present = np.zeros(out_cap, bool)
+    present[gid[(gid >= 0) & (gid < out_cap)]] = True
+    assert not got.numpy()[~present].any()
