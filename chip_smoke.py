@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke run of spark_rapids_tpu_torch: TPC-H Q1 at scale factor 10
+"""GPU smoke run of spark_rapids_tpu_torch: TPC-H Q1 and Q6 at scale factor 10
 (59,986,052 lineitem rows, TPC-H spec 4.2.5) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
@@ -10,7 +10,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
   3. hold each kernel against its plain PyTorch twin on the card at the
      main path's shapes (counts exact; f32 sums rtol 1e-5 for q1_fused
      and 1e-4 for grouped_sum and window_group_sums, which add in another
-     order than the twin's), check that grouped_sum's tiers A and B and
+     order than the twin's; exact for window_group_sums at the shape of
+     planner Q1's partial aggregate, whose integer sums f32 holds
+     exactly), check that grouped_sum's tiers A and B and
      window_group_sums give the same bits on a second call, and time the
      wrapper (`ms`), the kernel alone (`device_ms`, torch.profiler's CUDA
      time over a batch of launches), the plain twin and, where one
@@ -24,7 +26,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
      and the plan's own probe and deopt re-run;
   5. run the stacked Q1 step, build_q1_fused_kernel, on the same data
      against the same golden (rtol 1e-5);
-  6. print the kernels line and, last, the device line.
+  6. run TPC-H Q1 and Q6 as a user submits them, through the planner,
+     collect(accelerate(QUERIES[n](sources(tables, 16), run), conf)),
+     over all 16 columns of SF10 lineitem (tpch_bench.sf10_lineitem_frame)
+     under the TPC bench conf with spark.rapids.sql.test.enabled, so a
+     CPU island anywhere in the plan raises: the exec tree must be the
+     planner's (partial aggregate with the filter fused, exchanges of 16
+     partitions), the results must hold against a float64 numpy golden
+     (keys and counts exact, sums and averages rtol 1e-3: the banded
+     lane adds in f32), and window_group_sums must launch during the Q1
+     collects; accelerate (with the upload) and collect are timed apart,
+     cold and hot;
+  7. print the kernels line and, last, the device line.
 Without a CUDA device, or without the package beside it, it exits
 non-zero before printing any result.
 """
@@ -107,6 +120,113 @@ def golden_q1(batches_np) -> dict:
         for j, w in enumerate((qty, price, dp, ch, disc, None)):
             acc[:, j] += np.bincount(g, weights=w, minlength=6)[:6]
     return {"sums": acc[:, :5], "count": acc[:, 5]}
+
+
+Q1_TREE = ["SortExec", "CoalesceBatchesExec", "ShuffleExchangeExec",
+           "HashAggregateExec", "ShuffleExchangeExec", "HashAggregateExec",
+           "LocalBatchSource"]
+Q6_TREE = ["HashAggregateExec", "ShuffleExchangeExec", "HashAggregateExec",
+           "LocalBatchSource"]
+
+
+def tree(plan) -> list:
+    """(class name, describe()) of every exec, in tree order."""
+    return [(type(plan).__name__, plan.describe())] + [
+        t for c in plan.children for t in tree(c)]
+
+
+def golden_planner(a: dict, days) -> tuple[dict, float]:
+    """float64 numpy Q1 per (returnflag, linestatus) code pair present,
+    in key order, and Q6's revenue, over sf10_lineitem_frame's arrays."""
+    keep = a["l_shipdate"] <= days("1998-09-02")
+    g = (a["l_returnflag"].astype(np.int64) * 2 + a["l_linestatus"])[keep]
+    qty, price = a["l_quantity"][keep], a["l_extendedprice"][keep]
+    disc, tax = a["l_discount"][keep], a["l_tax"][keep]
+    dp = price * (1.0 - disc)
+    cols = [np.bincount(g, weights=w, minlength=6)
+            for w in (qty, price, dp, dp * (1.0 + tax), disc)]
+    cnt = np.bincount(g, minlength=6)
+    live = np.flatnonzero(cnt)
+    q1 = {"keys": [("ANR"[i // 2], "FO"[i % 2]) for i in live],
+          "count": cnt[live],
+          "want": np.column_stack([c[live] for c in cols[:4]]
+                                  + [cols[0][live] / cnt[live],
+                                     cols[1][live] / cnt[live],
+                                     cols[4][live] / cnt[live]])}
+    sel = ((a["l_shipdate"] >= days("1994-01-01"))
+           & (a["l_shipdate"] < days("1995-01-01"))
+           & (a["l_discount"] >= 0.05) & (a["l_discount"] <= 0.07)
+           & (a["l_quantity"] < 24.0))
+    return q1, float(np.sum(a["l_extendedprice"][sel]
+                            * a["l_discount"][sel]))
+
+
+def planner_phase(torch, dev, seed: int, GW) -> dict:
+    """Phase 6: planner Q1 and Q6 at SF10 (see the module docstring)."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.models.tpch_queries import QUERIES
+    from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
+    t0 = time.perf_counter()
+    frame, arrays = TB.sf10_lineitem_frame(seed)
+    tables = {"lineitem": frame}
+    print(f"planner data: {len(frame)} lineitem rows, 16 columns, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    q1_gold, q6_gold = golden_planner(arrays, TD.days)
+    del arrays
+    conf = C.RapidsConf({**TB.BENCH_CONF, C.TEST_ENABLED.key: True})
+    n = TB.SF10_PARTITIONS
+    out = {"rel": 0.0}
+    GW.window_group_sums.launches = 0
+    for q in (1, 6):
+        for run in ("cold", "hot"):
+            cpu_plan = QUERIES[q](TD.sources(tables, n), None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan = accelerate(cpu_plan, conf, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            df = collect(plan, conf)
+            t2 = time.perf_counter()
+            got = tree(plan)
+            require([name for name, _ in got] == (Q1_TREE if q == 1
+                                                  else Q6_TREE),
+                    f"planner q{q} exec tree: {got}")
+            exchanges = [d for name, d in got
+                         if name == "ShuffleExchangeExec"]
+            require(exchanges == (
+                [f"ShuffleExchangeExec(RangePartitioning, n={n})",
+                 f"ShuffleExchangeExec(HashPartitioning, n={n})"] if q == 1
+                else ["ShuffleExchangeExec(SinglePartitioning, n=1)"]),
+                f"planner q{q} exchanges: {exchanges}")
+            require("fused=[Filter]" in got[-2][1],
+                    f"planner q{q} partial aggregate: {got[-2][1]}")
+            if q == 1:
+                require(list(zip(df["l_returnflag"], df["l_linestatus"]))
+                        == q1_gold["keys"], "planner Q1 group keys differ")
+                require(np.array_equal(df["count_order"].to_numpy(),
+                                       q1_gold["count"]),
+                        "planner Q1 counts differ")
+                vals = df[Q1_NAMES[:7]].to_numpy(np.float64)
+                rel = float(np.max(np.abs(vals - q1_gold["want"])
+                                   / np.abs(q1_gold["want"])))
+                out["q1_launches"] = GW.window_group_sums.launches
+            else:
+                require(len(df) == 1, "planner Q6 is one row")
+                rel = abs(float(df["revenue"][0]) - q6_gold) / abs(q6_gold)
+            require(rel <= 1e-3, f"planner q{q} rel err {rel}")
+            out["rel"] = max(out["rel"], rel)
+            print(f"planner q{q} SF10 {run}: accelerate {t1 - t0:.3f} s "
+                  f"(with the upload), collect {t2 - t1:.3f} s, rel err "
+                  f"{rel:.3g}", flush=True)
+            del cpu_plan, plan, df
+    require(out["q1_launches"] >= 1,
+            "window_group_sums never launched in planner Q1")
+    print(f"planner SF10 against the float64 golden: keys and counts "
+          f"exact, max rel err {out['rel']:.3g}; planner Q1 "
+          f"window_group_sums launches {out['q1_launches']}", flush=True)
+    return out
 
 
 def main() -> int:
@@ -305,7 +425,21 @@ def main() -> int:
                 for _ in range(17)]
     wg_big = window_case(big_gid, big_vals, 1 << 20, 10)
     wg_big["shape"] = "2^22 rows, ~10^6 groups, M=17"
-    for k in list(kernels.values()) + [gs_mid, gs_wide, wg_big]:
+    # planner Q1's partial aggregate: one partition of 3,749,129 live rows
+    # at capacity 2^22 in 4 runs that cross ~900 tiles each; small
+    # integers keep every f32 sum exact, so kernel and twin must agree
+    # to the bit
+    part_rows = 3_749_129
+    iota = torch.arange(1 << 22, device=dev)
+    run_gid = torch.clamp(iota * 4 // part_rows, max=3).to(torch.int32)
+    run_vals = [torch.where(iota < part_rows, torch.randint(
+        0, 16, (1 << 22,), generator=g_rng, device=dev), 0).float()
+        for _ in range(17)]
+    wg_runs = window_case(run_gid, run_vals, 1 << 14, 10)
+    require(wg_runs["max_abs_err"] == 0.0,
+            "window_group_sums at planner Q1's shape is not exact")
+    wg_runs["shape"] = "2^22 rows (3,749,129 live), 4 runs, out_cap 2^14, M=17"
+    for k in list(kernels.values()) + [gs_mid, gs_wide, wg_big, wg_runs]:
         print(f"kernel {k.get('name', '')} [{k['shape']}]: max_abs_err "
               f"{k['max_abs_err']:.3g} max_rel_err {k['max_rel_err']:.3g} "
               f"(rtol {k['rtol']}), ms {k['ms']:.4f}, device_ms "
@@ -313,7 +447,7 @@ def main() -> int:
               f"{k['plain_ms']:.4f}, bound_ms {k['bound_ms']:.4f} "
               f"({k['bound_by']}), library_ms {k['library_ms']}",
               flush=True)
-    del wide_keys, mid_keys, big_gid, big_vals, q1_vals, mvals
+    del wide_keys, mid_keys, big_gid, big_vals, q1_vals, mvals, run_vals
 
     # 4. engine Q1 through the exec tree
     with C.session(C.RapidsConf(TB.BENCH_CONF)):
@@ -388,14 +522,20 @@ def main() -> int:
           f"{step_hot_s:.4f} s, rel err {step_rel:.3g}, q1_fused "
           f"launches {step_launches}", flush=True)
 
+    # 6. planner Q1 and Q6
+    planner = planner_phase(torch, dev, args.seed, GW)
+
     kernels["q1_fused"]["launches"] = step_launches
     kernels["grouped_sum"]["launches"] = engine_launches["grouped_sum"]
     kernels["window_group_sums"]["launches"] = \
         engine_launches["window_group_sums"]
+    kernels["window_group_sums"]["planner_q1_launches"] = \
+        planner["q1_launches"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
-    line = {"kernels": [{k: v[k] for k in keys} for v in kernels.values()]}
+            "bound_by", "library_ms", "planner_q1_launches")
+    line = {"kernels": [{k: v[k] for k in keys if k in v}
+                        for v in kernels.values()]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

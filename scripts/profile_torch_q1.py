@@ -8,7 +8,9 @@ Builds the SF10 lineitem batches of models/tpch_bench.py, as
 chip_smoke.py does, and profiles with torch.profiler (CPU and CUDA
 activities) the first, cold q1_plan(...).collect() of the process (which
 also learns the banded-lane deopt), one hot collect and one stacked Q1
-step.  Prints the card, the wall time of each profiled run, the
+step; then, through the planner, one hot collect of TPC-H Q1 over the 16
+partitions of tpch_bench.sf10_lineitem_frame (accelerated once, collected
+once cold first).  Prints the card, the wall time of each profiled run, the
 device-busy time (sum of kernel time) and idle share, the top device
 kernels and the top host events by self time.
 """
@@ -84,6 +86,17 @@ def main() -> int:
                                       TB.BATCH_CAP, device=dev)
     step(*stacked, nums)
     profiled(torch, lambda: step(*stacked, nums).cpu(), "stacked_step")
+    del batches, stacked, step, plan
+
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.models.tpch_queries import QUERIES
+    from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
+    frame, _ = TB.sf10_lineitem_frame(args.seed)
+    conf = C.RapidsConf(TB.BENCH_CONF)
+    planner = accelerate(QUERIES[1](TD.sources(
+        {"lineitem": frame}, TB.SF10_PARTITIONS), None), conf, device=dev)
+    collect(planner, conf)
+    profiled(torch, lambda: collect(planner, conf), "planner_q1_hot")
     return 0
 
 

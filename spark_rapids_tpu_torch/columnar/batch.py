@@ -1,5 +1,5 @@
 """ColumnarBatch: the unit of execution (port of
-spark_rapids_tpu/columnar/batch.py, numeric types only).
+spark_rapids_tpu/columnar/batch.py).
 
 A batch's row count may be a Python int or a device scalar still being
 computed; reading `.num_rows` of a device count syncs, while
@@ -20,7 +20,8 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.vector import (
-    MIN_CAPACITY, ColumnVector, bucket_capacity, resolve_device)
+    MIN_CAPACITY, MIN_CHAR_CAP, ColumnVector, _pad_chars, bucket_capacity,
+    resolve_device)
 
 
 class ColumnarBatch:
@@ -147,7 +148,9 @@ class ColumnarBatch:
         n = self.num_rows
         for f, c in zip(self.schema.fields, self.columns):
             vals, validity = c.to_numpy(n)
-            if validity.all():
+            if f.dtype.is_string:
+                out[f.name] = pd.Series(list(vals), dtype=object)
+            elif validity.all():
                 out[f.name] = pd.Series(vals)
             else:
                 s = pd.Series(vals).astype(object)
@@ -156,6 +159,40 @@ class ColumnarBatch:
         return pd.DataFrame(out)
 
     # -- structural ---------------------------------------------------------
+    def gather(self, indices: torch.Tensor, index_valid: torch.Tensor,
+               new_num_rows) -> "ColumnarBatch":
+        if self.sparse is not None:
+            raise ValueError("gather() addresses dense rows")
+        return ColumnarBatch(
+            self.schema, [c.gather(indices, index_valid)
+                          for c in self.columns], new_num_rows, self.checks)
+
+    def slice(self, start: int, length: int) -> "ColumnarBatch":
+        """Rows [start, start + length) as a tightly bucketed batch."""
+        if self.sparse is not None:
+            return self.dense().slice(start, length)
+        length = max(0, min(length, self.num_rows - start))
+        cap = bucket_capacity(length)
+        i = torch.arange(cap, device=self.device)
+        valid = i < length
+        return self.gather(torch.where(valid, i + start, 0), valid, length)
+
+    def take_head(self, n: int) -> "ColumnarBatch":
+        """The first min(n, num_rows) rows at capacity bucket(n), without
+        reading a lazy row count back."""
+        if self.sparse is not None:
+            return self.dense().take_head(n)
+        cap = bucket_capacity(n)
+        if cap >= self.capacity:
+            rows = (min(self._rows, n) if self.num_rows_known
+                    else torch.clamp(self.num_rows_i32, max=n))
+            return ColumnarBatch(self.schema, self.columns, rows,
+                                 self.checks)
+        count = torch.clamp(self.num_rows_i32, max=n)
+        i = torch.arange(cap, device=self.device)
+        rows = min(self._rows, n) if self.num_rows_known else count
+        return self.gather(i, i < count, rows)
+
     def with_capacity(self, capacity: int) -> "ColumnarBatch":
         if capacity == self.capacity:
             return self
@@ -170,12 +207,21 @@ class ColumnarBatch:
 
 def empty_batch(schema: T.Schema, device) -> ColumnarBatch:
     """Zero-row batch with properly-typed zero-filled columns."""
-    cols = [ColumnVector(f.dtype,
-                         torch.zeros(MIN_CAPACITY, dtype=f.dtype.torch_dtype,
-                                     device=device),
-                         torch.zeros(MIN_CAPACITY, dtype=torch.bool,
-                                     device=device))
-            for f in schema.fields]
+    cols = []
+    for f in schema.fields:
+        validity = torch.zeros(MIN_CAPACITY, dtype=torch.bool,
+                               device=device)
+        if f.dtype.is_string:
+            cols.append(ColumnVector(
+                f.dtype, torch.zeros((MIN_CAPACITY, MIN_CHAR_CAP),
+                                     dtype=torch.uint8, device=device),
+                validity, lengths=torch.zeros(
+                    MIN_CAPACITY, dtype=torch.int32, device=device)))
+        else:
+            cols.append(ColumnVector(
+                f.dtype, torch.zeros(MIN_CAPACITY,
+                                     dtype=f.dtype.torch_dtype,
+                                     device=device), validity))
     return ColumnarBatch(schema, cols, 0)
 
 
@@ -227,22 +273,26 @@ def concat_batches(batches: list[ColumnarBatch],
         rows = cum[-1].to(torch.int32)
         idx = torch.where(i < rows, idx, 0)
     valid = torch.arange(cap, device=dev) < rows
-    cols = []
-    for (data, validity, narrow), f in zip(stacked, schema.fields):
-        cols.append(ColumnVector(
-            f.dtype, data[idx], validity[idx] & valid,
-            None if narrow is None else narrow[idx]))
-    return ColumnarBatch(schema, cols, rows, checks)
+    return ColumnarBatch(schema, [c.gather(idx, valid) for c in stacked],
+                         rows, checks)
 
 
-def _stack_columns(batches, schema):
+def _stack_columns(batches, schema) -> list[ColumnVector]:
+    """Each column of `batches` stacked end to end (string columns
+    padded to their widest char capacity first)."""
     out = []
-    for ci in range(len(schema.fields)):
+    for ci, f in enumerate(schema.fields):
         vecs = [b.columns[ci] for b in batches]
+        if f.dtype.is_string:
+            cc = max(v.char_cap for v in vecs)
+            vecs = [_pad_chars(v, cc) for v in vecs]
         narrow = (torch.cat([v.narrow for v in vecs])
                   if all(v.narrow is not None for v in vecs) else None)
-        out.append((torch.cat([v.data for v in vecs]),
-                    torch.cat([v.validity for v in vecs]), narrow))
+        lengths = (torch.cat([v.lengths for v in vecs])
+                   if f.dtype.is_string else None)
+        out.append(ColumnVector(f.dtype, torch.cat([v.data for v in vecs]),
+                                torch.cat([v.validity for v in vecs]),
+                                narrow, lengths))
     return out
 
 
@@ -266,12 +316,5 @@ def _concat_sparse(batches) -> ColumnarBatch:
         total = torch.stack([b.num_rows_i32 for b in batches]).sum().to(
             torch.int32)
 
-    def pad_tail(x):
-        if not pad or x is None:
-            return x
-        return torch.cat([x, x.new_zeros(pad)])
-
-    cols = [ColumnVector(f.dtype, pad_tail(d), pad_tail(v), pad_tail(nw))
-            for (d, v, nw), f in zip(_stack_columns(batches, schema),
-                                     schema.fields)]
+    cols = [c.with_capacity(cap) for c in _stack_columns(batches, schema)]
     return ColumnarBatch(schema, cols, total, checks, sparse=mask)

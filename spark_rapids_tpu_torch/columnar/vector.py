@@ -1,12 +1,15 @@
 """Column vectors: validity-masked torch tensors padded to a bucketed
-capacity (port of spark_rapids_tpu/columnar/vector.py, numeric types only).
+capacity (port of spark_rapids_tpu/columnar/vector.py).
 
 A batch's logical row count lives beside its columns; kernels derive the
 row mask from `arange(capacity) < num_rows`, so padded rows never count.
+Strings are a uint8[capacity, char_cap] byte matrix plus int32 lengths,
+char_cap bucketed like the row capacity.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -15,6 +18,7 @@ import torch
 from spark_rapids_tpu_torch import types as T
 
 MIN_CAPACITY = 32
+MIN_CHAR_CAP = 8
 
 
 def bucket_capacity(n: int, minimum: int = MIN_CAPACITY) -> int:
@@ -22,6 +26,10 @@ def bucket_capacity(n: int, minimum: int = MIN_CAPACITY) -> int:
     while cap < n:
         cap *= 2
     return cap
+
+
+def bucket_char_cap(n: int) -> int:
+    return bucket_capacity(max(n, 1), MIN_CHAR_CAP)
 
 
 def resolve_device(device) -> torch.device:
@@ -38,27 +46,36 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _f32_shadow(x_f64: np.ndarray) -> np.ndarray:
+def _f32_shadow(x_f64: torch.Tensor) -> torch.Tensor:
     """FLOAT64 -> f32 narrow shadow with explicit overflow semantics:
       - monotone: x <= y  =>  shadow(x) <= shadow(y)
       - finiteness preserved: finite f64 -> finite f32 (clamped to
         +-f32max past the f32 range), +-inf -> +-inf, NaN -> NaN
       - sign preserved (incl. -0.0)."""
-    with np.errstate(over="ignore"):
-        n32 = x_f64.astype(np.float32)
-    over = np.isinf(n32) & np.isfinite(x_f64)
-    if over.any():
-        fmax = np.finfo(np.float32).max
-        n32 = np.where(over, np.copysign(fmax, x_f64).astype(np.float32),
+    n32 = x_f64.to(torch.float32)
+    over = torch.isinf(n32) & torch.isfinite(x_f64)
+    fmax = torch.full_like(x_f64, float(torch.finfo(torch.float32).max))
+    return torch.where(over, torch.copysign(fmax, x_f64).to(torch.float32),
                        n32)
-    return n32
 
 
-def _pad_to(arr: np.ndarray, capacity: int) -> np.ndarray:
-    n = arr.shape[0]
-    if n == capacity:
-        return arr
-    return np.pad(arr, (0, capacity - n))
+def _upload(arr: np.ndarray, capacity: int, dev) -> torch.Tensor:
+    """`arr` on `dev`, zero-padded to `capacity` rows; the padding is
+    made on the device, so the host copies nothing.  A read-only array
+    (a pandas copy-on-write view) is only ever read: the result is a
+    copy of it."""
+    arr = np.ascontiguousarray(arr)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        src = torch.from_numpy(arr)
+    if src.shape[0] == capacity:
+        out = src.to(dev)
+        return out.clone() if out is src and not arr.flags.writeable \
+            else out
+    out = torch.zeros((capacity,) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=dev)
+    out[:src.shape[0]].copy_(src)
+    return out
 
 
 @dataclasses.dataclass
@@ -69,15 +86,24 @@ class ColumnVector:
     `narrow` is an optional 32-bit shadow of `data`: an int32 copy of an
     INT64 column whose values fit int32 (exact), or an f32 copy of a
     FLOAT64 column (lossy; read only by lanes that already carry the
-    variableFloatAgg tolerance)."""
+    variableFloatAgg tolerance).  For STRING columns `data` is
+    uint8[capacity, char_cap] and `lengths` int32[capacity] (0 on null
+    rows); otherwise `lengths` is None."""
     dtype: T.DataType
     data: torch.Tensor
     validity: torch.Tensor
     narrow: Optional[torch.Tensor] = None
+    lengths: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
         return self.data.shape[0]
+
+    @property
+    def char_cap(self) -> int:
+        if not self.dtype.is_string:
+            raise TypeError(f"char_cap of a {self.dtype} column")
+        return self.data.shape[1]
 
     @property
     def device(self) -> torch.device:
@@ -96,42 +122,58 @@ class ColumnVector:
         n = len(values)
         cap = capacity or bucket_capacity(n)
         if validity is None:
-            validity = np.ones(n, bool)  # NaN is a value, not null (Spark)
-        validity = _pad_to(np.asarray(validity, bool), cap)
-        safe = _pad_to(values.astype(dtype.storage_dtype, copy=False), cap)
+            if values.dtype == object:
+                validity = np.array([v is not None for v in values], bool)
+            else:  # NaN is a value, not null (Spark)
+                validity = np.ones(n, bool)
+        validity = np.asarray(validity, bool)
+        valid_t = _upload(validity[:n], cap, dev)
+        if dtype.is_string:
+            data, lengths = strings_to_bytes(values, validity[:n])
+            return ColumnVector(dtype, _upload(data, cap, dev), valid_t,
+                                lengths=_upload(lengths, cap, dev))
+        host = values.astype(dtype.storage_dtype, copy=False)
+        data = _upload(host, cap, dev)
         narrow = None
-        if dtype.id == T.TypeId.INT64 and len(safe):
-            lo, hi = safe.min(), safe.max()
+        if dtype.id == T.TypeId.INT64:
+            # the zero padding fits int32, so the live values decide
+            lo, hi = (host.min(), host.max()) if n else (0, 0)
             if np.iinfo(np.int32).min <= lo and hi <= np.iinfo(np.int32).max:
-                narrow = safe.astype(np.int32)
+                narrow = data.to(torch.int32)
         elif dtype.id == T.TypeId.FLOAT64:
-            narrow = _f32_shadow(safe)
-        return ColumnVector(
-            dtype, torch.from_numpy(np.ascontiguousarray(safe)).to(dev),
-            torch.from_numpy(validity).to(dev),
-            None if narrow is None
-            else torch.from_numpy(np.ascontiguousarray(narrow)).to(dev))
+            narrow = _f32_shadow(data)
+        return ColumnVector(dtype, data, valid_t, narrow)
 
     def to_numpy(self, num_rows: int) -> tuple[np.ndarray, np.ndarray]:
-        """(values, validity) trimmed to num_rows."""
-        return (self.data[:num_rows].cpu().numpy(),
-                self.validity[:num_rows].cpu().numpy())
+        """(values, validity) trimmed to num_rows; strings decode to an
+        object array of str (None for nulls)."""
+        validity = self.validity[:num_rows].cpu().numpy()
+        if self.dtype.is_string:
+            raw = self.data[:num_rows].cpu().numpy()
+            lens = self.lengths[:num_rows].cpu().numpy()
+            out = np.empty(num_rows, object)
+            for i in range(num_rows):
+                out[i] = (raw[i, :lens[i]].tobytes().decode("utf-8",
+                                                           "replace")
+                          if validity[i] else None)
+            return out, validity
+        return self.data[:num_rows].cpu().numpy(), validity
+
+    def _map(self, fn) -> "ColumnVector":
+        """Apply `fn` to every row-indexed tensor of the column."""
+        return ColumnVector(
+            self.dtype, fn(self.data), fn(self.validity),
+            None if self.narrow is None else fn(self.narrow),
+            None if self.lengths is None else fn(self.lengths))
 
     def with_capacity(self, capacity: int) -> "ColumnVector":
         if capacity == self.capacity:
             return self
         if capacity < self.capacity:
-            return ColumnVector(
-                self.dtype, self.data[:capacity],
-                self.validity[:capacity],
-                None if self.narrow is None else self.narrow[:capacity])
+            return self._map(lambda x: x[:capacity])
         extra = capacity - self.capacity
-
-        def pad(x):
-            return torch.cat([x, x.new_zeros(extra)])
-        return ColumnVector(self.dtype, pad(self.data), pad(self.validity),
-                            None if self.narrow is None
-                            else pad(self.narrow))
+        return self._map(lambda x: torch.cat(
+            [x, x.new_zeros((extra,) + tuple(x.shape[1:]))]))
 
     def gather(self, indices: torch.Tensor,
                index_valid: Optional[torch.Tensor] = None
@@ -139,12 +181,10 @@ class ColumnVector:
         """Take rows by index, indices clamped into range; `index_valid`
         marks the rows kept."""
         idx = indices.clamp(0, self.capacity - 1).to(torch.int64)
-        validity = self.validity[idx]
+        out = self._map(lambda x: x[idx])
         if index_valid is not None:
-            validity = validity & index_valid
-        return ColumnVector(self.dtype, self.data[idx], validity,
-                            None if self.narrow is None
-                            else self.narrow[idx])
+            out.validity = out.validity & index_valid
+        return out
 
 
 def gather_columns_grouped(columns, order, valid):
@@ -153,3 +193,64 @@ def gather_columns_grouped(columns, order, valid):
     because its random access costs per row; a GPU gathers each column
     at full bandwidth, so this is one gather per column.)"""
     return [c.gather(order, valid) for c in columns]
+
+
+def _pad_chars(v: ColumnVector, cc: int) -> ColumnVector:
+    if v.char_cap == cc:
+        return v
+    pad = v.data.new_zeros((v.capacity, cc - v.char_cap))
+    return ColumnVector(v.dtype, torch.cat([v.data, pad], dim=1),
+                        v.validity, lengths=v.lengths)
+
+
+def align_char_caps(a: ColumnVector, b: ColumnVector
+                    ) -> tuple[ColumnVector, ColumnVector]:
+    """Pad two string vectors to a shared char capacity (for concat and
+    compare)."""
+    cc = max(a.char_cap, b.char_cap)
+    return _pad_chars(a, cc), _pad_chars(b, cc)
+
+
+def _encode_rows(values, valid) -> list:
+    """Per-row UTF-8 encode, as the reference does it: str encodes,
+    bytes pass, anything else encodes its str(); null rows are b""."""
+    return [(v.encode("utf-8") if isinstance(v, str)
+             else bytes(v) if isinstance(v, (bytes, bytearray))
+             else str(v).encode("utf-8")) if ok else b""
+            for v, ok in zip(values, valid)]
+
+
+def _bytes_matrix(enc: list) -> tuple[np.ndarray, np.ndarray]:
+    n = len(enc)
+    lens = np.fromiter((len(e) for e in enc), np.int32, count=n)
+    cc = bucket_char_cap(int(lens.max()) if n else 0)
+    data = np.zeros((n, cc), np.uint8)
+    if n and lens.any():
+        flat = np.frombuffer(b"".join(enc), np.uint8)
+        starts = np.zeros(n, np.int64)
+        np.cumsum(lens[:-1], out=starts[1:])
+        row = np.repeat(np.arange(n, dtype=np.int64), lens)
+        off = np.arange(len(flat), dtype=np.int64) - np.repeat(starts, lens)
+        data.reshape(-1)[row * cc + off] = flat
+    return data, lens
+
+
+def strings_to_bytes(values, valid) -> tuple[np.ndarray, np.ndarray]:
+    """(uint8[n, char_cap] bytes, int32[n] lengths) of n host values, the
+    same bytes and lengths as encoding each row alone (`_encode_rows`).
+    Values that are all str (or null) with few distinct ones, as flag
+    and code columns are, encode each distinct value once and gather its
+    bytes by the factorized codes; anything else takes the per-row
+    encode."""
+    import pandas as pd
+    values = np.asarray(values)
+    valid = np.asarray(valid, bool)
+    n = len(values)
+    if n and pd.api.types.infer_dtype(values[valid], skipna=False) in (
+            "string", "empty"):
+        codes, uniques = pd.factorize(np.where(valid, values, ""))
+        if len(uniques) * 8 <= n:
+            data, lens = _bytes_matrix(_encode_rows(
+                uniques, np.ones(len(uniques), bool)))
+            return data[codes], lens[codes]
+    return _bytes_matrix(_encode_rows(values, valid))

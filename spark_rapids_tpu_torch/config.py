@@ -1,5 +1,5 @@
 """Typed configuration registry (port of spark_rapids_tpu/config.py, cut to
-the keys TPC-H Q1's path reads).
+the keys the port's paths read).
 
 Keys keep their `spark.rapids.*` names and defaults, so one conf dict
 drives both packages.
@@ -33,6 +33,42 @@ def conf(key: str, default: Any, doc: str) -> ConfEntry:
     return entry
 
 
+# --- core enables -----------------------------------------------------------
+SQL_ENABLED = conf("spark.rapids.sql.enabled", True,
+                   "Enable or disable GPU SQL acceleration entirely.")
+EXPLAIN = conf("spark.rapids.sql.explain", "NONE",
+               "Explain why parts of a plan were not placed on the GPU: "
+               "NONE, NOT_ON_GPU, ALL.")
+TEST_ENABLED = conf("spark.rapids.sql.test.enabled", False,
+                    "Testing hook: fail if an op expected on the GPU falls "
+                    "back.")
+TEST_ALLOWED_NONGPU = conf("spark.rapids.sql.test.allowedNonGpu", "",
+                           "Comma-separated ops allowed on CPU in test mode.")
+MAX_BATCH_ROWS = conf("spark.rapids.tpu.batchMaxRows", 65536,
+                      "Row cap per device batch at upload and coalesce "
+                      "boundaries.")
+PRUNE_COLUMNS = conf("spark.rapids.tpu.columnPruning.enabled", True,
+                     "Prune unreferenced columns at source leaves before "
+                     "plan rewrite (the role Catalyst's ColumnPruning plays "
+                     "for Spark).")
+BATCH_SIZE_BYTES = conf("spark.rapids.sql.batchSizeBytes", 2147483136,
+                        "Target device batch size in bytes for coalescing.")
+FUSION_ENABLED = conf(
+    "spark.rapids.sql.fusion.enabled", True,
+    "Collapse Project/Filter chains between pipeline breaks into one "
+    "stage, and fold a chain that feeds a partial or complete "
+    "aggregation into the aggregate's update lane.")
+RAPIDS_SHUFFLE_ENABLED = conf(
+    "spark.rapids.shuffle.enabled", False,
+    "Route exchanges through the accelerated shuffle manager.  Not "
+    "ported yet: an exchange raises NotImplementedError while it is on.")
+MESH_EXCHANGE_ENABLED = conf(
+    "spark.rapids.shuffle.meshExchange.enabled", True,
+    "Route hash exchanges through a device-mesh all-to-all when a mesh "
+    "is active.  Not ported yet: the port has no active mesh, so the "
+    "local exchange lane runs.")
+
+# --- aggregation ------------------------------------------------------------
 VARIABLE_FLOAT_AGG = conf(
     "spark.rapids.sql.variableFloatAgg.enabled", False,
     "Allow float aggregations whose result can vary with evaluation "
@@ -60,8 +96,11 @@ BANDED_GROUPBY_ENABLED = conf(
     "variableFloatAgg.enabled.")
 HASH_GROUPING_ENABLED = conf(
     "spark.rapids.tpu.hashGrouping.enabled", True,
-    "Wide grouping key sets sort by two murmur3-derived words. Not "
-    "ported yet: the port groups every key set lexicographically.")
+    "Wide grouping key sets sort by two murmur3-derived words instead of "
+    "the lexicographic key encode (string keys emit one 9-bit slice per "
+    "character).  Exact: segment boundaries come from the adjacent key "
+    "values, and a detected 64-bit collision deopts the query to the "
+    "lexicographic lane.")
 PALLAS_Q1_FUSED_ENABLED = conf(
     "spark.rapids.tpu.pallas.q1Fused.enabled", True,
     "Use the fused Q1 kernel for STACKED multi-batch TPC-H Q1 steps "
@@ -69,11 +108,20 @@ PALLAS_Q1_FUSED_ENABLED = conf(
     "plain torch step.")
 
 
+def op_enable_key(kind: str, name: str) -> str:
+    """Per-operator enable key ("expression" or "exec" kind)."""
+    return f"spark.rapids.sql.{kind}.{name}"
+
+
 class RapidsConf:
     """Immutable snapshot of config values."""
 
     def __init__(self, settings: Optional[dict[str, Any]] = None):
         self._settings = dict(settings or {})
+
+    def is_op_enabled(self, kind: str, name: str,
+                      default: bool = True) -> bool:
+        return _bool(self.get(op_enable_key(kind, name), default))
 
     def get(self, key: str, default: Any = None) -> Any:
         if key in self._settings:

@@ -3,7 +3,8 @@
 Same two-phase shape as the reference: every input batch becomes a
 partial batch of groups, the partials are concatenated and merged by an
 internal FINAL-mode exec, and the evaluate step turns intermediates into
-results.  Three lanes group a batch:
+results.  Without group keys the reduction path skips grouping: each
+batch reduces to one row, and the rows merge.  Three lanes group a batch:
 
   - dictionary lane (integral keys whose runtime range fits the
     dictGroupby budget): key-window slots and ONE grouped_sum kernel
@@ -12,14 +13,22 @@ results.  Three lanes group a batch:
     accumulates per group in ONE window_group_sums kernel launch;
   - sort lane: segmented scans over the sorted rows, exact.
 
-The first two accumulate in f32 and are optimistic: float measures need
-variableFloatAgg, and integral measures carry a deferred exactness
-certificate.  When a certificate (or the dictionary window) fails,
-`collect()` disables the lane at fault and re-runs the query, so results
-are exact or the lane deopts.  Not ported: the murmur3 hash-grouping
-lane, out-of-core spill, OOM split-retry, the fused pre-stage and the
-grouping-free reduction; each raises NotImplementedError where it would
-be engaged.
+The grouping sort of the last two is lexicographic over the encoded
+keys, or, for key sets wider than HASH_GROUP_MIN_WORDS packed words
+(string keys take one 9-bit slice per character), a sort by two murmur3
+words whose rare 64-bit collisions are detected exactly and deopt.
+
+The first two lanes accumulate in f32 and are optimistic: float measures
+need variableFloatAgg, and integral measures carry a deferred exactness
+certificate.  When a certificate (or the dictionary window, or the hash
+collision check) fails, `collect()` disables the lane at fault and
+re-runs the query, so results are exact or the lane deopts.
+
+A fused `pre_stage` (plan/fusion.py ComposedStage) evaluates a
+Project/Filter chain inside every update lane before grouping: batches
+arrive in the raw child schema, and group and input expressions bind
+against the stage's output schema.  Not ported: out-of-core spill and
+OOM split-retry.
 """
 from __future__ import annotations
 
@@ -32,8 +41,10 @@ import torch
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch,
-                                                   concat_batches)
-from spark_rapids_tpu_torch.columnar.vector import (ColumnVector,
+                                                   concat_batches,
+                                                   empty_batch)
+from spark_rapids_tpu_torch.columnar.vector import (MIN_CAPACITY,
+                                                    ColumnVector,
                                                     bucket_capacity,
                                                     gather_columns_grouped)
 from spark_rapids_tpu_torch.exec.base import (SchemaOnlyExec, TpuExec,
@@ -45,7 +56,8 @@ from spark_rapids_tpu_torch.exprs.base import Expression, output_name
 from spark_rapids_tpu_torch.ops.grouped_window import window_group_sums
 from spark_rapids_tpu_torch.ops.kernels import grouped_sum
 from spark_rapids_tpu_torch.ops.sort_encode import (
-    HASH_GROUP_MIN_WORDS, masked_positions, sort_with_bounds, wide_key_set)
+    HASH_GROUP_MIN_WORDS, hash_sort_bounds, masked_positions,
+    sort_with_bounds, wide_key_set)
 from spark_rapids_tpu_torch.utils import checks as CK
 
 _I64_MAX = torch.iinfo(torch.int64).max
@@ -78,14 +90,15 @@ class HashAggregateExec(UnaryExecBase):
     def __init__(self, group_exprs: Sequence[Expression],
                  aggregates: Sequence, child: TpuExec,
                  mode: AggMode = AggMode.COMPLETE, pre_stage=None):
-        if pre_stage is not None:
-            raise NotImplementedError(
-                "fused pre_stage (plan/fusion.py) is not ported yet")
+        if pre_stage is not None and mode == AggMode.FINAL:
+            raise ValueError("a fused pre_stage feeds update lanes only")
         super().__init__(child)
         self.mode = mode
         self.group_exprs = list(group_exprs)
         self.aggregates = [_to_alias(a, i) for i, a in enumerate(aggregates)]
-        child_schema = child.output_schema()
+        self._pre_stage = pre_stage
+        child_schema = (pre_stage.schema if pre_stage is not None
+                        else child.output_schema())
         self._child_schema = child_schema
         self._bound_groups = [e.bind(child_schema) for e in self.group_exprs]
         self._group_fields = tuple(
@@ -139,6 +152,7 @@ class HashAggregateExec(UnaryExecBase):
                                                      "Average")
                                 for f in self._funcs)
         self._banded_disabled = False
+        self._hash_group_disabled = False
         self._compact_cap = self.COMPACT_GROUPS_CAP
         self._merge_exec: Optional["HashAggregateExec"] = None
 
@@ -148,22 +162,61 @@ class HashAggregateExec(UnaryExecBase):
     def describe(self):
         keys = ", ".join(f.name for f in self._group_fields)
         aggs = ", ".join(a.name for a in self.aggregates)
+        fused = "" if self._pre_stage is None else \
+            f", fused=[{self._pre_stage.describe_ops()}]"
         return (f"HashAggregateExec(mode={self.mode.value}, "
-                f"keys=[{keys}], aggs=[{aggs}])")
+                f"keys=[{keys}], aggs=[{aggs}]{fused})")
+
+    def tree_string(self, indent: int = 0) -> str:
+        s = "  " * indent + self.describe()
+        if self._pre_stage is not None:
+            # EXPLAIN prints the fusion group's member operators
+            for m in self._pre_stage.members:
+                s += "\n" + "  " * (indent + 1) + "* " + m.describe()
+        for c in self._children:
+            s += "\n" + c.tree_string(indent + 1)
+        return s
+
+    @property
+    def fused_members(self) -> list:
+        """describe() of each fused member op; empty when unfused."""
+        if self._pre_stage is None:
+            return []
+        return [m.describe() for m in self._pre_stage.members]
+
+    def _make_ctx(self, batch: ColumnarBatch):
+        """Update-lane evaluation context: with a fused pre-stage the raw
+        child columns first flow through the composed project/filter
+        DAG."""
+        ctx = make_eval_context(batch.columns, batch.capacity,
+                                batch.num_rows_i32, batch.sparse)
+        if self._pre_stage is not None:
+            from spark_rapids_tpu_torch.plan import fusion as FZ
+            ctx = FZ.eval_stage_ctx(self._pre_stage, ctx)
+        return ctx
 
     # -- lane selection -----------------------------------------------------
-    def _check_hash_grouping(self, batch: ColumnarBatch) -> None:
-        """The reference sorts wide key sets by murmur3 words; that lane
-        is not ported, so such a key set stops here."""
-        if CK.is_retrying():
-            return
-        if C.get_active_conf()[C.HASH_GROUPING_ENABLED] and wide_key_set(
-                self._bound_groups, batch, self._child_schema,
-                HASH_GROUP_MIN_WORDS):
-            raise NotImplementedError(
-                "the murmur3 hash-grouping lane for wide key sets is not "
-                "ported yet (spark.rapids.tpu.hashGrouping.enabled=false "
-                "groups them lexicographically)")
+    def _use_hash_grouping(self, batch: ColumnarBatch) -> bool:
+        # the last deopt retry must be guaranteed-valid: lexicographic
+        if self._hash_group_disabled or CK.is_retrying():
+            return False
+        if not C.get_active_conf()[C.HASH_GROUPING_ENABLED]:
+            return False
+        # with a fused pre-stage the batch holds the RAW child columns,
+        # so routing reads dtypes only
+        return wide_key_set(self._bound_groups,
+                            None if self._pre_stage is not None else batch,
+                            self._child_schema, HASH_GROUP_MIN_WORDS)
+
+    def _disable_hash_grouping(self) -> None:
+        # a 64-bit murmur3 collision between two distinct key tuples
+        # deopts this exec to the lexicographic lane for good
+        self._hash_group_disabled = True
+
+    def _register_collision_check(self, collision, checks: tuple) -> tuple:
+        return CK.register_deopt(collision,
+                                 f"hashGroupby[exec {self.exec_id}]",
+                                 self._disable_hash_grouping, checks)
 
     def _banded_float_measures(self, phase: str) -> bool:
         """True when this phase would put FLOATING values through the f32
@@ -228,18 +281,26 @@ class HashAggregateExec(UnaryExecBase):
                         wcap: Optional[int]):
         """phase: 'update' (raw inputs) or 'merge' (intermediates).
         `wcap`: compact group width; the group count past it is reported
-        as a deferred excess flag.  Returns (columns, num_groups, excess
-        flag or None, banded certificate flag or None)."""
-        self._check_hash_grouping(batch)
+        as a deferred excess flag.  Returns (columns, num_groups,
+        collision flag or None, excess flag or None, banded certificate
+        flag or None)."""
+        use_hash = self._use_hash_grouping(batch)
         use_banded = self._use_banded(batch, phase)
         cap = batch.capacity
         out_cap = wcap if wcap is not None else cap
-        ctx = make_eval_context(batch.columns, cap, batch.num_rows_i32,
-                                batch.sparse)
+        ctx = (self._make_ctx(batch) if phase == "update" else
+               make_eval_context(batch.columns, cap, batch.num_rows_i32,
+                                 batch.sparse))
         dev = ctx.device
         keys = [e.eval(ctx) for e in self._bound_groups]
-        perm, sorted_valid, bounds = sort_with_bounds(
-            [(k, True, True) for k in keys], ctx.row_mask)
+        key_cols = [(k, True, True) for k in keys]
+        if use_hash:
+            perm, sorted_valid, bounds, collision = hash_sort_bounds(
+                key_cols, ctx.row_mask)
+        else:
+            perm, sorted_valid, bounds = sort_with_bounds(key_cols,
+                                                          ctx.row_mask)
+            collision = None
         seg_ids = torch.cumsum(bounds, 0, dtype=torch.int32) - 1
         num_groups = bounds.sum().to(torch.int32)
         excess = (num_groups > out_cap) if wcap is not None else None
@@ -260,8 +321,8 @@ class HashAggregateExec(UnaryExecBase):
                 phase, sorted_per_f, sorted_valid, bounds, seg_ids,
                 grp_valid, cap, out_cap)
             rep_idx = perm[first_idx.to(_I64)]
-            key_cols = [k.gather(rep_idx, grp_valid) for k in keys]
-            return key_cols + out_cols, num_groups, excess, cert
+            out_keys = [k.gather(rep_idx, grp_valid) for k in keys]
+            return out_keys + out_cols, num_groups, collision, excess, cert
 
         # group key representatives: first row of each segment
         first_idx = masked_positions(bounds, out_cap, fill_value=cap - 1)
@@ -280,7 +341,7 @@ class HashAggregateExec(UnaryExecBase):
             out_cols.extend(ColumnVector(o.dtype, o.data,
                                          o.validity & grp_valid)
                             for o in outs)
-        return out_cols, num_groups, excess, None
+        return out_cols, num_groups, collision, excess, None
 
     def _banded_aggregate(self, phase, sorted_per_f, sorted_valid,
                           bounds, seg_ids, grp_valid, cap, out_cap):
@@ -492,8 +553,7 @@ class HashAggregateExec(UnaryExecBase):
 
     def _dict_probe(self, batch: ColumnarBatch) -> list:
         """Per-key value spans of the first batch (one host readback)."""
-        ctx = make_eval_context(batch.columns, batch.capacity,
-                                batch.num_rows_i32, batch.sparse)
+        ctx = self._make_ctx(batch)
         i64 = torch.iinfo(_I64)
         mins, maxs = [], []
         for e in self._bound_groups:
@@ -595,8 +655,7 @@ class HashAggregateExec(UnaryExecBase):
         ovf_budget = min(self.DICT_OVERFLOW_BUDGET, cap)
         w_cap = g_pad + 1
         out_cap = bucket_capacity(w_cap + ovf_budget)
-        ctx = make_eval_context(batch.columns, cap, batch.num_rows_i32,
-                                batch.sparse)
+        ctx = self._make_ctx(batch)
         dev = ctx.device
         k = self._bound_groups[0].eval(ctx)
         ok = k.validity & ctx.row_mask
@@ -668,8 +727,7 @@ class HashAggregateExec(UnaryExecBase):
         ovf_budget = min(self.DICT_OVERFLOW_BUDGET, cap)
         w_cap = G
         out_cap = bucket_capacity(G + ovf_budget)
-        ctx = make_eval_context(batch.columns, cap, batch.num_rows_i32,
-                                batch.sparse)
+        ctx = self._make_ctx(batch)
         dev = ctx.device
         rows = ctx.row_mask
         combined = torch.zeros(cap, dtype=torch.int32, device=dev)
@@ -730,8 +788,8 @@ class HashAggregateExec(UnaryExecBase):
     # -- execution ----------------------------------------------------------
     def process_partition(self, batches) -> Iterator[ColumnarBatch]:
         if not self.group_exprs:
-            raise NotImplementedError(
-                "aggregation without group keys is not ported yet")
+            yield from self._reduction_path(batches)
+            return
         partials = [self._groupby_one(b) for b in batches
                     if b.maybe_nonempty()]
         if not partials:
@@ -751,8 +809,10 @@ class HashAggregateExec(UnaryExecBase):
             return fast
         phase = "merge" if self.mode == AggMode.FINAL else "update"
         wcap = self._kernel_compact_cap(batch)
-        cols, n, excess, cert = self._groupby_sorted(batch, phase, wcap)
-        checks = self._register_excess_check(excess, wcap, batch.checks)
+        cols, n, coll, excess, cert = self._groupby_sorted(batch, phase,
+                                                           wcap)
+        checks = self._register_collision_check(coll, batch.checks)
+        checks = self._register_excess_check(excess, wcap, checks)
         checks = self._register_banded_check(cert, checks)
         return ColumnarBatch(self._partial_schema(), cols, n, checks)
 
@@ -772,11 +832,12 @@ class HashAggregateExec(UnaryExecBase):
         merged = concat_batches(partials, sparse_ok=True)
         merge_exec = self._get_merge_exec(inter_schema)
         wcap = self._kernel_compact_cap(merged)
-        cols, n, excess, cert = merge_exec._groupby_sorted(merged, "merge",
-                                                           wcap)
+        cols, n, coll, excess, cert = merge_exec._groupby_sorted(
+            merged, "merge", wcap)
+        checks = merge_exec._register_collision_check(coll, merged.checks)
         # escalation and the banded deopt are learned on this (outer)
         # exec; its recovery also disables the merge exec's banded lane
-        checks = self._register_excess_check(excess, wcap, merged.checks)
+        checks = self._register_excess_check(excess, wcap, checks)
         checks = self._register_banded_check(cert, checks)
         return ColumnarBatch(inter_schema, cols, n, checks)
 
@@ -788,6 +849,65 @@ class HashAggregateExec(UnaryExecBase):
             for j, it in enumerate(ts):
                 fields.append(T.Field(f"{a.name}#{j}", it))
         return T.Schema(tuple(fields))
+
+    # -- no-group-key reduction ----------------------------------------------
+    def _reduction_path(self, batches) -> Iterator[ColumnarBatch]:
+        """Each batch reduces to one partial row (`_reduce_one`), the rows
+        merge, and FINAL/COMPLETE evaluate.  SQL: an aggregate of no rows
+        is still one row (COUNT = 0, SUM = null)."""
+        inter_schema = self._partial_schema()
+        phase = "merge" if self.mode == AggMode.FINAL else "update"
+        partials = [self._reduce_one(b, phase, inter_schema)
+                    for b in batches if b.maybe_nonempty()]
+        if not partials:
+            partials = [self._empty_partial(inter_schema)]
+        # always merge, even one partial: it normalizes the empty-input
+        # partial's invalid count into a valid 0
+        merged = self._merge_reduction(partials, inter_schema)
+        yield (merged if self.mode == AggMode.PARTIAL
+               else self._evaluate_one(merged))
+
+    def _reduce_one(self, batch: ColumnarBatch, phase: str,
+                    inter_schema: T.Schema) -> ColumnarBatch:
+        return ColumnarBatch(inter_schema, self._reduce_kernel(batch, phase),
+                             1, batch.checks)
+
+    def _reduce_kernel(self, batch: ColumnarBatch, phase: str) -> list:
+        """Whole-batch reduction of every aggregate: one segment over all
+        rows, read at the last row.  Outputs are MIN_CAPACITY long, the
+        result in row 0."""
+        cap = batch.capacity
+        ctx = (self._make_ctx(batch) if phase == "update" else
+               make_eval_context(batch.columns, cap, batch.num_rows_i32,
+                                 batch.sparse))
+        dev = ctx.device
+        iota = torch.arange(cap, device=dev)
+        actx = AggContext(
+            torch.zeros(cap, dtype=torch.int32, device=dev), cap,
+            ctx.row_mask, bounds=iota == 0,
+            ends=torch.full((MIN_CAPACITY,), cap - 1, dtype=torch.int32,
+                            device=dev),
+            out_capacity=MIN_CAPACITY)
+        if phase == "update":
+            inputs_per_f = [[e.eval(ctx) for e in bins]
+                            for bins in self._bound_inputs]
+        else:
+            inputs_per_f = [[ctx.columns[i] for i in range(lo, hi)]
+                            for lo, hi in self._inter_offsets]
+        return [o for outs in run_agg_phase(actx, self._funcs, inputs_per_f,
+                                            phase) for o in outs]
+
+    def _merge_reduction(self, partials, inter_schema) -> ColumnarBatch:
+        merged = concat_batches(partials)
+        agg = self._get_merge_exec(inter_schema)
+        return ColumnarBatch(inter_schema,
+                             agg._reduce_kernel(merged, "merge"), 1,
+                             merged.checks)
+
+    def _empty_partial(self, inter_schema) -> ColumnarBatch:
+        # one row of "no inputs seen": validity false, counts zero
+        e = empty_batch(inter_schema, self.device())
+        return ColumnarBatch(inter_schema, e.columns, 1)
 
 
 @dataclasses.dataclass(eq=False)

@@ -7,8 +7,9 @@ cache has no counterpart here.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 import torch
 
@@ -19,6 +20,31 @@ from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch,
 from spark_rapids_tpu_torch.columnar.vector import ColumnVector
 from spark_rapids_tpu_torch.exprs.base import EvalContext, Expression
 from spark_rapids_tpu_torch.utils import checks as CK
+
+
+# -- coalesce goals ----------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class CoalesceGoal:
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class TargetSize(CoalesceGoal):
+    bytes: int
+
+
+@dataclasses.dataclass(frozen=True)
+class RequireSingleBatch(CoalesceGoal):
+    pass
+
+
+def max_goal(a: Optional[CoalesceGoal], b: Optional[CoalesceGoal]
+             ) -> Optional[CoalesceGoal]:
+    if isinstance(a, RequireSingleBatch) or isinstance(b, RequireSingleBatch):
+        return RequireSingleBatch()
+    if isinstance(a, TargetSize) and isinstance(b, TargetSize):
+        return TargetSize(max(a.bytes, b.bytes))
+    return a or b
 
 
 def make_eval_context(columns: list[ColumnVector], capacity: int,
@@ -54,6 +80,21 @@ class TpuExec:
     def device(self) -> torch.device:
         """The device this plan runs on (its leaf's)."""
         return self.child.device()
+
+    def output_partition_count(self) -> int:
+        """Planning-time partition count; executes nothing."""
+        if not self._children:
+            return 1
+        return self._children[0].output_partition_count()
+
+    @property
+    def coalesce_after(self) -> bool:
+        """True when this exec shrinks batches, so a coalesce above it
+        pays off."""
+        return False
+
+    def children_coalesce_goal(self) -> list[Optional[CoalesceGoal]]:
+        return [None] * len(self._children)
 
     def execute_columnar(self) -> Iterator[ColumnarBatch]:
         for it in self.execute_partitions():

@@ -54,6 +54,10 @@ class FilterExec(UnaryExecBase):
     def output_schema(self) -> T.Schema:
         return self._schema
 
+    @property
+    def coalesce_after(self) -> bool:
+        return True  # filtering shrinks batches
+
     def describe(self):
         return f"FilterExec({self.condition!r})"
 
@@ -91,6 +95,9 @@ class LocalBatchSource(TpuExec):
 
     def device(self) -> torch.device:
         return self._device
+
+    def output_partition_count(self) -> int:
+        return max(1, len(self.partitions))
 
     def execute_partitions(self):
         return [iter(p) for p in self.partitions]

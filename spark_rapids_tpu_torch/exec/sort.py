@@ -1,7 +1,10 @@
-"""Sort operator (port of spark_rapids_tpu/exec/sort.py: the global sort).
+"""Sort operator (port of spark_rapids_tpu/exec/sort.py).
 
-A global sort is one output partition: every child batch is concatenated
-into one, which is sorted by its encoded keys and gathered.
+A global sort is one output partition: every child batch, partition by
+partition, is concatenated into one, which is sorted by its encoded keys
+and gathered.  Over a range exchange the partitions arrive in key order,
+so the result is totally ordered.  A local sort sorts each partition on
+its own.
 """
 from __future__ import annotations
 
@@ -13,7 +16,9 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch,
                                                    concat_batches)
-from spark_rapids_tpu_torch.exec.base import (TpuExec, UnaryExecBase,
+from spark_rapids_tpu_torch.exec.base import (CoalesceGoal,
+                                              RequireSingleBatch, TpuExec,
+                                              UnaryExecBase,
                                               make_eval_context)
 from spark_rapids_tpu_torch.exprs.base import Expression
 from spark_rapids_tpu_torch.ops.sort_encode import multi_key_argsort
@@ -43,9 +48,11 @@ def desc(e: Expression) -> SortOrder:
 
 
 class SortExec(UnaryExecBase):
-    def __init__(self, order: Sequence[SortOrder], child: TpuExec):
+    def __init__(self, order: Sequence[SortOrder], child: TpuExec,
+                 global_sort: bool = True):
         super().__init__(child)
         self.order = list(order)
+        self.global_sort = global_sort
         self._schema = child.output_schema()
         self._bound = [o.expr.bind(self._schema) for o in self.order]
 
@@ -55,9 +62,20 @@ class SortExec(UnaryExecBase):
     def describe(self):
         dirs = ",".join(f"{o.expr!r} {'ASC' if o.ascending else 'DESC'}"
                         for o in self.order)
-        return f"SortExec({dirs})"
+        return f"SortExec({dirs}, global={self.global_sort})"
+
+    def children_coalesce_goal(self) -> list[Optional[CoalesceGoal]]:
+        return [RequireSingleBatch() if self.global_sort else None]
+
+    def output_partition_count(self) -> int:
+        if not self.global_sort:
+            return self.child.output_partition_count()
+        return 1
 
     def execute_partitions(self):
+        if not self.global_sort:
+            return super().execute_partitions()
+
         def chain():
             for it in self.child.execute_partitions():
                 yield from it

@@ -14,7 +14,7 @@ from spark_rapids_tpu_torch.exprs.base import (
     BinaryExpression, Expression, numeric_result_type, promote)
 
 
-@dataclasses.dataclass(eq=False)
+@dataclasses.dataclass(eq=False, repr=False)
 class _BinaryArith(BinaryExpression):
     left: Expression
     right: Expression

@@ -11,8 +11,11 @@ from typing import Any, Optional, Sequence
 
 import torch
 
+import numpy as np
+
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar.vector import ColumnVector
+from spark_rapids_tpu_torch.columnar.vector import (ColumnVector,
+                                                    bucket_char_cap)
 
 
 @dataclasses.dataclass(eq=False)
@@ -23,6 +26,9 @@ class EvalContext:
     capacity: int
     num_rows: Any  # int32 device scalar
     row_mask: torch.Tensor  # bool[capacity]
+    #: per-evaluation memo of common-subexpression slots
+    #: (exprs/simplify.py SharedExpr)
+    shared: dict = dataclasses.field(default_factory=dict)
 
     @property
     def device(self) -> torch.device:
@@ -43,10 +49,15 @@ class Expression:
 
     def bind(self, schema: T.Schema) -> "Expression":
         """Resolve column names to positions."""
+        return self.map_children(lambda c: c.bind(schema))
+
+    def map_children(self, fn) -> "Expression":
+        """`fn` applied to every child; self when nothing changes, so
+        rewrites can detect no-ops."""
         kids = self.children()
         if not kids:
             return self
-        new = [c.bind(schema) for c in kids]
+        new = [fn(c) for c in kids]
         if all(n is o for n, o in zip(new, kids)):
             return self
         return self.with_children(new)
@@ -58,8 +69,19 @@ class Expression:
     def __add__(self, o): return _binop("Add", self, _lit(o))
     def __sub__(self, o): return _binop("Subtract", self, _lit(o))
     def __mul__(self, o): return _binop("Multiply", self, _lit(o))
+    def __gt__(self, o): return _binop("GreaterThan", self, _lit(o))
+    def __ge__(self, o): return _binop("GreaterThanOrEqual", self, _lit(o))
+    def __lt__(self, o): return _binop("LessThan", self, _lit(o))
     def __le__(self, o): return _binop("LessThanOrEqual", self, _lit(o))
     __hash__ = object.__hash__
+
+    def __and__(self, o):
+        from spark_rapids_tpu_torch.exprs.predicates import And
+        return And(self, _lit(o))
+
+    def __or__(self, o):
+        from spark_rapids_tpu_torch.exprs.predicates import Or
+        return Or(self, _lit(o))
 
     def alias(self, name: str) -> "Alias":
         return Alias(self, name)
@@ -136,6 +158,8 @@ class Literal(Expression):
                 dtype = T.INT32 if -2**31 <= v < 2**31 else T.INT64
             elif isinstance(v, float):
                 dtype = T.FLOAT64
+            elif isinstance(v, str):
+                dtype = T.STRING
             else:
                 raise TypeError(f"unsupported literal {v!r}")
         return Literal(v, dtype)
@@ -145,6 +169,17 @@ class Literal(Expression):
 
     def eval(self, ctx: EvalContext) -> ColumnVector:
         cap = ctx.capacity
+        if self.dtype.is_string:
+            raw = b"" if self.value is None else \
+                str(self.value).encode("utf-8")
+            row = np.zeros(bucket_char_cap(len(raw)), np.uint8)
+            row[:len(raw)] = np.frombuffer(raw, np.uint8)
+            data = torch.from_numpy(row).to(ctx.device).expand(cap, -1)
+            valid = (ctx.row_mask if self.value is not None else
+                     torch.zeros(cap, dtype=torch.bool, device=ctx.device))
+            return ColumnVector(self.dtype, data.contiguous(), valid,
+                                lengths=torch.where(valid, len(raw), 0).to(
+                                    torch.int32))
         if self.value is None:
             return ColumnVector(
                 self.dtype,
@@ -190,6 +225,26 @@ def output_name(e: Expression, idx: int) -> str:
     return f"col{idx}"
 
 
+class UnaryExpression(Expression):
+    """Null-propagating unary op."""
+    child: Expression
+
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, kids):
+        return type(self)(kids[0])
+
+    def eval(self, ctx: EvalContext) -> ColumnVector:
+        return self.do_columnar(self.child.eval(ctx), ctx)
+
+    def do_columnar(self, c, ctx) -> ColumnVector:
+        raise NotImplementedError
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.child!r})"
+
+
 class BinaryExpression(Expression):
     """Null-propagating binary op."""
     left: Expression
@@ -224,3 +279,29 @@ def promote(v: ColumnVector, dt: T.DataType) -> ColumnVector:
     if v.dtype == dt:
         return v
     return ColumnVector(dt, v.data.to(dt.torch_dtype), v.validity)
+
+
+def fingerprint(obj) -> tuple:
+    """Structural fingerprint of expression trees and dataclass specs:
+    equal fingerprints evaluate alike (common-subexpression dedup keys
+    on it)."""
+    if obj is None:
+        return ("~",)
+    if isinstance(obj, (list, tuple)):
+        return ("seq",) + tuple(fingerprint(x) for x in obj)
+    if isinstance(obj, Expression) or dataclasses.is_dataclass(obj):
+        out = [type(obj).__name__]
+        if dataclasses.is_dataclass(obj):
+            out.extend(fingerprint(getattr(obj, f.name))
+                       for f in dataclasses.fields(obj))
+        else:
+            out.append(tuple(fingerprint(c) for c in obj.children()))
+        return tuple(out)
+    if isinstance(obj, T.DataType):
+        return ("dt", str(obj))
+    if isinstance(obj, T.Schema):
+        return ("schema",) + tuple((f.name, str(f.dtype))
+                                   for f in obj.fields)
+    if isinstance(obj, (str, int, float, bool, bytes)):
+        return ("v", type(obj).__name__, obj)
+    return ("r", repr(obj))

@@ -1,5 +1,5 @@
-"""Sortable key encoding, multi-key argsort and device-side compaction
-(port of spark_rapids_tpu/ops/sort_encode.py, numeric keys only).
+"""Sortable key encoding, multi-key argsort, device-side compaction and
+the murmur3 grouping sort (port of spark_rapids_tpu/ops/sort_encode.py).
 
 Each key column encodes into non-negative int64 keys whose integer order
 is SQL order, each with its bit width, so several keys pack into one sort
@@ -43,7 +43,14 @@ def encode_key_bits(col: ColumnVector, ascending: bool = True,
     keys: list = [(torch.where(valid, 1 if nulls_first else 0,
                                0 if nulls_first else 1).to(torch.int64), 1)]
     dt = col.dtype
-    if dt.id == T.TypeId.FLOAT32:
+    if dt.is_string:
+        pos = torch.arange(col.char_cap, device=valid.device)[None, :]
+        b = torch.where(valid[:, None] & (pos < col.lengths[:, None]),
+                        col.data.to(torch.int64) + 1, 0)
+        if not ascending:
+            b = 256 - b
+        keys.extend((b[:, j], 9) for j in range(col.char_cap))
+    elif dt.id == T.TypeId.FLOAT32:
         nan = torch.isnan(col.data) & valid
         keys.append(((nan if ascending else ~nan).to(torch.int64), 1))
         val = torch.where(valid & ~nan, col.data, 0.0)
@@ -168,8 +175,17 @@ def segment_boundaries(key_cols: list, perm: torch.Tensor,
         v = c.validity[perm]
         v_prev = torch.roll(v, 1)
         d = c.data[perm]
-        d_prev = torch.roll(d, 1)
-        val_neq = d != d_prev
+        d_prev = torch.roll(d, 1, 0)
+        if c.dtype.is_string:
+            ln = c.lengths[perm]
+            ln_prev = torch.roll(ln, 1)
+            pos = torch.arange(c.char_cap, device=perm.device)[None, :]
+            in_a = pos < ln[:, None]
+            in_b = pos < ln_prev[:, None]
+            byte_neq = ((d != d_prev) & in_a & in_b).any(dim=1)
+            val_neq = byte_neq | (ln != ln_prev)
+        else:
+            val_neq = d != d_prev
         if c.dtype.is_floating:
             val_neq = val_neq & ~(torch.isnan(d) & torch.isnan(d_prev))
         diff = diff | (v != v_prev) | (v & v_prev & val_neq)
@@ -177,15 +193,22 @@ def segment_boundaries(key_cols: list, perm: torch.Tensor,
     return sorted_mask & (diff | first)
 
 
-# -- hash-grouping lane routing (the lane itself is not ported) -------------
-#: past this many estimated packed sort words the reference routes a
-#: grouping key set through its murmur3 hash lane
+# -- the murmur3 hash-grouping lane -----------------------------------------
+#: past this many estimated packed sort words a GROUPING key set routes
+#: through the 2-word murmur3 sort (see hash_sort_bounds)
 HASH_GROUP_MIN_WORDS = 4
 
 
-def _key_bit_widths(dtype: T.DataType, has_narrow: bool) -> list:
+def _key_bit_widths(dtype: T.DataType, has_narrow: bool,
+                    char_cap: int = 0) -> list:
+    """Bit widths `encode_key_bits` emits for one key (None = an
+    unpackable float64 value word).  Kept beside `encode_key_bits`: the
+    two tables must agree for the routing estimate to match the
+    encode."""
     out = [1]  # null rank
-    if dtype.id == T.TypeId.FLOAT32:
+    if dtype.is_string:
+        out += [9] * char_cap
+    elif dtype.id == T.TypeId.FLOAT32:
         out += [1, 32]
     elif dtype.is_floating:
         out += [1, None]
@@ -200,10 +223,11 @@ def _key_bit_widths(dtype: T.DataType, has_narrow: bool) -> list:
 
 def estimate_packed_words(key_specs) -> int:
     """Static count of the 64-bit sort words the reference's lexicographic
-    encode needs for (dtype, has_narrow) keys (its routing rule)."""
+    encode needs for (dtype, has_narrow[, char_cap]) keys (its routing
+    rule)."""
     widths = [1]  # invalid-rows lead flag
-    for dt, has_narrow in key_specs:
-        widths.extend(_key_bit_widths(dt, has_narrow))
+    for spec in key_specs:
+        widths.extend(_key_bit_widths(*spec))
     words, used = 0, 0
     for bits in widths:
         if bits is None:
@@ -220,13 +244,81 @@ def estimate_packed_words(key_specs) -> int:
 def wide_key_set(bound_exprs, batch, schema,
                  threshold: int = HASH_GROUP_MIN_WORDS) -> bool:
     """True when the grouping keys would take more than `threshold`
-    packed words — where the reference switches to its hash lane."""
+    packed words.  `batch` None (a fused pre-stage: the batch holds the
+    raw child columns) routes on dtypes alone; a computed string key is
+    always wide."""
     specs = []
     for e in bound_exprs:
         ordinal = getattr(e, "ordinal", None)
         if ordinal is not None and batch is not None:
             c = batch.columns[ordinal]
-            specs.append((c.dtype, c.narrow is not None))
-        else:
-            specs.append((e.data_type(schema), False))
+            specs.append((c.dtype, c.narrow is not None,
+                          c.char_cap if c.dtype.is_string else 0))
+            continue
+        dt = e.data_type(schema)
+        if dt.is_string:
+            return True
+        specs.append((dt, False))
     return estimate_packed_words(specs) > threshold
+
+
+def _grouping_hash(cols, seed: int) -> torch.Tensor:
+    """Row hash of the hash-grouping lane, int64 in [0, 2^32).  Not
+    Spark's Murmur3Hash: Spark chains a null as the unchanged seed, so
+    (NULL, x) and (x, NULL) would collide on every seed; here a null
+    mixes a per-column marker into the chain instead, so only genuine
+    64-bit accidents collide."""
+    from spark_rapids_tpu_torch.ops.murmur3 import hash_column, hash_int
+    cap = cols[0].capacity
+    h = torch.full((cap,), seed, dtype=torch.int64, device=cols[0].device)
+    for i, c in enumerate(cols):
+        hc = hash_column(c, h)
+        mark = torch.full_like(h, (0x9E3779B9 * (i + 1)) & 0xFFFFFFFF)
+        h = torch.where(c.validity, hc, hash_int(mark, h))
+    return h
+
+
+def hash_sort_bounds(key_cols: list, row_mask: torch.Tensor):
+    """Equality-only grouping: sort rows by TWO murmur3 words instead of
+    the full lexicographic encode, then read exact segment boundaries
+    off the actual key values of adjacent sorted rows.  SQL-equal keys
+    always hash equal, so a group can only fragment when two different
+    key tuples collide on both 32-bit words; that is detected exactly (a
+    key boundary with no hash change) and returned as a deferred flag
+    the caller turns into a deopt check.  Returns (perm, sorted_valid,
+    bounds, collision_flag)."""
+    cols = [c for c, _asc, _nf in key_cols]
+    perm, sorted_valid, bounds, _all, collision = \
+        hash_prefix_sort_bounds(cols, [], row_mask)
+    return perm, sorted_valid, bounds, collision
+
+
+def hash_prefix_sort_bounds(part_cols: list, order_keys: list,
+                            row_mask: torch.Tensor):
+    """`sort_with_bounds` for window-style keys: the PARTITION prefix
+    needs grouping only, so it sorts as two murmur3 words whatever its
+    width, while the ORDER keys keep the exact lexicographic encode.
+    Returns (perm, sorted_valid, prefix_bounds, all_bounds,
+    collision_flag)."""
+    cap = row_mask.shape[0]
+    h1 = _grouping_hash(part_cols, 42)
+    h2 = _grouping_hash(part_cols, 0x3C6EF372)
+    w1 = ((~row_mask).to(torch.int64) << 32) | h1
+    rest: list = []
+    for col, asc, nf in order_keys:
+        rest.extend(encode_key_bits(col, asc, nf))
+    words = [w1, h2] + _pack_words(rest)
+    perm = _sort_words(words)
+    iota = torch.arange(cap, device=row_mask.device)
+    sorted_valid = iota < row_mask.sum()
+    first = iota == 0
+    prefix_bounds = segment_boundaries(part_cols, perm, row_mask)
+    swords = [w[perm] for w in words]
+    hash_change = _neq_prev(swords[:2])
+    collision = (prefix_bounds & ~hash_change & ~first).any()
+    if len(words) > 2:
+        all_bounds = sorted_valid & (prefix_bounds | _neq_prev(swords[2:])
+                                     | first)
+    else:
+        all_bounds = prefix_bounds
+    return perm, sorted_valid, prefix_bounds, all_bounds, collision

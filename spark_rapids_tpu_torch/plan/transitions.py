@@ -1,0 +1,238 @@
+"""Plan transitions (port of spark_rapids_tpu/plan/transitions.py):
+row <-> columnar bridges, coalesce insertion, redundant-transition
+elimination and the test-mode all-on-the-GPU assertion.
+
+The CPU side trades in pandas DataFrames with nullable dtypes; the
+device side in ColumnarBatch.  `RowToColumnarExec` uploads and
+`ColumnarToRowExec` downloads.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import pandas as pd
+import torch
+
+from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.columnar.vector import (ColumnVector, _upload,
+                                                    bucket_capacity,
+                                                    resolve_device,
+                                                    strings_to_bytes)
+from spark_rapids_tpu_torch.exec.base import (CoalesceGoal, TargetSize,
+                                              TpuExec, max_goal)
+from spark_rapids_tpu_torch.exec.coalesce import CoalesceBatchesExec
+from spark_rapids_tpu_torch.plan.cpu_eval import nullable_dtype
+from spark_rapids_tpu_torch.plan.nodes import (CpuNode, CpuSource,
+                                               normalize_df)
+
+
+def _string_vector(s: pd.Series, mask: np.ndarray, cap: int,
+                   dev) -> ColumnVector:
+    """A string Series on `dev`.  A categorical column encodes each
+    category once, uploads the codes and gathers the bytes on the
+    device."""
+    if isinstance(s.dtype, pd.CategoricalDtype):
+        cats = np.asarray(s.cat.categories, dtype=object)
+        chars, lens = strings_to_bytes(cats, np.ones(len(cats), bool))
+        codes = s.cat.codes.to_numpy()
+        valid = _upload(codes >= 0, cap, dev)
+        idx = _upload(codes, cap, dev).to(torch.int64).clamp(min=0)
+        return ColumnVector(
+            T.STRING, _upload(chars, len(chars), dev)[idx], valid,
+            lengths=torch.where(valid, _upload(lens, len(lens), dev)[idx],
+                                0))
+    chars, lens = strings_to_bytes(s.to_numpy(dtype=object), ~mask)
+    return ColumnVector(T.STRING, _upload(chars, cap, dev),
+                        _upload(~mask, cap, dev),
+                        lengths=_upload(lens, cap, dev))
+
+
+def batch_from_df(df: pd.DataFrame, schema: T.Schema,
+                  device="cuda") -> ColumnarBatch:
+    """Host rows -> device batch in the schema's storage model, one
+    upload per column."""
+    dev = resolve_device(device)
+    n = len(df)
+    cap = bucket_capacity(n)
+    cols = []
+    for f in schema.fields:
+        s = df[f.name]
+        if f.dtype.id == T.TypeId.DATE32 and s.dtype == object:
+            s = normalize_df(df[[f.name]], T.Schema((f,)))[f.name]
+        mask = s.isna().to_numpy()
+        if f.dtype.is_string:
+            cols.append(_string_vector(s, mask, cap, dev))
+            continue
+        storage = f.dtype.storage_dtype
+        if str(s.dtype).startswith(("Int", "Float", "boolean")):
+            vals = s.fillna(0).to_numpy(dtype=storage)
+        else:
+            vals = s.to_numpy().astype(storage, copy=False)
+            if mask.any() and vals.dtype.kind == "f":
+                vals = np.where(mask, 0, vals)
+        cols.append(ColumnVector.from_numpy(vals, f.dtype, ~mask, cap,
+                                            device=dev))
+    return ColumnarBatch(schema, cols, n)
+
+
+def series_from_column(field: T.Field, vals, valid) -> pd.Series:
+    """One host column -> nullable pandas Series."""
+    if field.dtype.is_string:
+        return pd.Series(list(vals), dtype=object)
+    s = pd.Series(vals).astype(nullable_dtype(field.dtype))
+    s[~np.asarray(valid)] = pd.NA
+    return s
+
+
+def df_from_batch(batch: ColumnarBatch) -> pd.DataFrame:
+    """Device batch -> host rows with nullable dtypes (DATE32 stays int
+    days), after the batch's deferred checks verify."""
+    batch = batch.dense()
+    batch.verify_checks()
+    out = {}
+    for f, c in zip(batch.schema.fields, batch.columns):
+        vals, valid = c.to_numpy(batch.num_rows)
+        out[f.name] = series_from_column(f, vals, valid)
+    return pd.DataFrame(out)
+
+
+class RowToColumnarExec(TpuExec):
+    """Runs a CPU subtree and uploads its partitions to `device`, in
+    chunks of at most spark.rapids.tpu.batchMaxRows rows (a leaf from
+    the device tree's viewpoint)."""
+
+    def __init__(self, cpu_child: CpuNode, device):
+        super().__init__()
+        self.cpu_child = cpu_child
+        self._device = resolve_device(device)
+        self._schema = cpu_child.output_schema()
+
+    def output_schema(self) -> T.Schema:
+        return self._schema
+
+    def device(self) -> torch.device:
+        return self._device
+
+    def output_partition_count(self) -> int:
+        return self.cpu_child.output_partition_count()
+
+    def describe(self):
+        return f"RowToColumnarExec\n{self.cpu_child.tree_string(1)}"
+
+    def execute_partitions(self):
+        max_rows = C.get_active_conf()[C.MAX_BATCH_ROWS]
+
+        def convert(it):
+            for df in it:
+                for lo in range(0, len(df), max_rows):
+                    yield batch_from_df(df.iloc[lo:lo + max_rows],
+                                        self._schema, self._device)
+        return [convert(it) for it in self.cpu_child.execute()]
+
+
+class ColumnarToRowExec(CpuNode):
+    """Runs a device subtree and downloads its batches to pandas rows."""
+
+    def __init__(self, tpu_child: TpuExec):
+        super().__init__()
+        self.tpu_child = tpu_child
+        self._schema = tpu_child.output_schema()
+
+    def output_schema(self) -> T.Schema:
+        return self._schema
+
+    def output_partition_count(self) -> int:
+        return self.tpu_child.output_partition_count()
+
+    def describe(self):
+        return f"{self.name()}\n{self.tpu_child.tree_string(1)}"
+
+    def execute(self):
+        return [(df_from_batch(b) for b in it)
+                for it in self.tpu_child.execute_partitions()]
+
+
+# ---------------------------------------------------------------------------
+def insert_coalesce(plan: TpuExec, conf: C.RapidsConf) -> TpuExec:
+    """Insert CoalesceBatchesExec per each node's children_coalesce_goal
+    and above batch-shrinking nodes."""
+    _insert_coalesce_walk(plan, TargetSize(conf[C.BATCH_SIZE_BYTES]),
+                          conf[C.MAX_BATCH_ROWS])
+    return plan
+
+
+def _insert_coalesce_walk(node: TpuExec, target: TargetSize,
+                          max_rows: Optional[int] = None) -> None:
+    if isinstance(node, RowToColumnarExec):
+        # device subtrees inside the CPU island need coalesce too
+        _coalesce_cpu_islands(node.cpu_child, target, max_rows)
+        return
+    goals = node.children_coalesce_goal()
+    for i, child in enumerate(list(node.children)):
+        goal: Optional[CoalesceGoal] = goals[i] if i < len(goals) else None
+        if child.coalesce_after:
+            goal = max_goal(goal, target)
+        if goal is not None and not isinstance(child, CoalesceBatchesExec):
+            node._children[i] = CoalesceBatchesExec(goal, child, max_rows)
+        _insert_coalesce_walk(child, target, max_rows)
+
+
+def _coalesce_cpu_islands(node: CpuNode, target: TargetSize,
+                          max_rows: Optional[int] = None) -> None:
+    if isinstance(node, ColumnarToRowExec):
+        _insert_coalesce_walk(node.tpu_child, target, max_rows)
+        return
+    for c in node.children:
+        _coalesce_cpu_islands(c, target, max_rows)
+
+
+def optimize_transitions(node: CpuNode) -> CpuNode:
+    """Remove C2R(R2C(x)) / R2C(C2R(x)) pairs introduced at CPU
+    islands."""
+    if isinstance(node, ColumnarToRowExec):
+        node.tpu_child = _optimize_tpu(node.tpu_child)
+        if isinstance(node.tpu_child, RowToColumnarExec):
+            return optimize_transitions(node.tpu_child.cpu_child)
+        return node
+    node.children = [optimize_transitions(c) for c in node.children]
+    return node
+
+
+def _optimize_tpu(node: TpuExec) -> TpuExec:
+    if isinstance(node, RowToColumnarExec):
+        node.cpu_child = optimize_transitions(node.cpu_child)
+        if isinstance(node.cpu_child, ColumnarToRowExec):
+            return _optimize_tpu(node.cpu_child.tpu_child)
+        return node
+    node._children = [_optimize_tpu(c) for c in node.children]
+    return node
+
+
+def assert_is_on_tpu(plan, allowed: frozenset = frozenset()) -> None:
+    """Test hook (spark.rapids.sql.test.enabled): every CPU node but the
+    sources must be in `allowed`, else this raises."""
+    def walk_cpu(node: CpuNode):
+        if isinstance(node, ColumnarToRowExec):
+            walk_tpu(node.tpu_child)
+            return
+        if not isinstance(node, CpuSource) and node.name() not in allowed:
+            raise AssertionError(
+                f"plan node {node.name()} did not run on the GPU:\n"
+                f"{node.tree_string()}")
+        for c in node.children:
+            walk_cpu(c)
+
+    def walk_tpu(node: TpuExec):
+        if isinstance(node, RowToColumnarExec):
+            walk_cpu(node.cpu_child)
+            return
+        for c in node.children:
+            walk_tpu(c)
+
+    if isinstance(plan, TpuExec):
+        walk_tpu(plan)
+    else:
+        walk_cpu(plan)

@@ -1,9 +1,11 @@
 """Type system for columnar batches (port of spark_rapids_tpu/types.py,
-cut to the types TPC-H Q1 uses).
+cut to the types TPC-H Q1 and Q6 use).
 
 Spark's 64-bit types stay explicit: LONG is torch.int64 and DOUBLE is
 torch.float64 (torch's default float type is float32, so nothing here
-relies on a default).  Dates are int32 days since the epoch.
+relies on a default).  Dates are int32 days since the epoch.  Strings
+are fixed-width byte tensors: uint8[capacity, char_cap] plus int32
+lengths (see columnar/vector.py).
 """
 from __future__ import annotations
 
@@ -21,11 +23,16 @@ class TypeId(enum.Enum):
     FLOAT32 = "float32"
     FLOAT64 = "float64"
     DATE32 = "date32"          # days since unix epoch, int32 storage
+    STRING = "string"          # byte-tensor encoded
 
 
 @dataclasses.dataclass(frozen=True)
 class DataType:
     id: TypeId
+
+    @property
+    def is_string(self) -> bool:
+        return self.id == TypeId.STRING
 
     @property
     def is_floating(self) -> bool:
@@ -34,6 +41,10 @@ class DataType:
     @property
     def is_integral(self) -> bool:
         return self.id in (TypeId.INT32, TypeId.INT64, TypeId.DATE32)
+
+    @property
+    def is_numeric(self) -> bool:
+        return self.is_floating or self.id in (TypeId.INT32, TypeId.INT64)
 
     @property
     def storage_dtype(self) -> np.dtype:
@@ -55,8 +66,9 @@ INT64 = DataType(TypeId.INT64)
 FLOAT32 = DataType(TypeId.FLOAT32)
 FLOAT64 = DataType(TypeId.FLOAT64)
 DATE32 = DataType(TypeId.DATE32)
+STRING = DataType(TypeId.STRING)
 
-ALL_TYPES = (BOOL, INT32, INT64, FLOAT32, FLOAT64, DATE32)
+ALL_TYPES = (BOOL, INT32, INT64, FLOAT32, FLOAT64, DATE32, STRING)
 
 _STORAGE = {
     TypeId.BOOL: np.dtype(np.bool_),
@@ -65,6 +77,7 @@ _STORAGE = {
     TypeId.FLOAT32: np.dtype(np.float32),
     TypeId.FLOAT64: np.dtype(np.float64),
     TypeId.DATE32: np.dtype(np.int32),
+    TypeId.STRING: np.dtype(np.uint8),
 }
 
 _TORCH = {
@@ -74,6 +87,7 @@ _TORCH = {
     TypeId.FLOAT32: torch.float32,
     TypeId.FLOAT64: torch.float64,
     TypeId.DATE32: torch.int32,
+    TypeId.STRING: torch.uint8,
 }
 
 _FROM_NP = {
@@ -89,6 +103,8 @@ _BY_NAME = {t.id.value: t for t in ALL_TYPES}
 
 def from_numpy_dtype(dt) -> DataType:
     dt = np.dtype(dt)
+    if dt.kind in ("U", "S", "O"):
+        return STRING
     if dt not in _FROM_NP:
         raise TypeError(f"unsupported numpy dtype {dt}")
     return _FROM_NP[dt]

@@ -143,3 +143,27 @@ def test_window_group_sums_match_plain(cuda_device, name, n_measures):
                                  capacity=gid.numel())
     assert torch.equal(got, again)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("query", [1, 6])
+def test_planner_queries_match_the_cpu_engine(cuda_device, query):
+    """TPC-H Q1 and Q6 through accelerate + collect on the card, wholly
+    there (spark.rapids.sql.test.enabled), against the CPU engine (keys
+    and counts exact, floats rtol 1e-5); planner Q1 launches
+    window_group_sums."""
+    from parity import compare_frames
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.models.tpch_queries import QUERIES
+    tables = TD.gen_tables(np.random.default_rng(11), 20_000)
+    conf = C.RapidsConf({**TB.BENCH_CONF, C.TEST_ENABLED.key: True})
+    before = GW.window_group_sums.launches
+    got = TB.run_query(query, tables, device=cuda_device, conf=conf)
+    launched = GW.window_group_sums.launches - before
+    want = QUERIES[query](TD.sources(tables, 2), None).collect()
+    compare_frames(want, got, f"q{query} on the card")
+    if query == 1:
+        assert launched >= 2
