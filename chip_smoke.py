@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""GPU smoke run of spark_rapids_tpu_torch: TPC-H Q1 and Q6 at scale factor 10
-(59,986,052 lineitem rows, TPC-H spec 4.2.5) on one NVIDIA card.
+"""GPU smoke run of spark_rapids_tpu_torch: TPC-H Q1, Q3, Q4, Q5 and Q6 at
+scale factor 10 (59,986,052 lineitem rows in phases 4-6, TPC-H spec
+4.2.5) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -10,10 +11,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
   3. hold each kernel against its plain PyTorch twin on the card at the
      main path's shapes (counts exact; f32 sums rtol 1e-5 for q1_fused
      and 1e-4 for grouped_sum and window_group_sums, which add in another
-     order than the twin's; exact for window_group_sums at the shape of
-     planner Q1's partial aggregate, whose integer sums f32 holds
-     exactly), check that grouped_sum's tiers A and B and
-     window_group_sums give the same bits on a second call, and time the
+     order than the twin's; window_group_sums exact on every measure of
+     integers whose absolute sum is below 2^24, which f32 holds exactly,
+     and at planner Q1's partial aggregate's shape on all of them),
+     check that grouped_sum's tiers A and B and window_group_sums give
+     the same bits on a second call, and time the
      wrapper (`ms`), the kernel alone (`device_ms`, torch.profiler's CUDA
      time over a batch of launches), the plain twin and, where one
      exists, the single PyTorch call that computes the same function;
@@ -37,9 +39,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
      lane adds in f32), and window_group_sums must launch during the Q1
      collects; accelerate (with the upload) and collect are timed apart,
      cold and hot;
-  7. print the kernels line and, last, the device line.
-Without a CUDA device, or without the package beside it, it exits
-non-zero before printing any result.
+  7. run TPC-H Q3, Q4 and Q5 (joins: HashJoinExec, SortedTopNExec) the
+     same way over the six tables they read at SF10, linked by dbgen's
+     keys (tpch_bench.sf10_tables), 16 partitions: the exec trees must
+     be the planner's, every join's lane is named and the kernels'
+     launches counted, and the results must hold against a float64
+     numpy golden built from index arrays (keys, dates, counts and
+     order exact; revenues rtol 1e-3); accelerate and collect are timed
+     apart, cold and hot, and the phase's peak device memory printed;
+     then the inputs of the widest window_group_sums call of each
+     query's hot collect are held against the twin as in phase 3
+     (rtol 1e-4, exact on measures of integers whose sums f32 holds
+     exactly) and timed (`device_ms` is printed as not measured where
+     the profiler records no device activity);
+  8. print the kernels line and, last, the device line.
+Every phase prints its wall time.  Without a CUDA device, or without
+the package beside it, it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
@@ -76,9 +91,11 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, kernel: str, reps: int) -> float:
+def device_ms(torch, fn, kernel: str, reps: int, strict: bool = True):
     """Mean device time of one launch of the CUDA kernel whose name
-    contains `kernel`, from torch.profiler over `reps` calls of fn()."""
+    contains `kernel`, from torch.profiler over `reps` calls of fn().
+    Where the profiler sees no such launch, raise if `strict`, else
+    print what it saw and return None (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -87,8 +104,16 @@ def device_ms(torch, fn, kernel: str, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
+    events = list(prof.events())
+    times = [e.time_range.elapsed_us() for e in events
              if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if not times and not strict:
+        names = sorted({e.name[:60] for e in events})[:8]
+        print(f"device_ms of {kernel}: not measured, the profiler saw "
+              f"{len(events)} events, "
+              f"{sum(e.device_type == DeviceType.CUDA for e in events)} "
+              f"on the device ({names})", flush=True)
+        return None
     require(bool(times), f"the profiler saw no {kernel} launch")
     return sum(times) / len(times) / 1e3
 
@@ -229,6 +254,212 @@ def planner_phase(torch, dev, seed: int, GW) -> dict:
     return out
 
 
+#: exec trees of the join queries at 16 partitions, in tree order
+JOIN_TREES = {
+    3: ["SortedTopNExec", "HashAggregateExec", "HashJoinExec",
+        "ShuffleExchangeExec", "HashJoinExec", "ShuffleExchangeExec",
+        "CoalesceBatchesExec", "FilterExec", "LocalBatchSource",
+        "CoalesceBatchesExec", "ShuffleExchangeExec", "CoalesceBatchesExec",
+        "FilterExec", "LocalBatchSource", "CoalesceBatchesExec",
+        "ShuffleExchangeExec", "CoalesceBatchesExec", "FilterExec",
+        "LocalBatchSource"],
+    4: ["SortExec", "CoalesceBatchesExec", "HashAggregateExec",
+        "HashJoinExec", "ShuffleExchangeExec", "CoalesceBatchesExec",
+        "FilterExec", "LocalBatchSource", "CoalesceBatchesExec",
+        "ShuffleExchangeExec", "CoalesceBatchesExec", "FilterExec",
+        "LocalBatchSource"],
+    5: ["SortExec", "CoalesceBatchesExec", "HashAggregateExec",
+        "HashJoinExec", "HashJoinExec", "ShuffleExchangeExec",
+        "HashJoinExec", "ShuffleExchangeExec", "HashJoinExec",
+        "ShuffleExchangeExec", "LocalBatchSource", "CoalesceBatchesExec",
+        "ShuffleExchangeExec", "CoalesceBatchesExec", "FilterExec",
+        "LocalBatchSource", "CoalesceBatchesExec", "ShuffleExchangeExec",
+        "LocalBatchSource", "CoalesceBatchesExec", "ShuffleExchangeExec",
+        "LocalBatchSource", "CoalesceBatchesExec", "HashJoinExec",
+        "ShuffleExchangeExec", "LocalBatchSource", "CoalesceBatchesExec",
+        "ShuffleExchangeExec", "CoalesceBatchesExec", "FilterExec",
+        "LocalBatchSource"],
+}
+JOIN_RTOL = 1e-3
+
+
+def golden_joins(a: dict, TD) -> dict:
+    """float64 numpy Q3, Q4 and Q5 over sf10_tables' arrays, from index
+    arrays: order_row maps an order key to its row, c_custkey and
+    s_suppkey are row + 1, and sums are bincounts with weights."""
+    okey, odate = a["o_orderkey"], a["o_orderdate"]
+    n_orders = len(okey)
+    order_row = np.full(int(okey.max()) + 1, -1, np.int32)
+    order_row[okey] = np.arange(n_orders, dtype=np.int32)
+    lo = order_row[a["l_orderkey"]]
+    cust = a["o_custkey"] - 1
+    rev = a["l_extendedprice"] * (1.0 - a["l_discount"])
+    out = {}
+    # Q3: BUILDING customers' orders before the date, lines shipped after
+    d = TD.days("1995-03-15")
+    o_ok = (odate < d) & (a["c_mktsegment"][cust]
+                          == TD.SEGMENTS.index("BUILDING"))
+    l_ok = (a["l_shipdate"] > d) & o_ok[lo]
+    r3 = np.bincount(lo[l_ok], weights=rev[l_ok], minlength=n_orders)
+    hit = np.flatnonzero(np.bincount(lo[l_ok], minlength=n_orders))
+    top = hit[np.lexsort((odate[hit], -r3[hit]))][:11]
+    out[3] = {"orderkey": okey[top], "orderdate": odate[top],
+              "revenue": r3[top]}
+    # Q4: orders of the quarter with a line received after its commit
+    late = np.bincount(lo[a["l_commitdate"] < a["l_receiptdate"]],
+                       minlength=n_orders) > 0
+    sel = ((odate >= TD.days("1993-07-01"))
+           & (odate < TD.days("1993-10-01")) & late)
+    cnt = np.bincount(a["o_orderpriority"][sel],
+                      minlength=len(TD.PRIORITIES))
+    out[4] = {"priority": [p for p, c in zip(TD.PRIORITIES, cnt) if c],
+              "count": cnt[cnt > 0]}
+    # Q5: 1994's lines whose supplier shares the customer's nation, in
+    # ASIA
+    sn = a["s_nationkey"][a["l_suppkey"] - 1]
+    ok = ((odate >= TD.days("1994-01-01")) & (odate < TD.days("1995-01-01")))
+    ok = (ok[lo] & (sn == a["c_nationkey"][cust[lo]])
+          & (a["n_regionkey"][sn] == TD.REGIONS.index("ASIA")))
+    r5 = np.bincount(sn[ok], weights=rev[ok], minlength=len(TD.NATIONS))
+    live = np.flatnonzero(np.bincount(sn[ok], minlength=len(TD.NATIONS)))
+    live = live[np.argsort(-r5[live], kind="stable")]
+    out[5] = {"nation": [TD.NATIONS[i][0] for i in live],
+              "revenue": r5[live]}
+    return out
+
+
+def check_join_query(q: int, df, gold: dict) -> float:
+    """Raise unless `df` is query q's golden answer; return the largest
+    relative error of its revenues.  Q3: ten distinct orders, each the
+    golden's row at its rank or a row whose revenue is within JOIN_RTOL
+    of that rank's (a near-tie may swap, the 11th row included), with
+    its date exact; Q4: priorities and counts exact; Q5: nations and
+    their order exact."""
+    if q == 4:
+        require(list(df["o_orderpriority"]) == gold["priority"],
+                f"Q4 priorities {list(df['o_orderpriority'])}")
+        require(np.array_equal(df["order_count"].to_numpy(np.int64),
+                               gold["count"]), "Q4 counts differ")
+        return 0.0
+    if q == 5:
+        require(list(df["n_name"]) == gold["nation"],
+                f"Q5 nations {list(df['n_name'])} != {gold['nation']}")
+        want = gold["revenue"]
+        got = df["revenue"].to_numpy(np.float64)
+    else:
+        keys = df["l_orderkey"].to_numpy(np.int64)
+        require(len(keys) == min(10, len(gold["orderkey"]))
+                and len(set(keys)) == len(keys), f"Q3 rows {keys}")
+        require(np.all(df["o_shippriority"].to_numpy() == 0),
+                "Q3 shippriority")
+        g = gold["revenue"]
+        want = []
+        for i, k in enumerate(keys):
+            j = np.flatnonzero(gold["orderkey"] == k)
+            require(len(j) == 1, f"Q3 rank {i}: order {k} is not the "
+                    f"golden's {gold['orderkey'][:10]}")
+            j = int(j[0])
+            require(abs(g[j] - g[i]) <= JOIN_RTOL * abs(g[i]),
+                    f"Q3 rank {i}: order {k} is the golden's rank {j}")
+            require(int(df["o_orderdate"].iloc[i]) == gold["orderdate"][j],
+                    f"Q3 order {k} date")
+            want.append(g[j])
+        want = np.asarray(want)
+        got = df["revenue"].to_numpy(np.float64)
+    rel = float(np.max(np.abs(got - want) / np.abs(want))) if len(want) \
+        else 0.0
+    require(rel <= JOIN_RTOL, f"Q{q} revenue rel err {rel}")
+    return rel
+
+
+def recording(calls: list, GW):
+    """A stand-in for the aggregate's window_group_sums that passes each
+    call on and keeps a copy of the inputs of the widest CUDA call (the
+    first of the largest capacity) in `calls`: [gid, vals, out_cap]."""
+    def call(gid, vals, *, out_cap: int, capacity: int):
+        if gid.is_cuda and (not calls or capacity > calls[0].numel()):
+            calls[:] = [gid.clone(), [v.clone() for v in vals], out_cap]
+        return GW.window_group_sums(gid, vals, out_cap=out_cap,
+                                    capacity=capacity)
+    return call
+
+
+def join_phase(torch, dev, seed: int, GW, K) -> dict:
+    """Phase 7: TPC-H Q3, Q4 and Q5 at SF10 (see the module docstring).
+    out["calls"][q] holds the inputs of the widest window_group_sums call
+    of query q's hot collect."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.exec import aggregate as AGG
+    from spark_rapids_tpu_torch.exec.joins import HashJoinExec
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.models.tpch_queries import QUERIES
+    from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
+    t0 = time.perf_counter()
+    tables, arrays = TB.sf10_tables(seed)
+    print("join data: " + ", ".join(f"{k} {len(v)}" for k, v in
+                                    tables.items())
+          + f" rows, {time.perf_counter() - t0:.1f} s", flush=True)
+    gold = golden_joins(arrays, TD)
+    del arrays
+    conf = C.RapidsConf({**TB.BENCH_CONF, C.TEST_ENABLED.key: True})
+    n = TB.SF10_PARTITIONS
+    out = {"rel": 0.0, "window_group_sums": {}, "grouped_sum": {},
+           "calls": {}}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for q in (3, 4, 5):
+        for run in ("cold", "hot"):
+            calls: list = []
+            if run == "hot":
+                AGG.window_group_sums = recording(calls, GW)
+            cpu_plan = QUERIES[q](TD.sources(tables, n), None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan = accelerate(cpu_plan, conf, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            GW.window_group_sums.launches = 0
+            K.grouped_sum.launches = 0
+            df = collect(plan, conf)
+            t2 = time.perf_counter()
+            launches = {"window_group_sums": GW.window_group_sums.launches,
+                        "grouped_sum": K.grouped_sum.launches}
+            AGG.window_group_sums = GW.window_group_sums
+            if calls:
+                out["calls"][q] = calls
+            got = tree(plan)
+            require([name for name, _ in got] == JOIN_TREES[q],
+                    f"q{q} exec tree: {got}")
+            exchanges = {d for name, d in got
+                         if name == "ShuffleExchangeExec"}
+            require(exchanges == {
+                f"ShuffleExchangeExec(HashPartitioning, n={n})"},
+                f"q{q} exchanges: {exchanges}")
+            lanes = [j.lane for j in walk(plan)
+                     if isinstance(j, HashJoinExec)]
+            require(all(lanes), f"q{q}: a join never ran: {lanes}")
+            rel = check_join_query(q, df, gold[q])
+            out["rel"] = max(out["rel"], rel)
+            for k, v in launches.items():
+                out[k][f"q{q}_{run}"] = v
+            print(f"join q{q} SF10 {run}: accelerate {t1 - t0:.3f} s "
+                  f"(with the upload), collect {t2 - t1:.3f} s, rel err "
+                  f"{rel:.3g}, join lanes {lanes}, launches {launches}",
+                  flush=True)
+            del cpu_plan, plan, df
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"join queries SF10 against the float64 golden: keys, dates, "
+          f"counts and order exact, max rel err {out['rel']:.3g}; peak "
+          f"device memory {out['peak_gb']:.2f} GiB", flush=True)
+    return out
+
+
+def walk(plan):
+    yield plan
+    for c in plan.children:
+        yield from walk(c)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -251,14 +482,22 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    clock = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - clock[0]:.1f} s wall", flush=True)
+        clock[0] = now
 
     # 1. card
     print(TB.card(), flush=True)
+    lap("1 (card)")
 
     # 2. build
     t0 = time.perf_counter()
     cuda_build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    lap("2 (build)")
 
     # data: SF10 lineitem in 8 batches of capacity 2^23
     t0 = time.perf_counter()
@@ -376,17 +615,29 @@ def main() -> int:
     gs_mid = grouped_case(mid_keys, q1_vals, TB.BATCH_CAP, 300, "B", 10)
     gs_mid["shape"] = "2^23 rows, G=300, M=14"
 
-    def window_case(gid, vals, out_cap, reps):
+    def window_case(gid, vals, out_cap, reps, strict=True):
         def call():
             return GW.window_group_sums(gid, vals, out_cap=out_cap,
                                         capacity=gid.numel())
 
+        before = GW.window_group_sums.launches
         got = call()
+        require(GW.window_group_sums.launches
+                == before + -(-len(vals) // K.MAX_MEASURES),
+                "window_group_sums did not launch its kernel")
         same_bits((got,), (call(),), "window_group_sums")
         want = GW.window_group_sums_plain(gid, vals, out_cap=out_cap)
         err = (got - want).abs().max().item()
         rel = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
         require(rel <= 1e-4, f"window_group_sums vs plain rel err {rel}")
+        for j, v in enumerate(vals):
+            # integers whose absolute sum is below 2^24 add exactly in f32
+            # in any order
+            if (bool((v == v.round()).all().item())
+                    and v.abs().double().sum().item() < 2**24):
+                require(torch.equal(got[:, j], want[:, j]),
+                        f"window_group_sums measure {j} of integers is "
+                        f"not exact")
         m, n = len(vals), gid.numel()
         b_ms, b_by = bound(n * 4 + n * m * 4 + out_cap * m * 4, n * m)
         seg = torch.where((gid >= 0) & (gid < out_cap), gid,
@@ -395,7 +646,8 @@ def main() -> int:
         return {
             "max_abs_err": err, "max_rel_err": rel, "rtol": 1e-4,
             "ms": cuda_ms(torch, call, reps),
-            "device_ms": device_ms(torch, call, "window_group_sums", reps),
+            "device_ms": device_ms(torch, call, "window_group_sums", reps,
+                                   strict),
             "plain_ms": cuda_ms(torch, lambda: GW.window_group_sums_plain(
                 gid, vals, out_cap=out_cap), reps),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -448,6 +700,7 @@ def main() -> int:
               f"({k['bound_by']}), library_ms {k['library_ms']}",
               flush=True)
     del wide_keys, mid_keys, big_gid, big_vals, q1_vals, mvals, run_vals
+    lap("3 (kernels against their twins, with the SF10 data)")
 
     # 4. engine Q1 through the exec tree
     with C.session(C.RapidsConf(TB.BENCH_CONF)):
@@ -501,6 +754,7 @@ def main() -> int:
     require(engine_rel <= 1e-3, f"Q1 engine rel err {engine_rel}")
     print(f"engine q1_plan SF10 against the float64 golden: keys and "
           f"counts exact, max rel err {engine_rel:.3g}", flush=True)
+    lap("4 (exec-tree Q1)")
 
     # 5. the stacked Q1 step
     step = tpch.build_q1_fused_kernel(cap, TB.BATCH_CAP, device=dev)
@@ -521,9 +775,39 @@ def main() -> int:
     print(f"stacked q1 step SF10: cold {step_cold_s:.4f} s, hot "
           f"{step_hot_s:.4f} s, rel err {step_rel:.3g}, q1_fused "
           f"launches {step_launches}", flush=True)
+    lap("5 (stacked Q1 step)")
 
     # 6. planner Q1 and Q6
     planner = planner_phase(torch, dev, args.seed, GW)
+    lap("6 (planner Q1 and Q6)")
+
+    # 7. the join queries, with the earlier phases' device data freed
+    del plan, fresh, batches, stacked, nums, step, b0, slot, keep0
+    del q, p, d, t, dp64, val_cols, flag, g_rng, gid, row_live, iota
+    del run_gid
+    torch.cuda.empty_cache()
+    joins = join_phase(torch, dev, args.seed, GW, K)
+    join_cases = []
+    for q in (3, 4, 5):
+        require(q in joins["calls"],
+                f"q{q}: no window_group_sums call on the card to check")
+        j_gid, j_vals, j_cap = joins["calls"].pop(q)
+        case = window_case(j_gid, j_vals, j_cap, 10, strict=False)
+        live = int((j_gid[1:] != j_gid[:-1]).sum().item()) + 1
+        case.update(query=q, launches=joins["window_group_sums"][
+            f"q{q}_hot"], shape=f"Q{q} widest call: capacity "
+            f"{j_gid.numel()}, out_cap {j_cap}, M={len(j_vals)}, {live} id "
+            f"runs")
+        print(f"kernel window_group_sums [{case['shape']}]: max_abs_err "
+              f"{case['max_abs_err']:.3g} max_rel_err "
+              f"{case['max_rel_err']:.3g} (rtol {case['rtol']}), ms "
+              f"{case['ms']:.4f}, device_ms {case['device_ms']}, "
+              f"plain_ms {case['plain_ms']:.4f}, bound_ms "
+              f"{case['bound_ms']:.4f} ({case['bound_by']}), library_ms "
+              f"{case['library_ms']}", flush=True)
+        join_cases.append(case)
+        del j_gid, j_vals
+    lap("7 (join queries Q3, Q4, Q5)")
 
     kernels["q1_fused"]["launches"] = step_launches
     kernels["grouped_sum"]["launches"] = engine_launches["grouped_sum"]
@@ -531,9 +815,17 @@ def main() -> int:
         engine_launches["window_group_sums"]
     kernels["window_group_sums"]["planner_q1_launches"] = \
         planner["q1_launches"]
+    for name in ("grouped_sum", "window_group_sums"):
+        kernels[name]["join_queries_launches"] = joins[name]
+    kernels["window_group_sums"]["join_cases"] = [
+        {k: c[k] for k in ("query", "shape", "launches", "max_abs_err",
+                           "max_rel_err", "ms", "device_ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms")}
+        for c in join_cases]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "planner_q1_launches")
+            "bound_by", "library_ms", "planner_q1_launches",
+            "join_queries_launches", "join_cases")
     line = {"kernels": [{k: v[k] for k in keys if k in v}
                         for v in kernels.values()]}
     print(json.dumps(line), flush=True)

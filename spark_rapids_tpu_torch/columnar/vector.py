@@ -254,3 +254,50 @@ def strings_to_bytes(values, valid) -> tuple[np.ndarray, np.ndarray]:
                 uniques, np.ones(len(uniques), bool)))
             return data[codes], lens[codes]
     return _bytes_matrix(_encode_rows(values, valid))
+
+
+#: how many column validities fit one packed int32 bitmask
+VMASK_BITS = 30
+
+
+def validity_bit_assignment(columns) -> dict:
+    """{ordinal: bit} for the first VMASK_BITS non-string columns
+    (strings resolve their validity inside their own gather).  Pure
+    dtype metadata, so the side that packs and the side that unpacks
+    get the same assignment by construction."""
+    bits: dict = {}
+    for ci, c in enumerate(columns):
+        if c.dtype.is_string:
+            continue
+        if len(bits) >= VMASK_BITS:
+            break
+        bits[ci] = len(bits)
+    return bits
+
+
+def pack_validity_bits(columns):
+    """`validity_bit_assignment` and the packed int32 mask itself, one
+    bit per column per row: ({ordinal: bit}, mask or None)."""
+    bits = validity_bit_assignment(columns)
+    if not bits:
+        return bits, None
+    packed = torch.zeros(columns[0].validity.shape[0], dtype=torch.int32,
+                         device=columns[0].device)
+    for ci, bit in bits.items():
+        packed = packed | (columns[ci].validity.to(torch.int32) << bit)
+    return bits, packed
+
+
+def gather_narrowest(c: ColumnVector, indices: torch.Tensor,
+                     valid: torch.Tensor) -> ColumnVector:
+    """Gather a non-string column whose validity the caller has already
+    resolved (`valid`).  An int64 column with an int32 shadow gathers
+    only the shadow and widens it exactly; anything else gathers its
+    data and its shadow, if it has one.  Indices are clamped into
+    range."""
+    idx = indices.clamp(0, c.capacity - 1).to(torch.int64)
+    if c.narrow is not None and c.dtype.id == T.TypeId.INT64:
+        nd = c.narrow[idx]
+        return ColumnVector(c.dtype, nd.to(c.data.dtype), valid, nd)
+    narrow = None if c.narrow is None else c.narrow[idx]
+    return ColumnVector(c.dtype, c.data[idx], valid, narrow)

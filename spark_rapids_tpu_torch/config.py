@@ -58,6 +58,18 @@ FUSION_ENABLED = conf(
     "Collapse Project/Filter chains between pipeline breaks into one "
     "stage, and fold a chain that feeds a partial or complete "
     "aggregation into the aggregate's update lane.")
+DENSE_JOIN_ENABLED = conf(
+    "spark.rapids.tpu.denseJoin.enabled", True,
+    "Direct-address equi-join fast path: when a single integral build "
+    "key's runtime span fits denseJoin.maxSpan and the keys are unique "
+    "(PK-FK joins on dense surrogate keys), the build side becomes a "
+    "dense slot table, and each probe batch is a lookup of its keys' "
+    "slots in that table followed by gathers of the build rows, with no "
+    "concat and no sort.  Otherwise the join takes the sort-merge lane.")
+DENSE_JOIN_MAX_SPAN = conf(
+    "spark.rapids.tpu.denseJoin.maxSpan", 1 << 22,
+    "Max build-key span for the direct-address join table (table memory "
+    "is 8 bytes per slot).")
 RAPIDS_SHUFFLE_ENABLED = conf(
     "spark.rapids.shuffle.enabled", False,
     "Route exchanges through the accelerated shuffle manager.  Not "

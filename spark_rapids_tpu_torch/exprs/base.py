@@ -73,6 +73,13 @@ class Expression:
     def __ge__(self, o): return _binop("GreaterThanOrEqual", self, _lit(o))
     def __lt__(self, o): return _binop("LessThan", self, _lit(o))
     def __le__(self, o): return _binop("LessThanOrEqual", self, _lit(o))
+    # == and != build expressions too (expression dataclasses use
+    # eq=False, so these are not shadowed): col("a") == 0 reads as in Spark
+    def __eq__(self, o): return _binop("EqualTo", self, _lit(o))
+
+    def __ne__(self, o):
+        from spark_rapids_tpu_torch.exprs.predicates import Not
+        return Not(_binop("EqualTo", self, _lit(o)))
     __hash__ = object.__hash__
 
     def __and__(self, o):

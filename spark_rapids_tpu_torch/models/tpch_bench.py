@@ -13,6 +13,8 @@ are made here from one seed:
     with batch_rows 2^23;
   - `sf10_lineitem_frame`: all 16 lineitem columns with
     `tpch_data.SCHEMAS` types, for the planner's Q1 and Q6.
+`sf10_tables` makes the six tables Q3, Q4 and Q5 read (region, nation,
+supplier, customer, orders, lineitem), linked by dbgen's keys.
 """
 from __future__ import annotations
 
@@ -95,21 +97,26 @@ def _categorical(options, codes) -> pd.Categorical:
     return pd.Categorical.from_codes(codes, categories=list(options))
 
 
-def sf10_lineitem_frame(seed: int, rows: int = SF10_ROWS
-                        ) -> tuple[pd.DataFrame, dict]:
-    """(frame, numpy columns) of lineitem in dbgen's value ranges (TPC-H
-    spec 4.2.3), drawn vectorized from `seed`: all 16 columns with
-    `tpch_data.SCHEMAS` types.  Money columns are float64 rounded to
-    cents and dates DATE32 days.  String columns are pandas Categoricals
-    (dictionary-coded on the host, uploaded as bytes): the flags follow
-    dbgen's rules from the dates, ship instruct and mode are uniform
-    over their lists, and l_comment picks from `tpch_data._comment`'s
-    word pool.  The numpy columns hold the flags as codes (returnflag
-    A/N/R = 0/1/2, linestatus F/O = 0/1) for a golden."""
-    rng = np.random.default_rng(seed)
-    odate = rng.integers(tpch_data.days("1992-01-01"),
-                         tpch_data.days("1998-08-02") + 1,
-                         rows).astype(np.int32)
+#: the word pool of `tpch_data._comment`: names, addresses and comments
+#: the queries never read pick from it, so they upload as few categories
+_POOL = [f"{a} {b} requests" for a in tpch_data.COLORS
+         for b in tpch_data.COLORS]
+
+
+def _pooled(rng, n: int) -> pd.Categorical:
+    return _categorical(_POOL, rng.integers(0, len(_POOL), n))
+
+
+def _lineitem(rng, odate: np.ndarray, keys
+              ) -> tuple[pd.DataFrame, dict]:
+    """(frame, numpy columns) of lineitem rows whose orders were placed
+    on `odate` and whose l_orderkey, l_partkey, l_suppkey and
+    l_linenumber are the dict `keys(rng)`: dates, quantities, prices and
+    flags in dbgen's ranges and rules (TPC-H spec 4.2.3), the flags held
+    as codes in the numpy columns (returnflag A/N/R = 0/1/2, linestatus
+    F/O = 0/1).  `keys` is called after the dates, quantities, prices
+    and flags are drawn and before the discounts."""
+    rows = len(odate)
     ship = odate + rng.integers(1, 122, rows).astype(np.int32)
     commit = odate + rng.integers(30, 91, rows).astype(np.int32)
     receipt = ship + rng.integers(1, 31, rows).astype(np.int32)
@@ -119,14 +126,8 @@ def sf10_lineitem_frame(seed: int, rows: int = SF10_ROWS
     flag = np.where(late, 1, np.where(rng.random(rows) < 0.5, 0, 2)
                     ).astype(np.int8)
     status = (ship > _CURRENT_DATE).astype(np.int8)
-    colors = len(tpch_data.COLORS)
-    pool = [f"{a} {b} requests" for a in tpch_data.COLORS
-            for b in tpch_data.COLORS]
     arrays = {
-        "l_orderkey": rng.integers(1, 60_000_001, rows, dtype=np.int64),
-        "l_partkey": rng.integers(1, 2_000_001, rows, dtype=np.int64),
-        "l_suppkey": rng.integers(1, 100_001, rows, dtype=np.int64),
-        "l_linenumber": rng.integers(1, 8, rows).astype(np.int32),
+        **keys(rng),
         "l_quantity": qty,
         "l_extendedprice": price,
         "l_discount": rng.integers(0, 11, rows) / 100.0,
@@ -148,7 +149,162 @@ def sf10_lineitem_frame(seed: int, rows: int = SF10_ROWS
         "l_shipmode": _categorical(
             tpch_data.SHIP_MODES,
             rng.integers(0, len(tpch_data.SHIP_MODES), rows)),
-        "l_comment": _categorical(
-            pool, rng.integers(0, colors * colors, rows)),
+        "l_comment": _pooled(rng, rows),
     })[list(tpch_data.SCHEMAS["lineitem"].names)]
     return frame, arrays
+
+
+def sf10_lineitem_frame(seed: int, rows: int = SF10_ROWS
+                        ) -> tuple[pd.DataFrame, dict]:
+    """(frame, numpy columns) of lineitem alone in dbgen's value ranges
+    (TPC-H spec 4.2.3), drawn vectorized from `seed`: all 16 columns
+    with `tpch_data.SCHEMAS` types.  Money columns are float64 rounded
+    to cents and dates DATE32 days.  String columns are pandas
+    Categoricals (dictionary-coded on the host, uploaded as bytes): the
+    flags follow dbgen's rules from the dates, ship instruct and mode
+    are uniform over their lists, and l_comment picks from
+    `tpch_data._comment`'s word pool.  The keys link to no other table
+    (see `sf10_tables`)."""
+    rng = np.random.default_rng(seed)
+    odate = rng.integers(tpch_data.days("1992-01-01"),
+                         tpch_data.days("1998-08-02") + 1,
+                         rows).astype(np.int32)
+    return _lineitem(rng, odate, lambda rng: {
+        "l_orderkey": rng.integers(1, 60_000_001, rows, dtype=np.int64),
+        "l_partkey": rng.integers(1, 2_000_001, rows, dtype=np.int64),
+        "l_suppkey": rng.integers(1, 100_001, rows, dtype=np.int64),
+        "l_linenumber": rng.integers(1, 8, rows).astype(np.int32),
+    })
+
+
+def _phones(rng, nationkey: np.ndarray) -> pd.Categorical:
+    """dbgen's phone layout, country code = nation key + 10, the local
+    part from a pool of 1,000 numbers."""
+    local = [f"{a}-{b}-{c}" for a, b, c in zip(
+        rng.integers(100, 1000, 1000), rng.integers(100, 1000, 1000),
+        rng.integers(1000, 10000, 1000))]
+    pool = [f"{cc}-{p}" for cc in range(10, 35) for p in local]
+    codes = nationkey * len(local) + rng.integers(0, len(local),
+                                                  len(nationkey))
+    return _categorical(pool, codes)
+
+
+def sf10_tables(seed: int, sf: float = 10.0
+                ) -> tuple[dict[str, pd.DataFrame], dict]:
+    """(tables, numpy columns) of region, nation, supplier, customer,
+    orders and lineitem at scale factor `sf` (TPC-H spec 4.2.5: 10,000
+    suppliers, 150,000 customers and 1,500,000 orders per unit, 1-7
+    lines per order), linked by dbgen's keys (spec 4.2.3), drawn
+    vectorized from `seed`:
+      - o_orderkey is sparse as dbgen makes it, the first 8 keys of each
+        block of 32;
+      - o_custkey is never a multiple of 3 (a third of the customers
+        place no order);
+      - l_suppkey follows from l_partkey by dbgen's partsupp rule, one
+        of the part's 4 suppliers;
+      - ship date = order date + 1..121, commit = order date + 30..90,
+        receipt = ship date + 1..30; order status and total price
+        follow from the lines.
+    Columns follow `tpch_data.SCHEMAS`; strings the queries never read
+    (names, addresses, phones, comments) are pandas Categoricals over
+    small pools.  The numpy columns hold what a golden needs: every key,
+    the dates, prices and discounts, and the codes of c_mktsegment
+    (into `tpch_data.SEGMENTS`) and o_orderpriority (into
+    `tpch_data.PRIORITIES`)."""
+    rng = np.random.default_rng(seed)
+    n_supp = int(10_000 * sf)
+    n_cust = int(150_000 * sf)
+    n_orders = int(1_500_000 * sf)
+    n_part = int(200_000 * sf)
+    region = pd.DataFrame({
+        "r_regionkey": np.arange(5, dtype=np.int64),
+        "r_name": _categorical(tpch_data.REGIONS, np.arange(5)),
+        "r_comment": _pooled(rng, 5),
+    })
+    nations = len(tpch_data.NATIONS)
+    n_regionkey = np.array([r for _, r in tpch_data.NATIONS], np.int64)
+    nation = pd.DataFrame({
+        "n_nationkey": np.arange(nations, dtype=np.int64),
+        "n_name": _categorical([n for n, _ in tpch_data.NATIONS],
+                               np.arange(nations)),
+        "n_regionkey": n_regionkey,
+        "n_comment": _pooled(rng, nations),
+    })
+    s_nationkey = rng.integers(0, nations, n_supp).astype(np.int64)
+    supplier = pd.DataFrame({
+        "s_suppkey": np.arange(1, n_supp + 1, dtype=np.int64),
+        "s_name": _pooled(rng, n_supp),
+        "s_address": _pooled(rng, n_supp),
+        "s_nationkey": s_nationkey,
+        "s_phone": _phones(rng, s_nationkey),
+        "s_acctbal": tpch_data._money(rng, -999.99, 9999.99, n_supp),
+        "s_comment": _pooled(rng, n_supp),
+    })
+    c_nationkey = rng.integers(0, nations, n_cust).astype(np.int64)
+    c_segment = rng.integers(0, len(tpch_data.SEGMENTS), n_cust)
+    customer = pd.DataFrame({
+        "c_custkey": np.arange(1, n_cust + 1, dtype=np.int64),
+        "c_name": _pooled(rng, n_cust),
+        "c_address": _pooled(rng, n_cust),
+        "c_nationkey": c_nationkey,
+        "c_phone": _phones(rng, c_nationkey),
+        "c_acctbal": tpch_data._money(rng, -999.99, 9999.99, n_cust),
+        "c_mktsegment": _categorical(tpch_data.SEGMENTS, c_segment),
+        "c_comment": _pooled(rng, n_cust),
+    })
+    i = np.arange(n_orders, dtype=np.int64)
+    o_orderkey = i // 8 * 32 + i % 8 + 1
+    # the j-th key that is no multiple of 3: 1, 2, 4, 5, 7, ...
+    j = rng.integers(0, n_cust - n_cust // 3, n_orders)
+    o_custkey = (j // 2 * 3 + j % 2 + 1).astype(np.int64)
+    o_orderdate = rng.integers(tpch_data.days("1992-01-01"),
+                               tpch_data.days("1998-08-02") + 1,
+                               n_orders).astype(np.int32)
+    o_priority = rng.integers(0, len(tpch_data.PRIORITIES), n_orders)
+    lines = rng.integers(1, 8, n_orders)
+    first = np.cumsum(lines) - lines
+    n_lines = int(lines.sum())
+    l_order = np.repeat(i, lines)
+    l_partkey = rng.integers(1, n_part + 1, n_lines, dtype=np.int64)
+    # dbgen's PART_SUPP_BRIDGE: the part's supplier number 0..3
+    l_suppkey = (l_partkey + rng.integers(0, 4, n_lines)
+                 * (n_supp // 4 + (l_partkey - 1) // n_supp)) % n_supp + 1
+    lineitem, l_arrays = _lineitem(rng, o_orderdate[l_order], lambda _: {
+        "l_orderkey": o_orderkey[l_order],
+        "l_partkey": l_partkey,
+        "l_suppkey": l_suppkey,
+        "l_linenumber": (np.arange(n_lines) - first[l_order] + 1
+                         ).astype(np.int32),
+    })
+    open_lines = np.add.reduceat(l_arrays["l_linestatus"].astype(np.int64),
+                                 first)
+    status = np.where(open_lines == 0, 0, np.where(open_lines == lines,
+                                                   1, 2))
+    charge = (l_arrays["l_extendedprice"] * (1.0 - l_arrays["l_discount"])
+              * (1.0 + l_arrays["l_tax"]))
+    orders = pd.DataFrame({
+        "o_orderkey": o_orderkey,
+        "o_custkey": o_custkey,
+        "o_orderstatus": _categorical("FOP", status),
+        "o_totalprice": np.round(np.add.reduceat(charge, first), 2),
+        "o_orderdate": o_orderdate,
+        "o_orderpriority": _categorical(tpch_data.PRIORITIES, o_priority),
+        "o_clerk": _categorical(
+            [f"Clerk#{k:09d}" for k in range(1, max(int(1000 * sf), 1) + 1)],
+            rng.integers(0, max(int(1000 * sf), 1), n_orders)),
+        "o_shippriority": np.zeros(n_orders, np.int32),
+        "o_comment": _pooled(rng, n_orders),
+    })
+    tables = {"region": region, "nation": nation, "supplier": supplier,
+              "customer": customer, "orders": orders, "lineitem": lineitem}
+    for name, df in tables.items():
+        assert list(df.columns) == list(tpch_data.SCHEMAS[name].names), name
+    arrays = {
+        "n_regionkey": n_regionkey, "s_nationkey": s_nationkey,
+        "c_nationkey": c_nationkey, "c_mktsegment": c_segment,
+        "o_orderkey": o_orderkey, "o_custkey": o_custkey,
+        "o_orderdate": o_orderdate, "o_orderpriority": o_priority,
+        **{k: l_arrays[k] for k in (
+            "l_orderkey", "l_suppkey", "l_extendedprice", "l_discount",
+            "l_shipdate", "l_commitdate", "l_receiptdate")}}
+    return tables, arrays

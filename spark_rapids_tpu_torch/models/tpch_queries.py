@@ -1,25 +1,45 @@
 """TPC-H queries as CPU plan trees (port of
-spark_rapids_tpu/models/tpch_queries.py, cut to Q1 and Q6).
+spark_rapids_tpu/models/tpch_queries.py, cut to Q1 and Q3-Q6).
 
 Each query is `qN(t, run) -> CpuNode`: `t` maps table name -> a fresh
 source plan; `run(plan) -> DataFrame` executes a sub-plan on the engine
-under test (for scalar subqueries; Q1 and Q6 have none).  Dates are
-DATE32 day literals via `tpch_data.days`.
+under test (for scalar subqueries; these queries have none).  Q4's
+correlated EXISTS is decorrelated the way Catalyst does it, as a left
+semi join.  Dates are DATE32 day literals via `tpch_data.days`.
 """
 from __future__ import annotations
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.exec.sort import asc
+from spark_rapids_tpu_torch.exec.joins import JoinType
+from spark_rapids_tpu_torch.exec.sort import asc, desc
 from spark_rapids_tpu_torch.exprs.aggregates import Average, Count, Sum
 from spark_rapids_tpu_torch.exprs.base import Literal, col, lit
 from spark_rapids_tpu_torch.models.tpch_data import days
 from spark_rapids_tpu_torch.plan.nodes import (CpuAggregate, CpuFilter,
-                                               CpuSort)
+                                               CpuHashJoin, CpuLimit,
+                                               CpuProject, CpuSort)
+
+J = JoinType
 
 
 def dlit(s: str) -> Literal:
     """DATE32 literal from 'YYYY-MM-DD'."""
     return Literal(days(s), T.DATE32)
+
+
+def _join(jt, left, right, lk, rk, condition=None, broadcast=False):
+    return CpuHashJoin(jt, [col(k) for k in lk], [col(k) for k in rk],
+                       left, right, condition=condition,
+                       broadcast=broadcast)
+
+
+def _rename(node, mapping):
+    """Project that renames `mapping` keys and keeps only them."""
+    return CpuProject([col(a).alias(b) for a, b in mapping.items()], node)
+
+
+def _cols(node, *names):
+    return CpuProject([col(n) for n in names], node)
 
 
 def q1(t, run):
@@ -42,6 +62,65 @@ def q1(t, run):
                    agg)
 
 
+def q3(t, run):
+    """Shipping priority."""
+    cust = CpuFilter(col("c_mktsegment") == lit("BUILDING"),
+                     t["customer"])
+    orders = CpuFilter(col("o_orderdate") < dlit("1995-03-15"),
+                       t["orders"])
+    li = CpuFilter(col("l_shipdate") > dlit("1995-03-15"),
+                   t["lineitem"])
+    joined = _join(J.INNER,
+                   _join(J.INNER, cust, orders,
+                         ["c_custkey"], ["o_custkey"]),
+                   li, ["o_orderkey"], ["l_orderkey"])
+    agg = CpuAggregate(
+        [col("l_orderkey"), col("o_orderdate"), col("o_shippriority")],
+        [Sum(col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+             ).alias("revenue")], joined)
+    return CpuLimit(10, CpuSort(
+        [desc(col("revenue")), asc(col("o_orderdate"))], agg))
+
+
+def q4(t, run):
+    """Order priority checking (EXISTS -> left semi join)."""
+    orders = CpuFilter(
+        (col("o_orderdate") >= dlit("1993-07-01")) &
+        (col("o_orderdate") < dlit("1993-10-01")), t["orders"])
+    late = CpuFilter(col("l_commitdate") < col("l_receiptdate"),
+                     t["lineitem"])
+    semi = _join(J.LEFT_SEMI, orders, late,
+                 ["o_orderkey"], ["l_orderkey"])
+    agg = CpuAggregate([col("o_orderpriority")],
+                       [Count(None).alias("order_count")], semi)
+    return CpuSort([asc(col("o_orderpriority"))], agg)
+
+
+def q5(t, run):
+    """Local supplier volume."""
+    region = CpuFilter(col("r_name") == lit("ASIA"), t["region"])
+    orders = CpuFilter(
+        (col("o_orderdate") >= dlit("1994-01-01")) &
+        (col("o_orderdate") < dlit("1995-01-01")), t["orders"])
+    joined = _join(
+        J.INNER,
+        _join(J.INNER,
+              _join(J.INNER,
+                    _join(J.INNER, t["customer"], orders,
+                          ["c_custkey"], ["o_custkey"]),
+                    t["lineitem"], ["o_orderkey"], ["l_orderkey"]),
+              t["supplier"], ["l_suppkey", "c_nationkey"],
+              ["s_suppkey", "s_nationkey"]),
+        _join(J.INNER, t["nation"], region,
+              ["n_regionkey"], ["r_regionkey"]),
+        ["s_nationkey"], ["n_nationkey"])
+    agg = CpuAggregate(
+        [col("n_name")],
+        [Sum(col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+             ).alias("revenue")], joined)
+    return CpuSort([desc(col("revenue"))], agg)
+
+
 def q6(t, run):
     """Forecast revenue change."""
     li = CpuFilter(
@@ -55,4 +134,4 @@ def q6(t, run):
              .alias("revenue")], li)
 
 
-QUERIES = {1: q1, 6: q6}
+QUERIES = {1: q1, 3: q3, 4: q4, 5: q5, 6: q6}

@@ -89,10 +89,12 @@ window_group_sums.launches = 0
 
 
 def window_group_sums_plain(gid, vals, *, out_cap: int) -> torch.Tensor:
-    """Plain PyTorch twin of `window_group_sums` (f32 index_add_)."""
+    """Plain PyTorch twin of `window_group_sums` (index_add_ in the
+    measures' dtype: f32 as the kernel takes them, or float64 for an
+    oracle whose order of addition does not show)."""
     keep = (gid >= 0) & (gid < out_cap)
     seg = torch.where(keep, gid, out_cap).to(torch.int64)
     stacked = torch.stack(list(vals), dim=1)
-    out = torch.zeros((out_cap + 1, len(vals)), dtype=torch.float32,
+    out = torch.zeros((out_cap + 1, len(vals)), dtype=stacked.dtype,
                       device=gid.device).index_add_(0, seg, stacked)
     return out[:out_cap]

@@ -113,6 +113,13 @@ def _sort_words(words: list) -> torch.Tensor:
     return perm
 
 
+def packed_lexsort(keys_msf: list) -> torch.Tensor:
+    """Stable multi-key argsort over (tensor, bits) keys, most significant
+    first: the keys pack into sort words, and rows whose keys are all
+    equal keep their input order."""
+    return _sort_words(_pack_words(keys_msf))
+
+
 def _neq_prev(sorted_words) -> torch.Tensor:
     """True where any sorted word differs from its predecessor."""
     acc = torch.zeros_like(sorted_words[0], dtype=torch.bool)

@@ -2,8 +2,8 @@
 spark_rapids_tpu/plan/fusion.py).
 
 The pass walks the physical plan between pipeline breaks (exchange,
-coalesce, sort and the aggregate are never crossed; only Project and
-Filter are fusible) and collapses:
+coalesce, sort, the aggregate and the join's two sides are never
+crossed; only Project and Filter are fusible) and collapses:
 
 * `project -> filter -> project` chains (any mix, length >= 2) into a
   `FusedStageExec` that evaluates the whole stage straight off its input
@@ -39,7 +39,8 @@ from spark_rapids_tpu_torch.exprs.simplify import (dedup_common_subexprs,
                                                    simplify)
 
 #: execs whose batch functions are pure expression evaluation: the only
-#: members a fused stage may contain
+#: members a fused stage may contain.  Everything else (exchange,
+#: coalesce, sort, join) is a pipeline break.
 _FUSIBLE = (ProjectExec, FilterExec)
 
 

@@ -1,6 +1,6 @@
 """Device-neutral physical plan nodes with real CPU (pandas) execution
 (port of spark_rapids_tpu/plan/nodes.py: source, project, filter, limit,
-sort and aggregate).
+sort, aggregate and hash join).
 
 These play the role of Spark's own row-based operators: the input of the
 plan rewrite (`plan/overrides.py`), and the engine a node runs on when it
@@ -12,12 +12,13 @@ partitions of row chunks.
 from __future__ import annotations
 
 import datetime as _dt
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import pandas as pd
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.exec.joins import JoinType
 from spark_rapids_tpu_torch.exec.sort import SortOrder
 from spark_rapids_tpu_torch.exprs.aggregates import AggAlias
 from spark_rapids_tpu_torch.exprs.base import Expression, output_name
@@ -345,3 +346,136 @@ class CpuAggregate(CpuNode):
         out = pd.DataFrame({a.name: grouped[a.name].agg(_agg_op(a.func))
                             for a in self.aggregates}).reset_index()
         return [iter([normalize_df(out, self._schema)])]
+
+
+class CpuHashJoin(CpuNode):
+    """Equi-join over pandas merges (HashJoinExec's CPU twin): null keys
+    never match, and a residual condition applies during matching."""
+
+    def __init__(self, join_type: JoinType,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression],
+                 left: CpuNode, right: CpuNode,
+                 condition: Optional[Expression] = None,
+                 broadcast: bool = False):
+        super().__init__(left, right)
+        self.join_type = join_type
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.condition = condition
+        self.broadcast = broadcast
+        ls, rs = left.output_schema(), right.output_schema()
+        if join_type in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI):
+            self._schema = ls
+        else:
+            self._schema = T.Schema(tuple(ls.fields) + tuple(rs.fields))
+
+    def output_schema(self):
+        return self._schema
+
+    def output_partition_count(self) -> int:
+        return 1
+
+    def describe(self):
+        return f"CpuHashJoin({self.join_type.value})"
+
+    def execute(self):
+        ls = self.children[0].output_schema()
+        rs = self.children[1].output_schema()
+        lparts = [df for it in self.children[0].execute() for df in it]
+        rparts = [df for it in self.children[1].execute() for df in it]
+        ldf = (pd.concat(lparts, ignore_index=True) if lparts
+               else empty_df(ls))
+        rdf = (pd.concat(rparts, ignore_index=True) if rparts
+               else empty_df(rs))
+        lk = pd.DataFrame({f"__k{i}": cpu_eval(e, ldf, ls)
+                           for i, e in enumerate(self.left_keys)})
+        rk = pd.DataFrame({f"__k{i}": cpu_eval(e, rdf, rs)
+                           for i, e in enumerate(self.right_keys)})
+        # Spark joins never match null keys
+        lvalid = ~lk.isna().any(axis=1)
+        rvalid = ~rk.isna().any(axis=1)
+        laug = pd.concat(
+            [ldf, lk, pd.Series(np.arange(len(ldf)), name="__lrow")],
+            axis=1)
+        raug = pd.concat(
+            [rdf.add_prefix("__r_"), rk,
+             pd.Series(np.arange(len(rdf)), name="__rrow")], axis=1)
+        keys = [f"__k{i}" for i in range(len(self.left_keys))]
+        jt = self.join_type
+        if jt in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI):
+            if self.condition is None:
+                matched = laug[lvalid].merge(
+                    raug[rvalid][keys].drop_duplicates(),
+                    on=keys, how="inner")["__lrow"]
+            else:
+                # EXISTS semantics: a left row matches if ANY key-equal
+                # right row also passes the residual condition
+                inner = laug[lvalid].merge(raug[rvalid], on=keys,
+                                           how="inner")
+                inner = inner[self._condition_mask(inner, ldf, rdf)]
+                matched = inner["__lrow"]
+            mask = np.zeros(len(ldf), bool)
+            mask[matched.to_numpy()] = True
+            if jt == JoinType.LEFT_ANTI:
+                mask = ~mask
+            out = ldf[mask]
+            return [iter([out.reset_index(drop=True)])]
+        if self.condition is not None and jt in (
+                JoinType.LEFT_OUTER, JoinType.RIGHT_OUTER,
+                JoinType.FULL_OUTER):
+            # Spark applies the residual condition DURING matching: rows
+            # whose every match fails the condition are still emitted as
+            # unmatched (null-padded), never dropped
+            inner = laug[lvalid].merge(raug[rvalid], on=keys, how="inner")
+            inner = inner[self._condition_mask(inner, ldf, rdf)]
+            parts = [inner]
+            if jt in (JoinType.LEFT_OUTER, JoinType.FULL_OUTER):
+                matched = set(inner["__lrow"])
+                parts.append(laug[~laug["__lrow"].isin(matched)])
+            if jt in (JoinType.RIGHT_OUTER, JoinType.FULL_OUTER):
+                matched = set(inner["__rrow"])
+                parts.append(raug[~raug["__rrow"].isin(matched)])
+            merged = pd.concat(parts, ignore_index=True)
+        else:
+            how = {JoinType.INNER: "inner", JoinType.LEFT_OUTER: "left",
+                   JoinType.RIGHT_OUTER: "right",
+                   JoinType.FULL_OUTER: "outer"}[jt]
+            if how == "inner":
+                merged = laug[lvalid].merge(raug[rvalid], on=keys,
+                                            how="inner")
+            elif how == "left":
+                merged = laug.merge(raug[rvalid], on=keys, how="left")
+            elif how == "right":
+                merged = laug[lvalid].merge(raug, on=keys, how="right")
+            else:
+                # full outer: null keys never match (pandas would match
+                # NA==NA), so join valid keys, append null-key rows unmatched
+                merged = laug[lvalid].merge(raug[rvalid], on=keys,
+                                            how="outer")
+                merged = pd.concat(
+                    [merged, laug[~lvalid], raug[~rvalid]],
+                    ignore_index=True)
+            if self.condition is not None:
+                merged = merged[self._condition_mask(merged, ldf, rdf)]
+        out = pd.concat([
+            merged[[c for c in ldf.columns]].reset_index(drop=True),
+            merged[[f"__r_{c}" for c in rdf.columns]]
+            .rename(columns=lambda c: c[4:]).reset_index(drop=True)],
+            axis=1)
+        return [iter([normalize_df(out, self._schema)])]
+
+    def _condition_mask(self, merged: pd.DataFrame, ldf: pd.DataFrame,
+                        rdf: pd.DataFrame) -> np.ndarray:
+        comb = pd.concat([
+            merged[[c for c in ldf.columns]].reset_index(drop=True),
+            merged[[f"__r_{c}" for c in rdf.columns]]
+            .rename(columns=lambda c: c[4:]).reset_index(drop=True)],
+            axis=1)
+        # conditions see both sides even when the join's OUTPUT schema is
+        # left-only (semi/anti)
+        ls = self.children[0].output_schema()
+        rs = self.children[1].output_schema()
+        both = T.Schema(tuple(ls.fields) + tuple(rs.fields))
+        m = cpu_eval(self.condition, comb, both)
+        return m.astype("boolean").fillna(False).astype(bool).to_numpy()

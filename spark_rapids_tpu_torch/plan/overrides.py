@@ -6,8 +6,10 @@ spark_rapids_tpu/plan/overrides.py; the reference plugin's
 wrap -> tag (bottom-up) -> explain -> convert -> transitions (bridges,
 pair elimination) -> fusion -> coalesce insertion -> the test-mode
 check.  Conversion plans too: an aggregate over several partitions
-becomes partial -> exchange -> final, and a global sort over several
-partitions a range exchange under the sort.  `collect(plan, conf)`
+becomes partial -> exchange -> final, a global sort over several
+partitions a range exchange under the sort, a join over several
+partitions hash exchanges of both sides on their keys, and a global
+limit over a global sort a top-N.  `collect(plan, conf)`
 runs the result to a pandas DataFrame.
 
 Only rules for what the port has are registered: any other node or
@@ -25,7 +27,8 @@ from spark_rapids_tpu_torch.columnar.vector import resolve_device
 from spark_rapids_tpu_torch.exec import basic as B
 from spark_rapids_tpu_torch.exec.aggregate import AggMode, HashAggregateExec
 from spark_rapids_tpu_torch.exec.base import TpuExec
-from spark_rapids_tpu_torch.exec.sort import SortExec
+from spark_rapids_tpu_torch.exec.joins import HashJoinExec, JoinType
+from spark_rapids_tpu_torch.exec.sort import SortedTopNExec, SortExec
 from spark_rapids_tpu_torch.exprs.base import Alias, Expression, col
 from spark_rapids_tpu_torch.plan import nodes as N
 from spark_rapids_tpu_torch.plan.meta import PlanMeta, wrap_plan
@@ -138,9 +141,22 @@ def _conv_limit(meta, kids) -> TpuExec:
     from spark_rapids_tpu_torch.exec.limit import (GlobalLimitExec,
                                                    LocalLimitExec)
     node: N.CpuLimit = meta.node
+    child = kids[0]
     if node.global_limit:
-        return GlobalLimitExec(node.n, LocalLimitExec(node.n, kids[0]))
-    return LocalLimitExec(node.n, kids[0])
+        # ORDER BY + LIMIT -> top-N (Spark plans this shape as
+        # TakeOrderedAndProjectExec): prune each batch to n candidates,
+        # then sort the merged candidates exactly
+        if (isinstance(child, SortExec) and child.global_sort and
+                node.n <= 1 << 14):
+            src = child.child
+            if (isinstance(src, ShuffleExchangeExec) and
+                    isinstance(src.partitioning, RangePartitioning)):
+                # the range exchange only existed to order the
+                # partitions totally; top-N prunes each partition instead
+                src = src.child
+            return SortedTopNExec(node.n, child.order, src)
+        return GlobalLimitExec(node.n, LocalLimitExec(node.n, child))
+    return LocalLimitExec(node.n, child)
 
 
 def _conv_sort(meta, kids) -> TpuExec:
@@ -181,6 +197,41 @@ def _conv_aggregate(meta, kids) -> TpuExec:
         node.aggregates, ex, AggMode.FINAL)
 
 
+def _conv_hash_join(meta, kids) -> TpuExec:
+    node: N.CpuHashJoin = meta.node
+    left, right = kids
+    nparts = max(left.output_partition_count(),
+                 right.output_partition_count())
+    if nparts > 1:
+        # co-partition both sides by their keys
+        left = ShuffleExchangeExec(
+            HashPartitioning(node.left_keys, nparts), left)
+        right = ShuffleExchangeExec(
+            HashPartitioning(node.right_keys, nparts), right)
+    return HashJoinExec(node.join_type, node.left_keys, node.right_keys,
+                        left, right, node.condition)
+
+
+def _tag_join(meta) -> None:
+    node: N.CpuHashJoin = meta.node
+    if node.broadcast:
+        # neither a device lane nor a quiet CPU island: the broadcast
+        # exchange and its join come with the distribution work
+        raise NotImplementedError(
+            "BroadcastHashJoinExec is not ported yet (ROADMAP.md §1 item 8, "
+            "shuffle and distribution)")
+    supported = {JoinType.INNER, JoinType.LEFT_OUTER, JoinType.RIGHT_OUTER,
+                 JoinType.FULL_OUTER, JoinType.LEFT_SEMI, JoinType.LEFT_ANTI,
+                 JoinType.CROSS}
+    if node.join_type not in supported:
+        meta.will_not_work_on_gpu(
+            f"join type {node.join_type} not supported on GPU")
+    if node.condition is not None and node.join_type not in (
+            JoinType.INNER, JoinType.CROSS):
+        meta.will_not_work_on_gpu(
+            "residual join condition only supported for inner joins")
+
+
 register_exec(N.CpuSource, "in-memory source", _conv_source)
 register_exec(N.CpuProject, "projection", _conv_project,
               exprs_of=lambda n: n.exprs)
@@ -194,6 +245,11 @@ register_exec(
     exprs_of=lambda n: list(n.group_exprs) + [
         a.func.child for a in n.aggregates if a.func.child is not None],
     tag_extra=_tag_aggregate)
+register_exec(
+    N.CpuHashJoin, "hash join", _conv_hash_join,
+    exprs_of=lambda n: list(n.left_keys) + list(n.right_keys) +
+    ([n.condition] if n.condition is not None else []),
+    tag_extra=_tag_join)
 
 
 # ---------------------------------------------------------------------------

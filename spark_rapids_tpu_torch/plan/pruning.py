@@ -13,6 +13,7 @@ import dataclasses
 from typing import Optional
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.exec.joins import JoinType
 from spark_rapids_tpu_torch.exprs.base import AttributeReference, Expression
 from spark_rapids_tpu_torch.plan import nodes as N
 
@@ -72,4 +73,23 @@ def prune_columns(node: N.CpuNode, required: Optional[set] = None
     if isinstance(node, N.CpuLimit):
         return N.CpuLimit(node.n, prune_columns(node.child, required),
                           node.global_limit)
+    if isinstance(node, N.CpuHashJoin):
+        lnames = set(node.children[0].output_schema().names)
+        rnames = set(node.children[1].output_schema().names)
+        cond = expr_refs(node.condition)
+        if required is None:
+            lreq = rreq = None
+        else:
+            above = set(required) | cond
+            lreq = (above & lnames) | expr_refs(node.left_keys)
+            rreq = (above & rnames) | expr_refs(node.right_keys)
+        if node.join_type in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI):
+            # the right side exists only for the match: keys + condition
+            rreq = expr_refs(node.right_keys) | (cond & rnames)
+        return N.CpuHashJoin(node.join_type, node.left_keys,
+                             node.right_keys,
+                             prune_columns(node.children[0], lreq),
+                             prune_columns(node.children[1], rreq),
+                             condition=node.condition,
+                             broadcast=node.broadcast)
     return node  # unknown node: keep its subtree

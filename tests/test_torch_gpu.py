@@ -123,7 +123,9 @@ def _window_case(name, dev):
                                   "big_gaps", "q1_merge", "ragged"])
 @pytest.mark.parametrize("n_measures", [17, 70])
 def test_window_group_sums_match_plain(cuda_device, name, n_measures):
-    """The kernel against the plain twin (f32 sums rtol 1e-5; absent ids
+    """The kernel against the plain twin over float64 copies of the
+    measures, cast to f32 at the end, so the oracle does not depend on
+    the order its atomic adds land in (f32 sums rtol 1e-5; absent ids
     exactly 0, though the output is not zero-filled first), and the same
     bits on a second call."""
     dev = cuda_device
@@ -135,7 +137,8 @@ def test_window_group_sums_match_plain(cuda_device, name, n_measures):
     torch.full((out_cap * n_measures * 2,), float("nan"), device=dev)
     got = GW.window_group_sums(gid, vals, out_cap=out_cap,
                                capacity=gid.numel())
-    want = GW.window_group_sums_plain(gid, vals, out_cap=out_cap)
+    want = GW.window_group_sums_plain(gid, [v.double() for v in vals],
+                                      out_cap=out_cap).float()
     assert bool(torch.isfinite(got).all())
     assert torch.equal(got == 0, want == 0)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
@@ -146,11 +149,11 @@ def test_window_group_sums_match_plain(cuda_device, name, n_measures):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("query", [1, 6])
+@pytest.mark.parametrize("query", [1, 3, 4, 5, 6])
 def test_planner_queries_match_the_cpu_engine(cuda_device, query):
-    """TPC-H Q1 and Q6 through accelerate + collect on the card, wholly
-    there (spark.rapids.sql.test.enabled), against the CPU engine (keys
-    and counts exact, floats rtol 1e-5); planner Q1 launches
+    """TPC-H Q1 and Q3-Q6 through accelerate + collect on the card,
+    wholly there (spark.rapids.sql.test.enabled), against the CPU engine
+    (keys and counts exact, floats rtol 1e-5); planner Q1 launches
     window_group_sums."""
     from parity import compare_frames
 
@@ -167,3 +170,48 @@ def test_planner_queries_match_the_cpu_engine(cuda_device, query):
     compare_frames(want, got, f"q{query} on the card")
     if query == 1:
         assert launched >= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("join_type", ["INNER", "LEFT_OUTER", "RIGHT_OUTER",
+                                       "FULL_OUTER", "LEFT_SEMI",
+                                       "LEFT_ANTI"])
+@pytest.mark.parametrize("unique", [True, False])
+def test_join_lanes_match_the_cpu(cuda_device, join_type, unique):
+    """HashJoinExec on the card against the same join on the CPU, row for
+    row: unique build keys at capacity 1024 take the dense lane (but
+    FULL_OUTER), duplicates the sort-merge lane."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.exec import joins as J
+    from spark_rapids_tpu_torch.exec.basic import LocalBatchSource
+    from spark_rapids_tpu_torch.exprs.base import col
+    rng = np.random.default_rng(4)
+    probe = {"k": rng.integers(0, 1200, 5000).astype(np.int64),
+             "v": rng.uniform(0, 1, 5000)}
+    keys = (rng.permutation(1000) if unique
+            else rng.integers(0, 1000, 1000)).astype(np.int64)
+    build = {"r": keys, "w": rng.integers(0, 9, 1000).astype(np.int32)}
+    pvalid = {"k": rng.random(5000) > 0.05}
+    jt = J.JoinType[join_type]
+    left, right = (build, probe) if jt == J.JoinType.RIGHT_OUTER \
+        else (probe, build)
+    lkey, rkey = ("r", "k") if jt == J.JoinType.RIGHT_OUTER else ("k", "r")
+
+    def run(dev):
+        def src(d):
+            return LocalBatchSource([[ColumnarBatch.from_numpy(
+                d, validity=pvalid if d is probe else None,
+                capacity=1024 if d is build else None, device=dev)]],
+                device=dev)
+        plan = J.HashJoinExec(jt, [col(lkey)], [col(rkey)], src(left),
+                              src(right))
+        return plan.collect().to_pandas(), plan.lane
+    got, lane = run(cuda_device)
+    want, cpu_lane = run("cpu")
+    dense = unique and jt != J.JoinType.FULL_OUTER
+    assert lane == cpu_lane == ("dense" if dense else "sort-merge")
+    assert list(got.columns) == list(want.columns) and len(got) == len(want)
+    for name in want.columns:
+        assert got[name].isna().equals(want[name].isna())
+        np.testing.assert_array_equal(got[name].dropna().to_numpy(float),
+                                      want[name].dropna().to_numpy(float))

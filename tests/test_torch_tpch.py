@@ -1,6 +1,7 @@
-"""TPC-H Q1 and Q6 through spark_rapids_tpu_torch's planner
+"""TPC-H Q1, Q3, Q4, Q5 and Q6 through spark_rapids_tpu_torch's planner
 (`accelerate` + `collect`) against spark_rapids_tpu's `run_query`, on the
-CPU, at the scale and seed tests/test_tpch.py uses.
+CPU, at the scale and seed tests/test_tpch.py uses; and the SF10 tables
+of the join queries with chip_smoke.py's goldens, at a small scale.
 
 Keys and counts must match exactly and floats within compare_frames'
 rtol 1e-5 (the banded lane adds f32, as the reference's does).
@@ -18,6 +19,7 @@ from spark_rapids_tpu.plan import overrides as RO
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch.exec.aggregate import HashAggregateExec
 from spark_rapids_tpu_torch.exec.basic import LocalBatchSource
+from spark_rapids_tpu_torch.exec.joins import HashJoinExec
 from spark_rapids_tpu_torch.models import tpch_bench as TB
 from spark_rapids_tpu_torch.models import tpch_data as TD
 from spark_rapids_tpu_torch.models.tpch_queries import QUERIES
@@ -26,6 +28,8 @@ from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
 
 SCALE = 3000
 SEED = 11
+#: the sort keys whose order each join query's result must keep
+ORDER_KEYS = {3: "l_orderkey", 4: "o_orderpriority", 5: "n_name"}
 
 
 @pytest.fixture(scope="module")
@@ -82,15 +86,33 @@ def test_run_query_matches_reference_and_cpu_engine(tables, ref_tables,
     if query == 1:
         assert len(got) == 6 and got["count_order"].sum() == \
             (tables["lineitem"]["l_shipdate"] <= TD.days("1998-09-02")).sum()
+    if query in ORDER_KEYS:
+        key = ORDER_KEYS[query]
+        assert len(got) > 1
+        assert list(got[key]) == list(reference[query][0][key]) == \
+            list(cpu[key])
 
 
 @pytest.mark.parametrize("query", sorted(QUERIES))
 def test_plan_matches_reference_tree(tables, reference, query):
+    """The reference's exec tree, class for class; the join queries'
+    joins take the reference's lanes, and their aggregates sit on a
+    join, with nothing to fuse."""
     plan = _accelerate(query, tables)
     assert _tree(plan) == _tree(reference[query][1])
     fused = [n for n in _walk(plan) if isinstance(n, HashAggregateExec)
              and n.fused_members]
-    assert [n.mode.value for n in fused] == ["partial"]
+    assert [n.mode.value for n in fused] == (
+        [] if query in ORDER_KEYS else ["partial"])
+    if query in ORDER_KEYS:
+        collect(plan)
+        lanes = [n.lane for n in _walk(plan) if isinstance(n, HashJoinExec)]
+        ref_lanes = [
+            "dense" if any(e is not None for e, _ in
+                           n._dense_tables.values()) else "sort-merge"
+            for n in _walk(reference[query][1])
+            if type(n).__name__ == "HashJoinExec"]
+        assert lanes == ref_lanes
 
 
 def _walk(plan):
@@ -264,3 +286,50 @@ def test_fused_filter_project_on_the_dictionary_lane(tables):
         False, True, True, False]
     compare_frames(plan().collect(), collect(acc), "dictionary lane")
     assert partial._dict_gpad is not None
+
+
+@pytest.fixture(scope="module")
+def sf_small():
+    """sf10_tables at scale factor 0.002: 30,000 orders, ~120,000
+    lines."""
+    return TB.sf10_tables(3, 0.002)
+
+
+def test_sf10_tables_follow_dbgen_keys(sf_small):
+    tables, arrays = sf_small
+    orders, li = tables["orders"], tables["lineitem"]
+    assert [len(tables[t]) for t in ("region", "nation", "supplier",
+                                     "customer", "orders")] == \
+        [5, 25, 20, 300, 3000]
+    assert 3000 <= len(li) <= 7 * 3000
+    for name, df in tables.items():
+        assert TD.SCHEMAS[name].names == tuple(df.columns)
+    okey = orders["o_orderkey"].to_numpy()
+    assert np.all(((okey - 1) % 32) < 8) and len(np.unique(okey)) == 3000
+    assert np.isin(li["l_orderkey"], okey).all()
+    assert not np.any(orders["o_custkey"] % 3 == 0)
+    assert orders["o_custkey"].between(1, 300).all()
+    odate = pd.Series(orders["o_orderdate"].to_numpy(), index=okey)
+    ship_gap = li["l_shipdate"].to_numpy() - \
+        odate[li["l_orderkey"]].to_numpy()
+    assert ship_gap.min() >= 1 and ship_gap.max() <= 121
+    assert (li["l_receiptdate"] > li["l_shipdate"]).all()
+    # l_suppkey is one of the part's 4 suppliers (dbgen's partsupp rule)
+    p, n = li["l_partkey"].to_numpy(), 20
+    options = np.stack([(p + i * (n // 4 + (p - 1) // n)) % n + 1
+                        for i in range(4)])
+    assert (options == li["l_suppkey"].to_numpy()).any(axis=0).all()
+    assert np.array_equal(arrays["l_orderkey"], li["l_orderkey"])
+
+
+@pytest.mark.parametrize("query", [3, 4, 5])
+def test_chip_smoke_join_goldens_match_the_cpu_run(sf_small, query):
+    """chip_smoke.py's float64 numpy goldens for Q3, Q4 and Q5 against
+    the port's run_query on the CPU, over the same small draw."""
+    import chip_smoke
+    tables, arrays = sf_small
+    gold = chip_smoke.golden_joins(arrays, TD)[query]
+    got = TB.run_query(query, tables, device="cpu", num_partitions=4)
+    assert chip_smoke.check_join_query(query, got, gold) <= 1e-6
+    want_rows = len(gold["nation"]) if query == 5 else (10, 5)[query - 3]
+    assert len(got) == want_rows
