@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""GPU smoke run of spark_rapids_tpu_torch: TPC-H Q1, Q3, Q4, Q5 and Q6 at
-scale factor 10 (59,986,052 lineitem rows in phases 4-6, TPC-H spec
-4.2.5) on one NVIDIA card.
+"""GPU smoke run of spark_rapids_tpu_torch: TPC-H Q1 and Q3-Q10 at scale
+factor 10 (59,986,052 lineitem rows in phases 4-6, TPC-H spec 4.2.5) on
+one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -40,19 +40,26 @@ Phases, each of which raises on failure (exit code 1, no result line):
      collects; accelerate (with the upload) and collect are timed apart,
      cold and hot;
   7. run TPC-H Q3, Q4 and Q5 (joins: HashJoinExec, SortedTopNExec) the
-     same way over the six tables they read at SF10, linked by dbgen's
+     same way over the eight TPC-H tables at SF10, linked by dbgen's
      keys (tpch_bench.sf10_tables), 16 partitions: the exec trees must
-     be the planner's, every join's lane is named and the kernels'
-     launches counted, and the results must hold against a float64
-     numpy golden built from index arrays (keys, dates, counts and
-     order exact; revenues rtol 1e-3); accelerate and collect are timed
-     apart, cold and hot, and the phase's peak device memory printed;
-     then the inputs of the widest window_group_sums call of each
-     query's hot collect are held against the twin as in phase 3
-     (rtol 1e-4, exact on measures of integers whose sums f32 holds
-     exactly) and timed (`device_ms` is printed as not measured where
-     the profiler records no device activity);
-  8. print the kernels line and, last, the device line.
+     be the planner's, every join's lane and its probe batches are
+     named and the kernels' launches counted, and the results must hold
+     against a float64 numpy golden built from index arrays (keys,
+     dates, counts and order exact; revenues rtol 1e-3); accelerate and
+     collect are timed apart, cold and hot, and each query's peak
+     device memory printed; then the inputs of the widest
+     window_group_sums call of each query's hot collect are held
+     against the twin as in phase 3 (rtol 1e-4, exact on measures of
+     integers whose sums f32 holds exactly) and timed (`device_ms`
+     from the profiler, or where it records no device activity from
+     CUDA events queued behind a sleep kernel);
+  8. run TPC-H Q7, Q8, Q9 and Q10 (Year, CASE WHEN, Contains, Divide,
+     part and partsupp, Q10's seven group keys) as phase 7 runs Q3-Q5,
+     against float64 goldens (keys, years, names, counts and order
+     exact; revenues, profits and market shares rtol 1e-3), with the
+     same window_group_sums checks; then time LIKE '%green%' over 2^20
+     p_name values, which must select the rows Contains does;
+  9. print the kernels line and, last, the device line.
 Every phase prints its wall time.  Without a CUDA device, or without
 the package beside it, it exits non-zero before printing any result.
 """
@@ -91,6 +98,26 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def event_ms(torch, fn, reps: int) -> float:
+    """Mean device time of one call of fn(), each call between two CUDA
+    events queued behind a sleep kernel: the stream is busy while the
+    host queues the call, so the events bracket the device work alone
+    (the wrapper's host time is hidden)."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)  # ~1 ms of the card's clock
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
 def device_ms(torch, fn, kernel: str, reps: int, strict: bool = True):
     """Mean device time of one launch of the CUDA kernel whose name
     contains `kernel`, from torch.profiler over `reps` calls of fn().
@@ -116,6 +143,18 @@ def device_ms(torch, fn, kernel: str, reps: int, strict: bool = True):
         return None
     require(bool(times), f"the profiler saw no {kernel} launch")
     return sum(times) / len(times) / 1e3
+
+
+def kernel_text(name: str, k: dict) -> str:
+    """One kernel measurement as a line of text."""
+    events = (f" (events behind a sleep kernel: {k['event_ms']:.4f})"
+              if "event_ms" in k else "")
+    return (f"kernel {name} [{k['shape']}]: max_abs_err "
+            f"{k['max_abs_err']:.3g} max_rel_err {k['max_rel_err']:.3g} "
+            f"(rtol {k['rtol']}), ms {k['ms']:.4f}, device_ms "
+            f"{k['device_ms']:.4f}{events}, plain_ms {k['plain_ms']:.4f}, "
+            f"bound_ms {k['bound_ms']:.4f} ({k['bound_by']}), library_ms "
+            f"{k['library_ms']}")
 
 
 def same_bits(a, b, what: str) -> None:
@@ -279,6 +318,52 @@ JOIN_TREES = {
         "ShuffleExchangeExec", "LocalBatchSource", "CoalesceBatchesExec",
         "ShuffleExchangeExec", "CoalesceBatchesExec", "FilterExec",
         "LocalBatchSource"],
+    7: ["SortExec", "CoalesceBatchesExec", "HashAggregateExec", "HashJoinExec",
+        "ShuffleExchangeExec", "HashJoinExec", "ShuffleExchangeExec",
+        "HashJoinExec", "ShuffleExchangeExec", "HashJoinExec",
+        "ShuffleExchangeExec", "HashJoinExec", "ShuffleExchangeExec",
+        "LocalBatchSource", "CoalesceBatchesExec", "ShuffleExchangeExec",
+        "CoalesceBatchesExec", "FilterExec", "LocalBatchSource",
+        "CoalesceBatchesExec", "ShuffleExchangeExec", "LocalBatchSource",
+        "CoalesceBatchesExec", "ShuffleExchangeExec", "LocalBatchSource",
+        "CoalesceBatchesExec", "ShuffleExchangeExec", "ProjectExec",
+        "CommonSubplanExec", "LocalBatchSource", "CoalesceBatchesExec",
+        "ShuffleExchangeExec", "ProjectExec", "CommonSubplanExec",
+        "LocalBatchSource"],
+    8: ["SortExec", "CoalesceBatchesExec", "ProjectExec", "HashAggregateExec",
+        "HashJoinExec", "ShuffleExchangeExec", "HashJoinExec", "HashJoinExec",
+        "ShuffleExchangeExec", "HashJoinExec", "ShuffleExchangeExec",
+        "HashJoinExec", "ShuffleExchangeExec", "HashJoinExec",
+        "ShuffleExchangeExec", "CoalesceBatchesExec", "FilterExec",
+        "LocalBatchSource", "CoalesceBatchesExec", "ShuffleExchangeExec",
+        "LocalBatchSource", "CoalesceBatchesExec", "ShuffleExchangeExec",
+        "LocalBatchSource", "CoalesceBatchesExec", "ShuffleExchangeExec",
+        "CoalesceBatchesExec", "FilterExec", "LocalBatchSource",
+        "CoalesceBatchesExec", "ShuffleExchangeExec", "LocalBatchSource",
+        "CoalesceBatchesExec", "HashJoinExec", "ShuffleExchangeExec",
+        "ProjectExec", "CommonSubplanExec", "LocalBatchSource",
+        "CoalesceBatchesExec", "ShuffleExchangeExec", "CoalesceBatchesExec",
+        "FilterExec", "LocalBatchSource", "CoalesceBatchesExec",
+        "ShuffleExchangeExec", "ProjectExec", "CommonSubplanExec",
+        "LocalBatchSource"],
+    9: ["SortExec", "CoalesceBatchesExec", "HashAggregateExec", "HashJoinExec",
+        "ShuffleExchangeExec", "HashJoinExec", "ShuffleExchangeExec",
+        "HashJoinExec", "ShuffleExchangeExec", "HashJoinExec",
+        "ShuffleExchangeExec", "HashJoinExec", "ShuffleExchangeExec",
+        "CoalesceBatchesExec", "FilterExec", "LocalBatchSource",
+        "CoalesceBatchesExec", "ShuffleExchangeExec", "LocalBatchSource",
+        "CoalesceBatchesExec", "ShuffleExchangeExec", "LocalBatchSource",
+        "CoalesceBatchesExec", "ShuffleExchangeExec", "LocalBatchSource",
+        "CoalesceBatchesExec", "ShuffleExchangeExec", "LocalBatchSource",
+        "CoalesceBatchesExec", "ShuffleExchangeExec", "LocalBatchSource"],
+    10: ["SortedTopNExec", "HashAggregateExec", "HashJoinExec",
+        "ShuffleExchangeExec", "HashJoinExec", "ShuffleExchangeExec",
+        "HashJoinExec", "ShuffleExchangeExec", "LocalBatchSource",
+        "CoalesceBatchesExec", "ShuffleExchangeExec", "CoalesceBatchesExec",
+        "FilterExec", "LocalBatchSource", "CoalesceBatchesExec",
+        "ShuffleExchangeExec", "CoalesceBatchesExec", "FilterExec",
+        "LocalBatchSource", "CoalesceBatchesExec", "ShuffleExchangeExec",
+        "LocalBatchSource"],
 }
 JOIN_RTOL = 1e-3
 
@@ -372,6 +457,143 @@ def check_join_query(q: int, df, gold: dict) -> float:
     return rel
 
 
+def year_of(days: np.ndarray) -> np.ndarray:
+    """Calendar years of DATE32 days."""
+    return days.astype("datetime64[D]").astype("datetime64[Y]").astype(
+        np.int64) + 1970
+
+
+def _grouped(codes: np.ndarray, weights: np.ndarray):
+    """(distinct codes, their sums): a float64 group-by."""
+    keys, inv = np.unique(codes, return_inverse=True)
+    return keys, np.bincount(inv, weights=weights, minlength=len(keys))
+
+
+def golden_parts(a: dict, customer, TD, TB) -> dict:
+    """float64 numpy Q7, Q8, Q9 and Q10 over sf10_tables' arrays, from
+    index arrays as golden_joins: p_partkey, c_custkey and s_suppkey
+    are row + 1, and the partsupp rows of part p are 4 (p - 1) + i.
+    Q10's printed customer strings come from the `customer` frame."""
+    okey, odate = a["o_orderkey"], a["o_orderdate"]
+    order_row = np.full(int(okey.max()) + 1, -1, np.int64)
+    order_row[okey] = np.arange(len(okey))
+    lo = order_row[a["l_orderkey"]]
+    l_odate = odate[lo]
+    cust = a["o_custkey"][lo] - 1
+    cn = a["c_nationkey"][cust]
+    sn = a["s_nationkey"][a["l_suppkey"] - 1]
+    vol = a["l_extendedprice"] * (1.0 - a["l_discount"])
+    names = [n for n, _ in TD.NATIONS]
+    nat = {n: i for i, n in enumerate(names)}
+    out = {}
+    # Q7: FRANCE and GERMANY shipping to each other, 1995-1996
+    ship = a["l_shipdate"]
+    fr, ge = nat["FRANCE"], nat["GERMANY"]
+    ok = ((ship >= TD.days("1995-01-01")) & (ship <= TD.days("1996-12-31"))
+          & (((sn == fr) & (cn == ge)) | ((sn == ge) & (cn == fr))))
+    codes, rev = _grouped((sn[ok] * 25 + cn[ok]) * 10_000
+                          + year_of(ship[ok]), vol[ok])
+    rows = [(names[c // 250_000], names[c // 10_000 % 25], c % 10_000)
+            for c in codes.tolist()]
+    order = sorted(range(len(rows)), key=rows.__getitem__)
+    out[7] = {"keys": [rows[i] for i in order], "revenue": rev[order]}
+    # Q8: BRAZIL's share of AMERICA's ECONOMY ANODIZED STEEL, 1995-1996
+    econ = (TD.TYPE_S1.index("ECONOMY") * 25 + TD.TYPE_S2.index("ANODIZED")
+            * 5 + TD.TYPE_S3.index("STEEL"))
+    ok = ((a["p_type"][a["l_partkey"] - 1] == econ)
+          & (l_odate >= TD.days("1995-01-01"))
+          & (l_odate <= TD.days("1996-12-31"))
+          & (a["n_regionkey"][cn] == TD.REGIONS.index("AMERICA")))
+    years, total = _grouped(year_of(l_odate[ok]), vol[ok])
+    _, brazil = _grouped(year_of(l_odate[ok]),
+                         np.where(sn[ok] == nat["BRAZIL"], vol[ok], 0.0))
+    out[8] = {"year": years, "share": brazil / total}
+    # Q9: green parts' profit by supplier nation and year; a line joins
+    # every partsupp row of its (part, supplier), so the sum runs over
+    # the 4 supplier numbers that give its supplier
+    lp = a["l_partkey"]
+    ok = a["p_green"][lp - 1]
+    cost = np.zeros(len(lp))
+    rows_hit = np.zeros(len(lp))
+    for i in range(4):
+        hit = TB.part_suppkey(lp, i, len(a["s_nationkey"])) == a["l_suppkey"]
+        cost += np.where(hit, a["ps_supplycost"][(lp - 1) * 4 + i], 0.0)
+        rows_hit += hit
+    amount = vol * rows_hit - cost * a["l_quantity"]
+    codes, profit = _grouped(sn[ok] * 10_000 + year_of(l_odate[ok]),
+                             amount[ok])
+    rows = [(names[c // 10_000], c % 10_000) for c in codes.tolist()]
+    order = sorted(range(len(rows)),
+                   key=lambda i: (rows[i][0], -rows[i][1]))
+    out[9] = {"keys": [rows[i] for i in order], "profit": profit[order]}
+    # Q10: the 20 customers with the most revenue from lines returned
+    # (flag R) of the orders of 1993's fourth quarter
+    ok = ((l_odate >= TD.days("1993-10-01"))
+          & (l_odate < TD.days("1994-01-01")) & (a["l_returnflag"] == 2))
+    n_cust = len(a["c_nationkey"])
+    r10 = np.bincount(cust[ok], weights=vol[ok], minlength=n_cust)
+    hit = np.flatnonzero(np.bincount(cust[ok], minlength=n_cust))
+    top = hit[np.lexsort((hit, -r10[hit]))][:21]
+    rows = customer.iloc[top]
+    out[10] = {"custkey": top + 1, "revenue": r10[top],
+               "nation": [names[i] for i in a["c_nationkey"][top]],
+               "acctbal": a["c_acctbal"][top],
+               **{c: rows[c].astype(str).tolist() for c in (
+                   "c_name", "c_phone", "c_address", "c_comment")}}
+    return out
+
+
+def check_part_query(q: int, df, gold: dict) -> float:
+    """Raise unless `df` is query q's golden answer; return the largest
+    relative error of its sums.  Q7-Q9: every key, year and the order
+    exact; Q10: twenty distinct customers, each the golden's row at its
+    rank or one whose revenue is within JOIN_RTOL of that rank's (a
+    near-tie may swap), with its name, balance, phone, nation, address
+    and comment exact."""
+    if q == 7:
+        got_keys = list(zip(df["supp_nation"], df["cust_nation"],
+                            df["l_year"].astype(int)))
+        require(got_keys == gold["keys"], f"Q7 keys {got_keys}")
+        want, got = gold["revenue"], df["revenue"].to_numpy(np.float64)
+    elif q == 8:
+        require(list(df["o_year"].astype(int)) == gold["year"].tolist(),
+                f"Q8 years {list(df['o_year'])}")
+        want, got = gold["share"], df["mkt_share"].to_numpy(np.float64)
+    elif q == 9:
+        got_keys = list(zip(df["nation"], df["o_year"].astype(int)))
+        require(got_keys == gold["keys"], "Q9 nations and years differ")
+        want, got = gold["profit"], df["sum_profit"].to_numpy(np.float64)
+    else:
+        keys = df["c_custkey"].to_numpy(np.int64)
+        require(len(keys) == min(20, len(gold["custkey"]))
+                and len(set(keys)) == len(keys), f"Q10 rows {keys}")
+        g = gold["revenue"]
+        want = []
+        for i, k in enumerate(keys):
+            j = np.flatnonzero(gold["custkey"] == k)
+            require(len(j) == 1, f"Q10 rank {i}: customer {k} is not the "
+                    f"golden's {gold['custkey'][:20]}")
+            j = int(j[0])
+            require(abs(g[j] - g[i]) <= JOIN_RTOL * abs(g[i]),
+                    f"Q10 rank {i}: customer {k} is the golden's rank {j}")
+            row = df.iloc[i]
+            require(float(row["c_acctbal"]) == gold["acctbal"][j]
+                    and row["n_name"] == gold["nation"][j]
+                    and all(row[c] == gold[c][j] for c in (
+                        "c_name", "c_phone", "c_address", "c_comment")),
+                    f"Q10 customer {k}: printed columns differ")
+            want.append(g[j])
+        want = np.asarray(want)
+        got = df["revenue"].to_numpy(np.float64)
+    require(len(got) == len(want), f"Q{q} has {len(got)} rows, the golden "
+            f"{len(want)}")
+    # a share of 0 must come out as 0
+    rel = float(np.max(np.abs(got - want) / np.maximum(
+        np.abs(want), np.finfo(np.float64).tiny))) if len(want) else 0.0
+    require(rel <= JOIN_RTOL, f"Q{q} rel err {rel}")
+    return rel
+
+
 def recording(calls: list, GW):
     """A stand-in for the aggregate's window_group_sums that passes each
     call on and keeps a copy of the inputs of the widest CUDA call (the
@@ -384,34 +606,43 @@ def recording(calls: list, GW):
     return call
 
 
-def join_phase(torch, dev, seed: int, GW, K) -> dict:
-    """Phase 7: TPC-H Q3, Q4 and Q5 at SF10 (see the module docstring).
-    out["calls"][q] holds the inputs of the widest window_group_sums call
-    of query q's hot collect."""
+def recording_grouped(calls: list, K):
+    """The same for the aggregate's grouped_sum (the dictionary lane):
+    [keys, vals, num_rows, n_groups] of the widest CUDA call."""
+    def call(keys, vals, num_rows, *, n_groups: int, capacity: int):
+        if keys.is_cuda and (not calls or capacity > calls[0].numel()):
+            calls[:] = [keys.clone(), [v.clone() for v in vals],
+                        int(num_rows), n_groups]
+        return K.grouped_sum(keys, vals, num_rows, n_groups=n_groups,
+                             capacity=capacity)
+    return call
+
+
+def join_phase(torch, dev, tables, gold: dict, GW, K) -> dict:
+    """Phases 7 and 8: the TPC-H queries of `gold` ({query: golden}) at
+    SF10 over `tables` (see the module docstring).  out["calls"][q]
+    holds the inputs of the widest window_group_sums call of query q's
+    hot collect."""
     from spark_rapids_tpu_torch import config as C
     from spark_rapids_tpu_torch.exec import aggregate as AGG
-    from spark_rapids_tpu_torch.exec.joins import HashJoinExec
+    from spark_rapids_tpu_torch.exec import joins as J
     from spark_rapids_tpu_torch.models import tpch_bench as TB
     from spark_rapids_tpu_torch.models import tpch_data as TD
     from spark_rapids_tpu_torch.models.tpch_queries import QUERIES
     from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
-    t0 = time.perf_counter()
-    tables, arrays = TB.sf10_tables(seed)
-    print("join data: " + ", ".join(f"{k} {len(v)}" for k, v in
-                                    tables.items())
-          + f" rows, {time.perf_counter() - t0:.1f} s", flush=True)
-    gold = golden_joins(arrays, TD)
-    del arrays
     conf = C.RapidsConf({**TB.BENCH_CONF, C.TEST_ENABLED.key: True})
     n = TB.SF10_PARTITIONS
     out = {"rel": 0.0, "window_group_sums": {}, "grouped_sum": {},
-           "calls": {}}
+           "calls": {}, "grouped_calls": {}, "peak_gb_by_query": {}}
     torch.cuda.reset_peak_memory_stats(dev)
-    for q in (3, 4, 5):
+    for q in gold:
+        torch.cuda.reset_peak_memory_stats(dev)
         for run in ("cold", "hot"):
             calls: list = []
+            gcalls: list = []
             if run == "hot":
                 AGG.window_group_sums = recording(calls, GW)
+                AGG.grouped_sum = recording_grouped(gcalls, K)
             cpu_plan = QUERIES[q](TD.sources(tables, n), None)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -420,13 +651,19 @@ def join_phase(torch, dev, seed: int, GW, K) -> dict:
             t1 = time.perf_counter()
             GW.window_group_sums.launches = 0
             K.grouped_sum.launches = 0
+            J.sort_merge_lane.launches = J.dense_lane.launches = 0
             df = collect(plan, conf)
             t2 = time.perf_counter()
             launches = {"window_group_sums": GW.window_group_sums.launches,
                         "grouped_sum": K.grouped_sum.launches}
+            probes = {"sort-merge": J.sort_merge_lane.launches,
+                      "dense": J.dense_lane.launches}
             AGG.window_group_sums = GW.window_group_sums
+            AGG.grouped_sum = K.grouped_sum
             if calls:
                 out["calls"][q] = calls
+            if gcalls:
+                out["grouped_calls"][q] = gcalls
             got = tree(plan)
             require([name for name, _ in got] == JOIN_TREES[q],
                     f"q{q} exec tree: {got}")
@@ -436,22 +673,52 @@ def join_phase(torch, dev, seed: int, GW, K) -> dict:
                 f"ShuffleExchangeExec(HashPartitioning, n={n})"},
                 f"q{q} exchanges: {exchanges}")
             lanes = [j.lane for j in walk(plan)
-                     if isinstance(j, HashJoinExec)]
+                     if isinstance(j, J.HashJoinExec)]
             require(all(lanes), f"q{q}: a join never ran: {lanes}")
-            rel = check_join_query(q, df, gold[q])
+            rel = (check_join_query(q, df, gold[q]) if q < 7
+                   else check_part_query(q, df, gold[q]))
             out["rel"] = max(out["rel"], rel)
             for k, v in launches.items():
                 out[k][f"q{q}_{run}"] = v
             print(f"join q{q} SF10 {run}: accelerate {t1 - t0:.3f} s "
                   f"(with the upload), collect {t2 - t1:.3f} s, rel err "
-                  f"{rel:.3g}, join lanes {lanes}, launches {launches}",
-                  flush=True)
+                  f"{rel:.3g}, join lanes {lanes}, probe batches "
+                  f"{probes}, launches {launches}", flush=True)
             del cpu_plan, plan, df
-    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
-    print(f"join queries SF10 against the float64 golden: keys, dates, "
-          f"counts and order exact, max rel err {out['rel']:.3g}; peak "
-          f"device memory {out['peak_gb']:.2f} GiB", flush=True)
+        out["peak_gb_by_query"][q] = \
+            torch.cuda.max_memory_allocated(dev) / 2**30
+    out["peak_gb"] = max(out["peak_gb_by_query"].values())
+    peaks = {k: round(v, 2) for k, v in out["peak_gb_by_query"].items()}
+    print(f"join queries {list(gold)} SF10 against the float64 golden: "
+          f"keys, dates, counts and order exact, max rel err "
+          f"{out['rel']:.3g}; peak device memory {out['peak_gb']:.2f} GiB "
+          f"(by query {peaks})", flush=True)
     return out
+
+
+def like_case(torch, dev, part, green: np.ndarray) -> dict:
+    """LIKE '%green%' over the first 2^20 p_name values on the card:
+    the same rows as Contains and as sf10_tables' green mask, and the
+    time of each."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exec.base import make_eval_context
+    from spark_rapids_tpu_torch.exprs.base import col, lit
+    from spark_rapids_tpu_torch.exprs.string_fns import Contains, Like
+    from spark_rapids_tpu_torch.plan.transitions import batch_from_df
+    rows = min(1 << 20, len(part))
+    schema = T.Schema.of(("p_name", T.STRING))
+    batch = batch_from_df(part[["p_name"]].iloc[:rows], schema, device=dev)
+    ctx = make_eval_context(batch.columns, batch.capacity, rows)
+    like = Like(col("p_name"), lit("%green%")).bind(schema)
+    contains = Contains(col("p_name"), lit("green")).bind(schema)
+    got = like.eval(ctx).data[:rows]
+    require(torch.equal(got, contains.eval(ctx).data[:rows]),
+            "LIKE '%green%' and Contains differ")
+    require(np.array_equal(got.cpu().numpy(), green[:rows]),
+            "LIKE '%green%' differs from the p_name green mask")
+    return {"rows": rows, "char_cap": batch.columns[0].char_cap,
+            "ms": cuda_ms(torch, lambda: like.eval(ctx), 5),
+            "contains_ms": cuda_ms(torch, lambda: contains.eval(ctx), 5)}
 
 
 def walk(plan):
@@ -541,12 +808,14 @@ def main() -> int:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"{TB.N_BATCHES}x2^23 stacked"}
 
-    def grouped_case(keys, vals, nrows, n_groups, tier, reps):
+    def grouped_case(keys, vals, nrows, n_groups, tier, reps, strict=True):
         def call():
             return K.grouped_sum(keys, vals, nrows, n_groups=n_groups,
                                  capacity=keys.numel())
 
         got_s, got_c = call()
+        if tier is None:  # a main-path call: whichever tier it takes
+            (tier,) = set(K.grouped_sum.last_tiers)
         require(K.grouped_sum.last_tiers == [tier],
                 f"grouped_sum at G={n_groups} took tiers "
                 f"{K.grouped_sum.last_tiers}, expected {tier}")
@@ -574,10 +843,14 @@ def main() -> int:
                 0, seg, lib_vals)
             torch.bincount(seg, minlength=n_groups + 1)
 
+        prof_ms = device_ms(torch, call, "grouped_sum", reps, strict)
+        ev_ms = event_ms(torch, call, reps)
         return {
             "max_abs_err": err, "max_rel_err": rel, "rtol": 1e-4,
             "tier": tier, "ms": cuda_ms(torch, call, reps),
-            "device_ms": device_ms(torch, call, "grouped_sum", reps),
+            "device_ms": ev_ms if prof_ms is None else prof_ms,
+            "device_ms_by": "events" if prof_ms is None else "profiler",
+            "event_ms": ev_ms,
             "plain_ms": cuda_ms(torch, lambda: K.grouped_sum_plain(
                 keys, vals, nr, n_groups=n_groups,
                 capacity=keys.numel()), reps),
@@ -643,11 +916,15 @@ def main() -> int:
         seg = torch.where((gid >= 0) & (gid < out_cap), gid,
                           out_cap).to(torch.int64)
         lib_vals = torch.stack(vals, 1)
+        prof_ms = device_ms(torch, call, "window_group_sums", reps, strict)
+        ev_ms = event_ms(torch, call, reps)
         return {
             "max_abs_err": err, "max_rel_err": rel, "rtol": 1e-4,
             "ms": cuda_ms(torch, call, reps),
-            "device_ms": device_ms(torch, call, "window_group_sums", reps,
-                                   strict),
+            # the profiler's, or where it records nothing the events'
+            "device_ms": ev_ms if prof_ms is None else prof_ms,
+            "device_ms_by": "events" if prof_ms is None else "profiler",
+            "event_ms": ev_ms,
             "plain_ms": cuda_ms(torch, lambda: GW.window_group_sums_plain(
                 gid, vals, out_cap=out_cap), reps),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -692,13 +969,7 @@ def main() -> int:
             "window_group_sums at planner Q1's shape is not exact")
     wg_runs["shape"] = "2^22 rows (3,749,129 live), 4 runs, out_cap 2^14, M=17"
     for k in list(kernels.values()) + [gs_mid, gs_wide, wg_big, wg_runs]:
-        print(f"kernel {k.get('name', '')} [{k['shape']}]: max_abs_err "
-              f"{k['max_abs_err']:.3g} max_rel_err {k['max_rel_err']:.3g} "
-              f"(rtol {k['rtol']}), ms {k['ms']:.4f}, device_ms "
-              f"{k['device_ms']:.4f}, plain_ms "
-              f"{k['plain_ms']:.4f}, bound_ms {k['bound_ms']:.4f} "
-              f"({k['bound_by']}), library_ms {k['library_ms']}",
-              flush=True)
+        print(kernel_text(k.get("name", ""), k), flush=True)
     del wide_keys, mid_keys, big_gid, big_vals, q1_vals, mvals, run_vals
     lap("3 (kernels against their twins, with the SF10 data)")
 
@@ -786,28 +1057,61 @@ def main() -> int:
     del q, p, d, t, dp64, val_cols, flag, g_rng, gid, row_live, iota
     del run_gid
     torch.cuda.empty_cache()
-    joins = join_phase(torch, dev, args.seed, GW, K)
-    join_cases = []
-    for q in (3, 4, 5):
-        require(q in joins["calls"],
-                f"q{q}: no window_group_sums call on the card to check")
-        j_gid, j_vals, j_cap = joins["calls"].pop(q)
-        case = window_case(j_gid, j_vals, j_cap, 10, strict=False)
-        live = int((j_gid[1:] != j_gid[:-1]).sum().item()) + 1
-        case.update(query=q, launches=joins["window_group_sums"][
-            f"q{q}_hot"], shape=f"Q{q} widest call: capacity "
-            f"{j_gid.numel()}, out_cap {j_cap}, M={len(j_vals)}, {live} id "
-            f"runs")
-        print(f"kernel window_group_sums [{case['shape']}]: max_abs_err "
-              f"{case['max_abs_err']:.3g} max_rel_err "
-              f"{case['max_rel_err']:.3g} (rtol {case['rtol']}), ms "
-              f"{case['ms']:.4f}, device_ms {case['device_ms']}, "
-              f"plain_ms {case['plain_ms']:.4f}, bound_ms "
-              f"{case['bound_ms']:.4f} ({case['bound_by']}), library_ms "
-              f"{case['library_ms']}", flush=True)
-        join_cases.append(case)
-        del j_gid, j_vals
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    t0 = time.perf_counter()
+    tables, arrays = TB.sf10_tables(args.seed)
+    print("join data: " + ", ".join(f"{k} {len(v)}" for k, v in
+                                    tables.items())
+          + f" rows, {time.perf_counter() - t0:.1f} s", flush=True)
+    gold = golden_joins(arrays, TD)
+    gold_parts = golden_parts(arrays, tables["customer"], TD, TB)
+    green = arrays["p_green"]
+    del arrays
+    joins = join_phase(torch, dev, tables, gold, GW, K)
+
+    def check_join_calls(phase: dict, queries) -> list:
+        """The widest window_group_sums call of each query's hot collect
+        against the twin (rtol 1e-4, exact on integer measures)."""
+        cases = []
+        for q in queries:
+            require(q in phase["calls"],
+                    f"q{q}: no window_group_sums call on the card to check")
+            j_gid, j_vals, j_cap = phase["calls"].pop(q)
+            case = window_case(j_gid, j_vals, j_cap, 10, strict=False)
+            live = int((j_gid[1:] != j_gid[:-1]).sum().item()) + 1
+            case.update(query=q, launches=phase["window_group_sums"][
+                f"q{q}_hot"], shape=f"Q{q} widest call: capacity "
+                f"{j_gid.numel()}, out_cap {j_cap}, M={len(j_vals)}, {live} "
+                f"id runs")
+            print(kernel_text("window_group_sums", case), flush=True)
+            cases.append(case)
+            del j_gid, j_vals
+        return cases
+
+    join_cases = check_join_calls(joins, (3, 4, 5))
     lap("7 (join queries Q3, Q4, Q5)")
+
+    # 8. Q7-Q10: dates, CASE WHEN, string predicates, division, part and
+    # partsupp
+    parts = join_phase(torch, dev, tables, gold_parts, GW, K)
+    join_cases += check_join_calls(parts, (7, 8, 9, 10))
+    grouped_cases = []
+    for q, (g_keys, g_vals, g_rows, g_groups) in sorted(
+            {**joins["grouped_calls"], **parts["grouped_calls"]}.items()):
+        case = grouped_case(g_keys, g_vals, g_rows, g_groups, None, 10,
+                            strict=False)
+        case.update(query=q, launches=parts["grouped_sum"].get(
+            f"q{q}_hot", joins["grouped_sum"].get(f"q{q}_hot")),
+            shape=f"Q{q} widest call: capacity {g_keys.numel()}, "
+            f"G={g_groups}, M={len(g_vals)}, tier {case['tier']}")
+        print(kernel_text("grouped_sum", case), flush=True)
+        grouped_cases.append(case)
+        del g_keys, g_vals
+    require(bool(grouped_cases) or parts["grouped_sum"]["q8_hot"] == 0,
+            "grouped_sum launched in Q8 but no call was checked")
+    like = like_case(torch, dev, tables["part"], green)
+    del tables
+    lap("8 (join queries Q7, Q8, Q9, Q10)")
 
     kernels["q1_fused"]["launches"] = step_launches
     kernels["grouped_sum"]["launches"] = engine_launches["grouped_sum"]
@@ -816,12 +1120,18 @@ def main() -> int:
     kernels["window_group_sums"]["planner_q1_launches"] = \
         planner["q1_launches"]
     for name in ("grouped_sum", "window_group_sums"):
-        kernels[name]["join_queries_launches"] = joins[name]
+        kernels[name]["join_queries_launches"] = {**joins[name],
+                                                  **parts[name]}
+    case_keys = ("query", "shape", "launches", "max_abs_err",
+                 "max_rel_err", "ms", "device_ms", "device_ms_by",
+                 "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels["window_group_sums"]["join_cases"] = [
-        {k: c[k] for k in ("query", "shape", "launches", "max_abs_err",
-                           "max_rel_err", "ms", "device_ms", "plain_ms",
-                           "bound_ms", "bound_by", "library_ms")}
-        for c in join_cases]
+        {k: c[k] for k in case_keys} for c in join_cases]
+    kernels["grouped_sum"]["join_cases"] = [
+        {k: c[k] for k in case_keys if k in c} for c in grouped_cases]
+    print(f"like over {like['rows']} rows: {like['ms']:.4f} ms "
+          f"(Contains {like['contains_ms']:.4f} ms), same rows as "
+          f"Contains and the p_name green mask", flush=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "planner_q1_launches",

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time goes in spark_rapids_tpu_torch's TPC-H Q3, Q4 and Q5 at
-scale factor 10 on one NVIDIA card.
+"""Where the time goes in spark_rapids_tpu_torch's join queries (TPC-H
+Q3, Q4 and Q5 by default; Q7-Q10 with --queries 7,8,9,10) at scale
+factor 10 on one NVIDIA card.
 
     python3 scripts/profile_torch_joins.py [--seed N] [--queries 3,4,5]
         [--partitions 16] [--no-profiler]
 
-Builds the six tables of models/tpch_bench.py `sf10_tables`, as
-chip_smoke.py's phase 7 does, and for each query accelerates once and
+Builds the eight tables of models/tpch_bench.py `sf10_tables`, as
+chip_smoke.py's phases 7 and 8 do, and for each query accelerates once and
 collects once cold, then:
   1. collects once more with every exec's batch iterators timed (the
      device synchronized after each batch, so device work lands on the
@@ -59,6 +60,8 @@ def timed_tree(torch, plan):
     # collect() pulls the root's execute_columnar; a parent pulls its
     # children's execute_partitions
     for node in walk(plan):
+        if node in stats:  # a shared subtree (CommonSubplanExec) again
+            continue
         stats[node] = [0.0, 0]
         if node is plan:
             orig = node.execute_columnar

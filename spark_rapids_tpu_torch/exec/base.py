@@ -58,6 +58,17 @@ def make_eval_context(columns: list[ColumnVector], capacity: int,
 
 _EXEC_IDS = itertools.count()
 
+#: the execution a plan is in: "epoch" grows with every attempt of an
+#: outermost collect (CommonSubplanExec caches are valid for one), and
+#: "depth" counts nested collects (a range exchange's sample sort)
+_EXECUTION = {"epoch": 0, "depth": 0}
+
+
+def new_execution() -> None:
+    """Start a new execution: shared-subplan caches of earlier ones stop
+    being valid."""
+    _EXECUTION["epoch"] += 1
+
 
 class TpuExec:
     """Base physical operator."""
@@ -114,11 +125,23 @@ class TpuExec:
         fast-path checks resolve.  On FastPathInvalid, disable or escalate
         the fast paths at fault and re-execute (plans are pure), up to
         MAX_DEOPT_RETRIES times."""
+        outermost = _EXECUTION["depth"] == 0
+        _EXECUTION["depth"] += 1
+        try:
+            return self._collect_attempts(outermost)
+        finally:
+            _EXECUTION["depth"] -= 1
+            if outermost:
+                self.release_execution_state()
+
+    def _collect_attempts(self, outermost: bool) -> ColumnarBatch:
         mark = CK.snapshot()
         for attempt in range(self.MAX_DEOPT_RETRIES + 1):
             final = attempt == self.MAX_DEOPT_RETRIES
             if attempt:
                 CK.set_retrying(final)
+            if outermost:
+                new_execution()
             try:
                 out = self._collect_once().dense()
                 checks = list(out.checks) + CK.drain_since(mark)
@@ -144,6 +167,12 @@ class TpuExec:
         if not batches:
             return empty_batch(self.output_schema(), self.device())
         return concat_batches(batches, sparse_ok=True)
+
+    def release_execution_state(self) -> None:
+        """Drop what an execution cached (CommonSubplanExec batches), so
+        a finished query holds no device memory through its plan."""
+        for c in self._children:
+            c.release_execution_state()
 
     def to_pandas(self):
         return self.collect().to_pandas()
@@ -174,6 +203,38 @@ class SchemaOnlyExec(TpuExec):
 
     def output_schema(self) -> T.Schema:
         return self._schema
+
+
+class CommonSubplanExec(TpuExec):
+    """Execute-once wrapper of a subtree that several parents share: the
+    first consumer in an execution runs it and keeps its batches, the
+    others read them back (the role of Spark's ReusedExchangeExec)."""
+
+    def __init__(self, child: TpuExec):
+        super().__init__(child)
+        self._epoch = -1
+        self._cached = None
+
+    def output_schema(self):
+        return self.child.output_schema()
+
+    @property
+    def coalesce_after(self) -> bool:
+        # transparent for coalesce insertion
+        return self.child.coalesce_after
+
+    def execute_partitions(self):
+        epoch = _EXECUTION["epoch"]
+        if self._epoch != epoch:
+            self._cached = [list(it)
+                            for it in self.child.execute_partitions()]
+            self._epoch = epoch
+        return [iter(p) for p in self._cached]
+
+    def release_execution_state(self) -> None:
+        self._cached = None
+        self._epoch = -1
+        super().release_execution_state()
 
 
 class UnaryExecBase(TpuExec):

@@ -69,6 +69,8 @@ class Expression:
     def __add__(self, o): return _binop("Add", self, _lit(o))
     def __sub__(self, o): return _binop("Subtract", self, _lit(o))
     def __mul__(self, o): return _binop("Multiply", self, _lit(o))
+    def __truediv__(self, o): return _binop("Divide", self, _lit(o))
+    def __mod__(self, o): return _binop("Remainder", self, _lit(o))
     def __gt__(self, o): return _binop("GreaterThan", self, _lit(o))
     def __ge__(self, o): return _binop("GreaterThanOrEqual", self, _lit(o))
     def __lt__(self, o): return _binop("LessThan", self, _lit(o))

@@ -13,8 +13,8 @@ are made here from one seed:
     with batch_rows 2^23;
   - `sf10_lineitem_frame`: all 16 lineitem columns with
     `tpch_data.SCHEMAS` types, for the planner's Q1 and Q6.
-`sf10_tables` makes the six tables Q3, Q4 and Q5 read (region, nation,
-supplier, customer, orders, lineitem), linked by dbgen's keys.
+`sf10_tables` makes the eight tables Q3-Q5 and Q7-Q10 read, linked by
+dbgen's keys.
 """
 from __future__ import annotations
 
@@ -103,8 +103,12 @@ _POOL = [f"{a} {b} requests" for a in tpch_data.COLORS
          for b in tpch_data.COLORS]
 
 
+def _pick_pool(rng, pool: list, n: int) -> pd.Categorical:
+    return _categorical(pool, rng.integers(0, len(pool), n))
+
+
 def _pooled(rng, n: int) -> pd.Categorical:
-    return _categorical(_POOL, rng.integers(0, len(_POOL), n))
+    return _pick_pool(rng, _POOL, n)
 
 
 def _lineitem(rng, odate: np.ndarray, keys
@@ -189,28 +193,129 @@ def _phones(rng, nationkey: np.ndarray) -> pd.Categorical:
     return _categorical(pool, codes)
 
 
+#: dbgen's 64-character alphabet of random v-strings (addresses)
+_ALNUM = np.frombuffer(b"0123456789abcdefghijklmnopqrstuvwxyz"
+                       b"ABCDEFGHIJKLMNOPQRSTUVWXYZ,.", np.uint8)
+#: distinct strings in each pool of `_vstrings` and `_texts`
+_POOL_SIZE = 4096
+
+
+def _vstrings(rng, lo: int, hi: int) -> list:
+    """A pool of dbgen's random v-strings (spec 4.2.2.7): lengths
+    uniform in [lo, hi], characters from `_ALNUM`."""
+    chars = _ALNUM[rng.integers(0, len(_ALNUM), (_POOL_SIZE, hi))]
+    lens = rng.integers(lo, hi + 1, _POOL_SIZE)
+    return [r[:k].tobytes().decode() for r, k in zip(chars, lens)]
+
+
+def _texts(rng, lo: int, hi: int) -> list:
+    """A pool of comment texts of lengths uniform in [lo, hi]: words of
+    `tpch_data.COLORS`, cut to the drawn length."""
+    words = np.array(tpch_data.COLORS, dtype=object)[
+        rng.integers(0, len(tpch_data.COLORS), (_POOL_SIZE, hi // 3))]
+    lens = rng.integers(lo, hi + 1, _POOL_SIZE)
+    return [" ".join(w)[:k] for w, k in zip(words, lens)]
+
+
+def _distinct_words(rng, n: int, k: int) -> np.ndarray:
+    """int8[n, k]: k distinct indices into `tpch_data.COLORS` per row, a
+    partial Fisher-Yates shuffle done for all rows at once."""
+    perm = np.tile(np.arange(len(tpch_data.COLORS), dtype=np.int8), (n, 1))
+    rows = np.arange(n)
+    for i in range(k):
+        j = rng.integers(i, len(tpch_data.COLORS), n)
+        head = perm[rows, i].copy()
+        perm[rows, i] = perm[rows, j]
+        perm[rows, j] = head
+    return perm[:, :k]
+
+
+def part_suppkey(partkey: np.ndarray, i, n_supp: int) -> np.ndarray:
+    """dbgen's PART_SUPP_BRIDGE: the part's supplier number i (0..3)."""
+    return (partkey + i * (n_supp // 4 + (partkey - 1) // n_supp)
+            ) % n_supp + 1
+
+
+def _part_partsupp(rng, n_part: int, n_supp: int
+                   ) -> tuple[pd.DataFrame, pd.DataFrame, dict]:
+    """part and partsupp in dbgen's rules (spec 4.2.3), and their numpy
+    columns: p_name is five distinct words of `tpch_data.COLORS` (dbgen
+    draws from 92), p_type uniform over TYPE_S1 x TYPE_S2 x TYPE_S3,
+    four partsupp rows per part, the i-th with supplier
+    `part_suppkey(p, i)`."""
+    p_partkey = np.arange(1, n_part + 1, dtype=np.int64)
+    words = np.array(tpch_data.COLORS)[_distinct_words(rng, n_part, 5)]
+    p_name = words[:, 0]
+    for k in range(1, 5):
+        p_name = np.char.add(np.char.add(p_name, " "), words[:, k])
+    types = [f"{a} {b} {c}" for a in tpch_data.TYPE_S1
+             for b in tpch_data.TYPE_S2 for c in tpch_data.TYPE_S3]
+    p_type = rng.integers(0, len(types), n_part)
+    mfgr = rng.integers(1, 6, n_part)
+    brand = mfgr * 10 + rng.integers(1, 6, n_part)
+    containers = [f"{a} {b}" for a in tpch_data.CONTAIN_S1
+                  for b in tpch_data.CONTAIN_S2]
+    part = pd.DataFrame({
+        "p_partkey": p_partkey,
+        "p_name": p_name.astype(object),
+        "p_mfgr": _categorical([f"Manufacturer#{m}" for m in range(1, 6)],
+                               mfgr - 1),
+        "p_brand": _categorical([f"Brand#{b}" for b in range(11, 56)],
+                                brand - 11),
+        "p_type": _categorical(types, p_type),
+        "p_size": rng.integers(1, 51, n_part).astype(np.int32),
+        "p_container": _categorical(containers, rng.integers(
+            0, len(containers), n_part)),
+        "p_retailprice": (90000 + (p_partkey // 10) % 20001
+                          + 100 * (p_partkey % 1000)) / 100.0,
+        "p_comment": _pooled(rng, n_part),
+    })
+    ps_partkey = np.repeat(p_partkey, 4)
+    ps_supplycost = tpch_data._money(rng, 1.0, 1000.0, 4 * n_part)
+    partsupp = pd.DataFrame({
+        "ps_partkey": ps_partkey,
+        "ps_suppkey": part_suppkey(ps_partkey, np.tile(np.arange(4), n_part),
+                                   n_supp),
+        "ps_availqty": rng.integers(1, 10_000, 4 * n_part).astype(np.int32),
+        "ps_supplycost": ps_supplycost,
+        "ps_comment": _pooled(rng, 4 * n_part),
+    })
+    green = np.zeros(n_part, bool)
+    for k in range(5):
+        green |= words[:, k] == "green"
+    return part, partsupp, {"p_type": p_type, "p_green": green,
+                            "ps_supplycost": ps_supplycost}
+
+
 def sf10_tables(seed: int, sf: float = 10.0
                 ) -> tuple[dict[str, pd.DataFrame], dict]:
-    """(tables, numpy columns) of region, nation, supplier, customer,
-    orders and lineitem at scale factor `sf` (TPC-H spec 4.2.5: 10,000
-    suppliers, 150,000 customers and 1,500,000 orders per unit, 1-7
-    lines per order), linked by dbgen's keys (spec 4.2.3), drawn
-    vectorized from `seed`:
+    """(tables, numpy columns) of the eight TPC-H tables at scale factor
+    `sf` (TPC-H spec 4.2.5: 10,000 suppliers, 150,000 customers,
+    200,000 parts with 4 partsupp rows each and 1,500,000 orders per
+    unit, 1-7 lines per order), linked by dbgen's keys (spec 4.2.3),
+    drawn vectorized from `seed`:
       - o_orderkey is sparse as dbgen makes it, the first 8 keys of each
         block of 32;
       - o_custkey is never a multiple of 3 (a third of the customers
         place no order);
       - l_suppkey follows from l_partkey by dbgen's partsupp rule, one
-        of the part's 4 suppliers;
+        of the part's 4 suppliers, so every line has its partsupp row
+        (at sf >= 0.023: below 229 suppliers the rule repeats a
+        supplier for some parts, in dbgen too);
       - ship date = order date + 1..121, commit = order date + 30..90,
         receipt = ship date + 1..30; order status and total price
         follow from the lines.
-    Columns follow `tpch_data.SCHEMAS`; strings the queries never read
-    (names, addresses, phones, comments) are pandas Categoricals over
-    small pools.  The numpy columns hold what a golden needs: every key,
-    the dates, prices and discounts, and the codes of c_mktsegment
-    (into `tpch_data.SEGMENTS`) and o_orderpriority (into
-    `tpch_data.PRIORITIES`)."""
+    Columns follow `tpch_data.SCHEMAS`.  Q10's printed customer strings
+    have dbgen's widths: c_name `Customer#%09d`, c_address 10-40
+    characters, c_comment 29-116 (pools of 4,096 strings); p_name is
+    five distinct color words (`_part_partsupp`); the other strings no
+    query prints are pandas Categoricals over small pools.  The numpy
+    columns hold what a golden needs: every key, the dates, prices,
+    quantities and discounts, c_acctbal, ps_supplycost, and the codes
+    of c_mktsegment (into `tpch_data.SEGMENTS`), o_orderpriority (into
+    `tpch_data.PRIORITIES`), p_type (TYPE_S1 x TYPE_S2 x TYPE_S3 in
+    order) and l_returnflag (A/N/R = 0/1/2), with the p_name mask
+    p_green of the parts whose name holds the word green."""
     rng = np.random.default_rng(seed)
     n_supp = int(10_000 * sf)
     n_cust = int(150_000 * sf)
@@ -242,16 +347,28 @@ def sf10_tables(seed: int, sf: float = 10.0
     })
     c_nationkey = rng.integers(0, nations, n_cust).astype(np.int64)
     c_segment = rng.integers(0, len(tpch_data.SEGMENTS), n_cust)
+    c_custkey = np.arange(1, n_cust + 1, dtype=np.int64)
+    # the printed strings and part/partsupp come from a second stream;
+    # the main one still makes the draws of the pooled strings they
+    # replace, so every other column keeps its bytes for a seed
+    rng2 = np.random.default_rng([seed, 2])
+    _pooled(rng, n_cust)
+    _pooled(rng, n_cust)
+    c_phone = _phones(rng, c_nationkey)
+    c_acctbal = tpch_data._money(rng, -999.99, 9999.99, n_cust)
+    _pooled(rng, n_cust)
     customer = pd.DataFrame({
-        "c_custkey": np.arange(1, n_cust + 1, dtype=np.int64),
-        "c_name": _pooled(rng, n_cust),
-        "c_address": _pooled(rng, n_cust),
+        "c_custkey": c_custkey,
+        "c_name": np.char.add("Customer#", np.char.zfill(
+            c_custkey.astype("U9"), 9)).astype(object),
+        "c_address": _pick_pool(rng2, _vstrings(rng2, 10, 40), n_cust),
         "c_nationkey": c_nationkey,
-        "c_phone": _phones(rng, c_nationkey),
-        "c_acctbal": tpch_data._money(rng, -999.99, 9999.99, n_cust),
+        "c_phone": c_phone,
+        "c_acctbal": c_acctbal,
         "c_mktsegment": _categorical(tpch_data.SEGMENTS, c_segment),
-        "c_comment": _pooled(rng, n_cust),
+        "c_comment": _pick_pool(rng2, _texts(rng2, 29, 116), n_cust),
     })
+    part, partsupp, p_arrays = _part_partsupp(rng2, n_part, n_supp)
     i = np.arange(n_orders, dtype=np.int64)
     o_orderkey = i // 8 * 32 + i % 8 + 1
     # the j-th key that is no multiple of 3: 1, 2, 4, 5, 7, ...
@@ -267,8 +384,7 @@ def sf10_tables(seed: int, sf: float = 10.0
     l_order = np.repeat(i, lines)
     l_partkey = rng.integers(1, n_part + 1, n_lines, dtype=np.int64)
     # dbgen's PART_SUPP_BRIDGE: the part's supplier number 0..3
-    l_suppkey = (l_partkey + rng.integers(0, 4, n_lines)
-                 * (n_supp // 4 + (l_partkey - 1) // n_supp)) % n_supp + 1
+    l_suppkey = part_suppkey(l_partkey, rng.integers(0, 4, n_lines), n_supp)
     lineitem, l_arrays = _lineitem(rng, o_orderdate[l_order], lambda _: {
         "l_orderkey": o_orderkey[l_order],
         "l_partkey": l_partkey,
@@ -296,15 +412,18 @@ def sf10_tables(seed: int, sf: float = 10.0
         "o_comment": _pooled(rng, n_orders),
     })
     tables = {"region": region, "nation": nation, "supplier": supplier,
-              "customer": customer, "orders": orders, "lineitem": lineitem}
+              "customer": customer, "part": part, "partsupp": partsupp,
+              "orders": orders, "lineitem": lineitem}
     for name, df in tables.items():
         assert list(df.columns) == list(tpch_data.SCHEMAS[name].names), name
     arrays = {
         "n_regionkey": n_regionkey, "s_nationkey": s_nationkey,
         "c_nationkey": c_nationkey, "c_mktsegment": c_segment,
+        "c_acctbal": c_acctbal, **p_arrays,
         "o_orderkey": o_orderkey, "o_custkey": o_custkey,
         "o_orderdate": o_orderdate, "o_orderpriority": o_priority,
         **{k: l_arrays[k] for k in (
-            "l_orderkey", "l_suppkey", "l_extendedprice", "l_discount",
-            "l_shipdate", "l_commitdate", "l_receiptdate")}}
+            "l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
+            "l_extendedprice", "l_discount", "l_returnflag", "l_shipdate",
+            "l_commitdate", "l_receiptdate")}}
     return tables, arrays

@@ -2,6 +2,11 @@
 spark_rapids_tpu/plan/meta.py; the reference plugin's `RapidsMeta`):
 per-node tag state with will-not-work reasons, the bottom-up tag pass,
 conversion, and the explain text.
+
+A CpuNode object that several parents share (TPC-H Q7 and Q8 join
+`nation` twice) gets ONE meta: it is tagged and converted once, and its
+exec is wrapped in `CommonSubplanExec`, so the subtree executes once
+per query rather than once per consumer.
 """
 from __future__ import annotations
 
@@ -72,18 +77,27 @@ class PlanMeta(BaseMeta):
     """Wraps one CpuNode; `device` is where its converted exec runs."""
 
     def __init__(self, node: CpuNode, conf: C.RapidsConf,
-                 parent: Optional[BaseMeta], rule, device):
+                 parent: Optional[BaseMeta], rule, device,
+                 memo: Optional[dict] = None):
         super().__init__(conf, parent)
         self.node = node
         self.rule = rule
         self.device = device
-        self.child_plans = [wrap_plan(c, conf, self, device)
+        #: how many parents reach this node; above 1, conversion wraps
+        #: the exec in CommonSubplanExec
+        self.ref_count = 1
+        self._tagged = False
+        self.child_plans = [wrap_plan(c, conf, self, device, memo)
                             for c in node.children]
         exprs = rule.exprs_of(node) if rule is not None else []
         self.child_exprs = [wrap_expr(e, conf, self) for e in exprs]
 
     # -- tagging -------------------------------------------------------------
     def tag_for_gpu(self) -> None:
+        # once per meta: a shared meta is reached from every parent
+        if self._tagged:
+            return
+        self._tagged = True
         for c in self.child_plans:
             c.tag_for_gpu()
         for e in self.child_exprs:
@@ -121,38 +135,61 @@ class PlanMeta(BaseMeta):
                     f"unsupported type {f.dtype} for column {f.name}")
 
     # -- conversion ----------------------------------------------------------
-    def convert_if_needed(self):
+    def convert_if_needed(self, memo: Optional[dict] = None):
         """A TpuExec when this node goes on the GPU, else a copy of the
-        CpuNode whose converted children are bridged by transitions."""
-        from spark_rapids_tpu_torch.exec.base import TpuExec
+        CpuNode whose converted children are bridged by transitions.  A
+        shared meta converts once and hands every parent the same
+        CommonSubplanExec (`memo` maps id(meta) to its conversion for
+        one pass; the metas keep none, so a plan is freed once dropped)."""
+        if memo is None:
+            memo = {}
+        out = memo.get(id(self))
+        if out is None:
+            out = memo[id(self)] = self._convert_once(memo)
+        return out
+
+    def _convert_once(self, memo: dict):
+        from spark_rapids_tpu_torch.exec.base import (CommonSubplanExec,
+                                                      TpuExec)
         from spark_rapids_tpu_torch.plan.transitions import (
             ColumnarToRowExec, RowToColumnarExec)
-        kids = [c.convert_if_needed() for c in self.child_plans]
+        kids = [c.convert_if_needed(memo) for c in self.child_plans]
         if self.can_this_be_replaced:
-            return self.rule.convert(self, [
+            out = self.rule.convert(self, [
                 k if isinstance(k, TpuExec)
                 else RowToColumnarExec(k, self.device)
                 for k in kids])
+            if self.ref_count > 1:
+                out = CommonSubplanExec(out)
+            return out
         node = copy.copy(self.node)  # never mutate the caller's plan
         node.children = [k if isinstance(k, CpuNode)
                          else ColumnarToRowExec(k) for k in kids]
         return node
 
     # -- explain -------------------------------------------------------------
-    def explain(self, all_nodes: bool = False, indent: int = 0) -> str:
+    def explain(self, all_nodes: bool = False, indent: int = 0,
+                _seen: Optional[set] = None) -> str:
+        if _seen is None:
+            _seen = set()
         lines = []
         pad = "  " * indent
+        reused = id(self) in _seen
+        _seen.add(id(self))
         if self.can_this_be_replaced:
             if all_nodes:
-                lines.append(f"{pad}*{self.node.name()} will run on GPU")
+                tag = " (reused subtree)" if reused else ""
+                lines.append(f"{pad}*{self.node.name()} will run on "
+                             f"GPU{tag}")
         else:
             why = "; ".join(sorted(self._reasons))
             lines.append(f"{pad}!{self.node.name()} cannot run on GPU "
                          f"because {why}")
-        for c in self.child_plans:
-            s = c.explain(all_nodes, indent + 1)
-            if s:
-                lines.append(s)
+        if not reused:
+            for c in self.child_plans:
+                s = c.explain(all_nodes, indent + 1, _seen)
+                if s:
+                    lines.append(s)
         return "\n".join(lines)
 
 
@@ -163,6 +200,17 @@ def wrap_expr(expr: Expression, conf: C.RapidsConf,
 
 
 def wrap_plan(node: CpuNode, conf: C.RapidsConf,
-              parent: Optional[BaseMeta] = None, device="cuda") -> PlanMeta:
+              parent: Optional[BaseMeta] = None, device="cuda",
+              memo: Optional[dict] = None) -> PlanMeta:
+    """The meta tree of `node`; a node object reached twice gets the same
+    meta, its ref_count raised (`memo` maps id(node) to its meta)."""
     from spark_rapids_tpu_torch.plan.overrides import exec_rule_for
-    return PlanMeta(node, conf, parent, exec_rule_for(node), device)
+    if memo is None:
+        memo = {}
+    hit = memo.get(id(node))
+    if hit is not None:
+        hit.ref_count += 1
+        return hit
+    m = PlanMeta(node, conf, parent, exec_rule_for(node), device, memo)
+    memo[id(node)] = m
+    return m

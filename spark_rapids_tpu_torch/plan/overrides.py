@@ -83,9 +83,14 @@ def exec_rule_for(node: N.CpuNode) -> Optional[ExecRule]:
 # the expressions the port implements on the device
 for _name in """
 AttributeReference BoundReference Literal Alias
-Add Subtract Multiply
+Add Subtract Multiply Divide IntegralDivide Remainder Pmod UnaryMinus
+UnaryPositive Abs
 EqualTo LessThan LessThanOrEqual GreaterThan GreaterThanOrEqual
 And Or Not
+If CaseWhen Coalesce NullIf Nvl2 AtLeastNNonNulls NaNvl
+Year Month DayOfMonth DayOfWeek DayOfYear Quarter WeekOfYear LastDay
+DateAdd DateSub DateDiff AddMonths
+Length Substring Contains StartsWith EndsWith Like
 Sum Count Average
 """.split():
     expr(_name, f"GPU implementation of {_name}")
@@ -332,4 +337,6 @@ def _collect_inner(plan):
     if isinstance(plan, TpuExec):
         from spark_rapids_tpu_torch.plan.transitions import df_from_batch
         return df_from_batch(plan.collect())
+    from spark_rapids_tpu_torch.exec.base import new_execution
+    new_execution()
     return plan.collect()

@@ -5,7 +5,9 @@ Top-down required-column analysis, bottom-up rebuild: source leaves
 narrow to the columns referenced above them, so an in-memory source
 uploads fewer columns and wide string columns never ride through
 kernels they take no part in.  Conservative: a node type it does not
-know keeps its subtree untouched.
+know keeps its subtree untouched.  A node object that several parents
+share is pruned once, to the union of what its parents need, and stays
+shared (the planner then executes it once: plan/meta.py).
 """
 from __future__ import annotations
 
@@ -44,10 +46,77 @@ def expr_refs(obj) -> set:
 def prune_columns(node: N.CpuNode, required: Optional[set] = None
                   ) -> N.CpuNode:
     """An equivalent tree whose leaves produce only `required` columns
-    (None = all).  Never mutates the input."""
+    (None = all).  Never mutates the input.  DAG-aware: a shared node is
+    pruned with the union of its parents' requirements and the same
+    pruned object goes back to every parent."""
+    # pass 1: reference counts over the DAG
+    refs: dict = {}
+    nodes_by_id: dict = {}
+
+    def count(n):
+        refs[id(n)] = refs.get(id(n), 0) + 1
+        if refs[id(n)] == 1:
+            nodes_by_id[id(n)] = n
+            for c in n.children:
+                count(c)
+    count(node)
+    shared = {i for i, c in refs.items() if c > 1}
+
+    if not shared:
+        def rec(c, r):
+            return _prune(c, r, rec)
+        return _prune(node, required, rec)
+
+    # pass 2: a fixpoint of the requirement unions at shared nodes
+    # (None = all columns, absorbing)
+    req_u: dict = {}
+
+    def merge(i, req):
+        if i not in req_u:
+            req_u[i] = None if req is None else set(req)
+        elif req_u[i] is not None:
+            req_u[i] = None if req is None else req_u[i] | req
+
+    def analyze(child, req):
+        if id(child) in shared:
+            merge(id(child), req)
+            return child  # analyzed from its own union below
+        return _prune(child, req, analyze, build=False)
+
+    def snapshot():
+        return {i: (None if v is None else frozenset(v))
+                for i, v in req_u.items()}
+
+    _prune(node, required, analyze, build=False)
+    for _ in range(len(shared) + 1):
+        before = snapshot()
+        for i in list(req_u):
+            _prune(nodes_by_id[i], req_u[i], analyze, build=False)
+        if snapshot() == before:
+            break
+
+    # pass 3: the memoized rebuild
+    memo: dict = {}
+
+    def build(child, req):
+        i = id(child)
+        if i in shared:
+            if i not in memo:
+                memo[i] = _prune(child, req_u.get(i), build)
+            return memo[i]
+        return _prune(child, req, build)
+
+    return _prune(node, required, build)
+
+
+def _prune(node: N.CpuNode, required: Optional[set], prune_columns,
+           build: bool = True) -> N.CpuNode:
+    """One pruning step; it recurses through the `prune_columns`
+    callback, so the DAG-aware pass sees shared children.  With
+    build=False it only analyzes: no source is narrowed."""
     if isinstance(node, N.CpuSource):
         schema = node.output_schema()
-        if required is None or required >= set(schema.names):
+        if not build or required is None or required >= set(schema.names):
             return node
         keep = [f.name for f in schema.fields if f.name in required]
         if not keep:  # count(*)-style: keep one column for the rows

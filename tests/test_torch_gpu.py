@@ -149,9 +149,9 @@ def test_window_group_sums_match_plain(cuda_device, name, n_measures):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("query", [1, 3, 4, 5, 6])
+@pytest.mark.parametrize("query", [1, 3, 4, 5, 6, 7, 8, 9, 10])
 def test_planner_queries_match_the_cpu_engine(cuda_device, query):
-    """TPC-H Q1 and Q3-Q6 through accelerate + collect on the card,
+    """TPC-H Q1 and Q3-Q10 through accelerate + collect on the card,
     wholly there (spark.rapids.sql.test.enabled), against the CPU engine
     (keys and counts exact, floats rtol 1e-5); planner Q1 launches
     window_group_sums."""
@@ -215,3 +215,69 @@ def test_join_lanes_match_the_cpu(cuda_device, join_type, unique):
         assert got[name].isna().equals(want[name].isna())
         np.testing.assert_array_equal(got[name].dropna().to_numpy(float),
                                       want[name].dropna().to_numpy(float))
+
+
+def _expression_inputs(n=4096):
+    """Dates (1900-2100, leap days, before 1970), doubles with zeros,
+    UTF-8 strings of several widths, a tenth of each null."""
+    import pandas as pd
+    rng = np.random.default_rng(8)
+    pool = np.array(["", "green", "dark green ivory", "café", "日本語",
+                     "a_c", "50%", "x" * 40, "forest green", "\\"],
+                    dtype=object)
+    s = pool[rng.integers(0, len(pool), n)]
+    s[rng.random(n) < 0.1] = None
+    days = pd.Series(rng.integers(-25_567, 47_482, n)).astype("Int32")
+    # 1900-03-01, 2000-02-29, 2100-02-28 and 1969-12-31
+    days[: 4] = [-25_508, 11_016, 47_540, -1]
+    days[rng.random(n) < 0.1] = pd.NA
+    y = rng.integers(-3, 4, n).astype(float)
+    return pd.DataFrame({
+        "d": days,
+        "x": pd.Series(rng.uniform(-1e3, 1e3, n)).astype("Float64"),
+        "y": pd.Series(y).astype("Float64"),
+        "s": s})
+
+
+_EXPRESSIONS = {
+    "year": lambda E, M: M["Year"](E.col("d")),
+    "case_when": lambda E, M: M["CaseWhen"](
+        ((E.col("s") == E.lit("green"), E.col("x")),), E.lit(0.0)),
+    "case_when_strings": lambda E, M: M["CaseWhen"](
+        ((E.col("x") > E.lit(0.0), E.col("s")),)),
+    "divide": lambda E, M: E.col("x") / E.col("y"),
+    "contains": lambda E, M: M["Contains"](E.col("s"), E.lit("green")),
+    "like": lambda E, M: M["Like"](E.col("s"), E.lit("%gr_en%")),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(_EXPRESSIONS))
+def test_expressions_match_on_the_card(cuda_device, name):
+    """Year, CaseWhen, Divide, Contains and Like on CUDA tensors against
+    the same expressions on CPU tensors: values, strings and nulls
+    exact."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exec.base import make_eval_context
+    from spark_rapids_tpu_torch.exprs import base as E
+    from spark_rapids_tpu_torch.exprs.conditional import CaseWhen
+    from spark_rapids_tpu_torch.exprs.datetime_exprs import Year
+    from spark_rapids_tpu_torch.exprs.string_fns import Contains, Like
+    from spark_rapids_tpu_torch.plan.transitions import batch_from_df
+    M = {"Year": Year, "CaseWhen": CaseWhen, "Contains": Contains,
+         "Like": Like}
+    df = _expression_inputs()
+    schema = T.Schema.of(("d", T.DATE32), ("x", T.FLOAT64),
+                         ("y", T.FLOAT64), ("s", T.STRING))
+    expr = _EXPRESSIONS[name](E, M).bind(schema)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        b = batch_from_df(df, schema, device=dev)
+        ctx = make_eval_context(b.columns, b.capacity,
+                                torch.tensor(len(df), dtype=torch.int32,
+                                             device=dev))
+        out.append(expr.eval(ctx).to_numpy(len(df)))
+    (gv, gok), (wv, wok) = out
+    np.testing.assert_array_equal(gok, wok)
+    assert list(gv[wok]) == list(wv[wok])
+    torch.cuda.synchronize()

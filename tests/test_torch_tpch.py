@@ -1,11 +1,13 @@
-"""TPC-H Q1, Q3, Q4, Q5 and Q6 through spark_rapids_tpu_torch's planner
+"""TPC-H Q1 and Q3-Q10 through spark_rapids_tpu_torch's planner
 (`accelerate` + `collect`) against spark_rapids_tpu's `run_query`, on the
 CPU, at the scale and seed tests/test_tpch.py uses; and the SF10 tables
-of the join queries with chip_smoke.py's goldens, at a small scale.
+of the join queries with chip_smoke.py's goldens, at small scales.
 
 Keys and counts must match exactly and floats within compare_frames'
 rtol 1e-5 (the banded lane adds f32, as the reference's does).
 """
+from collections import Counter
+
 import numpy as np
 import pandas as pd
 import pytest
@@ -29,7 +31,8 @@ from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
 SCALE = 3000
 SEED = 11
 #: the sort keys whose order each join query's result must keep
-ORDER_KEYS = {3: "l_orderkey", 4: "o_orderpriority", 5: "n_name"}
+ORDER_KEYS = {3: "l_orderkey", 4: "o_orderpriority", 5: "n_name",
+              7: "l_year", 8: "o_year", 9: "o_year", 10: "c_custkey"}
 
 
 @pytest.fixture(scope="module")
@@ -42,13 +45,45 @@ def ref_tables():
     return RD.gen_tables(np.random.default_rng(SEED), SCALE)
 
 
+#: the aggregate's lane decisions, per (method, decision taken)
+_LANE_METHODS = ("_use_hash_grouping", "_use_banded", "_dict_groupby_batch")
+
+
+def _count_lanes(cls, run) -> Counter:
+    """The lane decisions every HashAggregateExec of `cls` takes while
+    `run()` runs: (method, True/False) counted, a dictionary batch being
+    one whose _dict_groupby_batch returned a result."""
+    seen: Counter = Counter()
+    saved = {m: getattr(cls, m) for m in _LANE_METHODS}
+
+    def spy(name, fn):
+        def call(self, *a, **k):
+            out = fn(self, *a, **k)
+            seen[name, out if isinstance(out, bool) else out is not None] \
+                += 1
+            return out
+        return call
+    try:
+        for m, fn in saved.items():
+            setattr(cls, m, spy(m, fn))
+        run()
+    finally:
+        for m, fn in saved.items():
+            setattr(cls, m, fn)
+    return seen
+
+
 @pytest.fixture(scope="module")
 def reference(ref_tables):
-    """The reference's accelerated result and plan for each query."""
+    """The reference's accelerated result, plan and aggregate lane
+    decisions for each query."""
+    from spark_rapids_tpu.exec.aggregate import HashAggregateExec as RHA
     out = {}
     for q in QUERIES:
-        df = RB.run_query(q, ref_tables, engine="tpu")
-        out[q] = (df, RO.ExecutionPlanCapture.last_plan)
+        got = []
+        lanes = _count_lanes(RHA, lambda: got.append(
+            RB.run_query(q, ref_tables, engine="tpu")))
+        out[q] = (got[0], RO.ExecutionPlanCapture.last_plan, lanes)
     return out
 
 
@@ -77,7 +112,16 @@ def test_gen_tables_matches_reference(tables, ref_tables):
 @pytest.mark.parametrize("query", sorted(QUERIES))
 def test_run_query_matches_reference_and_cpu_engine(tables, ref_tables,
                                                     reference, query):
-    got = TB.run_query(query, tables, device="cpu")
+    got = []
+    lanes = _count_lanes(HashAggregateExec, lambda: got.append(
+        TB.run_query(query, tables, device="cpu")))
+    got = got[0]
+    # the aggregates take the reference's lanes on the same data (Q10's
+    # seven keys, three of them long strings and one a double: the
+    # murmur3 hash-grouping lane)
+    assert lanes == reference[query][2]
+    if query == 10:
+        assert lanes[("_use_hash_grouping", True)] >= 1
     compare_frames(reference[query][0], got, f"q{query} vs reference")
     cpu = QUERIES[query](TD.sources(tables, 2), None).collect()
     compare_frames(cpu, got, f"q{query} vs the CPU engine")
@@ -93,17 +137,27 @@ def test_run_query_matches_reference_and_cpu_engine(tables, ref_tables,
             list(cpu[key])
 
 
+#: the modes of the aggregates that fuse a Filter/Project chain: Q1's
+#: and Q6's partial aggregate; Q3-Q5 aggregate straight off a join;
+#: Q7-Q9's complete aggregate fuses the projection (and Q7's filter)
+#: above its last join; Q10 groups the join's columns as they are
+FUSED_MODES = {1: ["partial"], 3: [], 4: [], 5: [], 6: ["partial"],
+               7: ["complete"], 8: ["complete"], 9: ["complete"], 10: []}
+
+
 @pytest.mark.parametrize("query", sorted(QUERIES))
 def test_plan_matches_reference_tree(tables, reference, query):
-    """The reference's exec tree, class for class; the join queries'
-    joins take the reference's lanes, and their aggregates sit on a
-    join, with nothing to fuse."""
+    """The reference's exec tree, class for class, with the same
+    aggregates fused; the join queries' joins take the reference's
+    lanes."""
     plan = _accelerate(query, tables)
     assert _tree(plan) == _tree(reference[query][1])
-    fused = [n for n in _walk(plan) if isinstance(n, HashAggregateExec)
-             and n.fused_members]
-    assert [n.mode.value for n in fused] == (
-        [] if query in ORDER_KEYS else ["partial"])
+    fused = [n.mode.value for n in _walk(plan)
+             if isinstance(n, HashAggregateExec) and n.fused_members]
+    ref_fused = [n.mode.value for n in _walk(reference[query][1])
+                 if type(n).__name__ == "HashAggregateExec"
+                 and n.fused_members]
+    assert fused == ref_fused == FUSED_MODES[query]
     if query in ORDER_KEYS:
         collect(plan)
         lanes = [n.lane for n in _walk(plan) if isinstance(n, HashJoinExec)]
@@ -119,6 +173,27 @@ def _walk(plan):
     yield plan
     for c in plan.children:
         yield from _walk(c)
+
+
+@pytest.mark.parametrize("query", [5, 7])
+def test_a_dropped_plan_is_freed_at_once(tables, query):
+    """Nothing of the planner's own keeps a plan alive in a reference
+    cycle: dropping it frees its uploaded batches at once, without
+    waiting for the cycle collector (Q7 shares nation through a
+    CommonSubplanExec)."""
+    import gc
+    import weakref
+    plan = _accelerate(query, tables)
+    collect(plan)
+    ref = weakref.ref(plan)
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        del plan
+        assert ref() is None
+    finally:
+        if was_enabled:
+            gc.enable()
 
 
 def test_q1_takes_the_hash_and_banded_lanes(tables, monkeypatch):
@@ -322,14 +397,71 @@ def test_sf10_tables_follow_dbgen_keys(sf_small):
     assert np.array_equal(arrays["l_orderkey"], li["l_orderkey"])
 
 
-@pytest.mark.parametrize("query", [3, 4, 5])
-def test_chip_smoke_join_goldens_match_the_cpu_run(sf_small, query):
-    """chip_smoke.py's float64 numpy goldens for Q3, Q4 and Q5 against
+@pytest.fixture(scope="module")
+def sf_parts():
+    """sf10_tables at scale factor 0.025: 250 suppliers, the fewest with
+    which dbgen's partsupp rule gives every part 4 distinct suppliers
+    (at 0.002's 20 a part can repeat one, in dbgen too); 5,000 parts,
+    37,500 orders, ~150,000 lines."""
+    return TB.sf10_tables(5, 0.025)
+
+
+def test_sf10_part_and_partsupp_follow_dbgen(sf_small, sf_parts):
+    for tables, arrays in (sf_small, sf_parts):
+        part, ps = tables["part"], tables["partsupp"]
+        n_part, n_supp = len(part), len(tables["supplier"])
+        assert n_part == 20 * n_supp and len(ps) == 4 * n_part
+        assert np.array_equal(part["p_partkey"], np.arange(1, n_part + 1))
+        # partsupp row 4 (p - 1) + i is supplier number i of part p
+        i = np.tile(np.arange(4), n_part)
+        assert np.array_equal(ps["ps_partkey"], np.repeat(
+            part["p_partkey"].to_numpy(), 4))
+        assert np.array_equal(ps["ps_suppkey"], TB.part_suppkey(
+            ps["ps_partkey"].to_numpy(), i, n_supp))
+        assert ps["ps_availqty"].between(1, 9999).all()
+        assert ps["ps_supplycost"].between(1.0, 1000.0).all()
+        names = part["p_name"].str.split(" ")
+        assert (names.map(len) == 5).all()
+        assert (names.map(lambda w: len(set(w))) == 5).all()
+        assert names.map(lambda w: set(w) <= set(TD.COLORS)).all()
+        assert np.array_equal(arrays["p_green"],
+                              part["p_name"].str.contains("green"))
+        types = part["p_type"].astype(str).str.split(" ", expand=True)
+        assert types[0].isin(TD.TYPE_S1).all() and \
+            types[1].isin(TD.TYPE_S2).all() and types[2].isin(TD.TYPE_S3).all()
+        assert np.array_equal(part["p_type"].cat.codes, arrays["p_type"])
+        cust = tables["customer"]
+        assert list(cust["c_name"]) == [f"Customer#{k:09d}"
+                                        for k in cust["c_custkey"]]
+        assert cust["c_address"].astype(str).str.len().between(10, 40).all()
+        assert cust["c_comment"].astype(str).str.len().between(
+            29, 116).all()
+    tables, _ = sf_parts
+    ps = tables["partsupp"]
+    assert ps.groupby("ps_partkey")["ps_suppkey"].nunique().eq(4).all()
+    # every line has exactly one partsupp row
+    li = tables["lineitem"][["l_partkey", "l_suppkey"]]
+    hits = li.merge(ps, left_on=["l_partkey", "l_suppkey"],
+                    right_on=["ps_partkey", "ps_suppkey"])
+    assert len(hits) == len(li)
+
+
+@pytest.mark.parametrize("query", [3, 4, 5, 7, 8, 9, 10])
+def test_chip_smoke_join_goldens_match_the_cpu_run(request, query):
+    """chip_smoke.py's float64 numpy goldens for Q3-Q5 and Q7-Q10 against
     the port's run_query on the CPU, over the same small draw."""
     import chip_smoke
-    tables, arrays = sf_small
-    gold = chip_smoke.golden_joins(arrays, TD)[query]
+    tables, arrays = request.getfixturevalue(
+        "sf_small" if query < 7 else "sf_parts")
     got = TB.run_query(query, tables, device="cpu", num_partitions=4)
-    assert chip_smoke.check_join_query(query, got, gold) <= 1e-6
-    want_rows = len(gold["nation"]) if query == 5 else (10, 5)[query - 3]
+    if query < 7:
+        gold = chip_smoke.golden_joins(arrays, TD)[query]
+        assert chip_smoke.check_join_query(query, got, gold) <= 1e-6
+        want_rows = len(gold["nation"]) if query == 5 else \
+            (10, 5)[query - 3]
+    else:
+        gold = chip_smoke.golden_parts(arrays, tables["customer"], TD,
+                                       TB)[query]
+        assert chip_smoke.check_part_query(query, got, gold) <= 1e-6
+        want_rows = {7: 4, 8: 2, 9: 175, 10: 20}[query]
     assert len(got) == want_rows
