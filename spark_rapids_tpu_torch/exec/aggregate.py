@@ -339,7 +339,8 @@ class HashAggregateExec(UnaryExecBase):
         out_cols = [k.gather(rep_idx, grp_valid) for k in keys]
         for outs in run_agg_phase(actx, self._funcs, sorted_per_f, phase):
             out_cols.extend(ColumnVector(o.dtype, o.data,
-                                         o.validity & grp_valid)
+                                         o.validity & grp_valid, o.narrow,
+                                         o.lengths)
                             for o in outs)
         return out_cols, num_groups, collision, excess, None
 

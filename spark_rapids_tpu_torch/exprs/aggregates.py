@@ -1,5 +1,5 @@
 """Aggregate functions (port of spark_rapids_tpu/exprs/aggregates.py: Sum,
-Count/CountStar, Average).
+Count/CountStar, Average, Min and Max).
 
 Aggregation over the sort lane is segment ops over rows sorted by group:
 the exec sorts rows by key, marks segment starts (`bounds`), and each
@@ -18,6 +18,11 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.vector import ColumnVector
 from spark_rapids_tpu_torch.exprs.base import Expression
 
+#: the identity of min / max per integral type: what a masked row holds
+_INT_MIN = {T.TypeId.INT32: -(2 ** 31), T.TypeId.INT64: -(2 ** 63),
+            T.TypeId.DATE32: -(2 ** 31), T.TypeId.BOOL: 0}
+_INT_MAX = {T.TypeId.INT32: 2 ** 31 - 1, T.TypeId.INT64: 2 ** 63 - 1,
+            T.TypeId.DATE32: 2 ** 31 - 1, T.TypeId.BOOL: 1}
 
 def _segscan(combine_vals, bounds, *vals):
     """Segmented inclusive scan over rows SORTED by group: the carry
@@ -57,31 +62,37 @@ def _segscan(combine_vals, bounds, *vals):
     return rec(bounds, vals)
 
 
+_SCAN_OPS = {
+    "add": torch.add,
+    "min": torch.minimum,
+    "max": torch.maximum,
+}
+
+
 class ScanBatch:
     """Cross-function segmented-scan batcher: aggregate functions register
     per-row operands (`seg(op, arr)`), and one `_segscan` per round runs
-    over all of them.  Handles resolve to per-GROUP results (read at
-    segment ends) after `run_round()`."""
+    over all of them, each combined with its own op.  Handles resolve to
+    per-GROUP results (read at segment ends) after `run_round()`."""
 
     def __init__(self, ctx: "AggContext"):
         self._ctx = ctx
+        self._ops: list = []        # combine-op name per handle
         self._pend: list = []       # (handle, row array) this round
         self._results: dict = {}    # handle -> per-group result
-        # (id(arr)) -> (handle, arr): the array is held so its id() is
-        # not reused by a later operand
+        # (op, id(arr)) -> (handle, arr): the array is held so its id()
+        # is not reused by a later operand
         self._dedup: dict = {}
-        self._count = 0
 
     def seg(self, op: str, arr) -> int:
-        if op != "add":
-            raise NotImplementedError(f"segment op {op!r}")
-        hit = self._dedup.get(id(arr))
+        key = (op, id(arr))
+        hit = self._dedup.get(key)
         if hit is not None:
             return hit[0]
-        h = self._count
-        self._count += 1
+        h = len(self._ops)
+        self._ops.append(op)
         self._pend.append((h, arr))
-        self._dedup[id(arr)] = (h, arr)
+        self._dedup[key] = (h, arr)
         return h
 
     def run_round(self) -> None:
@@ -89,8 +100,12 @@ class ScanBatch:
             return
         idxs = [h for h, _ in self._pend]
         arrs = [a for _, a in self._pend]
-        runs = _segscan(lambda a, b: tuple(x + y for x, y in zip(a, b)),
-                        self._ctx.bounds, *arrs)
+        ops = [_SCAN_OPS[self._ops[h]] for h in idxs]
+
+        def combine(a, b):
+            return tuple(op(x, y) for op, x, y in zip(ops, a, b))
+
+        runs = _segscan(combine, self._ctx.bounds, *arrs)
         ends = self._ctx.ends.to(torch.int64)
         for h, r in zip(idxs, runs):
             self._results[h] = r[ends]
@@ -103,13 +118,18 @@ class ScanBatch:
 def run_agg_phase(actx: "AggContext", funcs, inputs_per_f, phase: str):
     """Drive every aggregate function's update/merge generator with
     cross-function scan batching; returns the per-function output tuples
-    in order."""
+    in order.  A function whose `update_scans` / `merge_scans` gives None
+    (Min/Max over strings) runs its eager `update` / `merge` instead."""
     scans = ScanBatch(actx)
     slots: list = []
     live: list = []
     for f, ins in zip(funcs, inputs_per_f):
         gen = (f.update_scans(actx, scans, ins) if phase == "update"
                else f.merge_scans(actx, scans, ins))
+        if gen is None:
+            slots.append(f.update(actx, ins) if phase == "update"
+                         else f.merge(actx, ins))
+            continue
         next(gen)
         slots.append(None)
         live.append((len(slots) - 1, gen))
@@ -124,6 +144,13 @@ def run_agg_phase(actx: "AggContext", funcs, inputs_per_f, phase: str):
                 slots[i] = e.value
         live = nxt
     return slots
+
+
+def _sorted_seg_sum(vals, ctx: "AggContext"):
+    """Per-group sums of `vals` over rows sorted by group (invalid rows
+    already zeroed), read at the segment ends."""
+    (run,) = _segscan(lambda a, b: (a[0] + b[0],), ctx.bounds, vals)
+    return run[ctx.ends.to(torch.int64)]
 
 
 @dataclasses.dataclass
@@ -333,3 +360,101 @@ class Average(AggregateFunction):
         nonzero = c.data > 0
         avg = s.data / torch.where(nonzero, c.data, 1).to(torch.float64)
         return ColumnVector(T.FLOAT64, avg, nonzero)
+
+
+def _minmax_numeric_gen(v: ColumnVector, ctx: AggContext,
+                        scans: ScanBatch, is_min: bool):
+    """Segment min/max with Spark's NaN rule: NaN is the largest value,
+    so it is the max of any group that holds one, and the min only of a
+    group of NaNs alone.  Generator (ScanBatch protocol): yields once,
+    returns (values, has a value).  Scans run at the column's own
+    width."""
+    op = "min" if is_min else "max"
+    ok = v.validity & ctx.row_valid
+    if v.dtype.is_floating:
+        nan = torch.isnan(v.data) & ok
+        non_nan = ok & ~nan
+        fill = float("inf") if is_min else float("-inf")
+        hr = scans.seg(op, torch.where(non_nan, v.data, fill))
+        hc = scans.seg("add", ok.to(torch.int32))
+        hn = scans.seg("add", non_nan.to(torch.int32))
+        yield
+        red = scans.result(hr)
+        cnt, n_non_nan = scans.result(hc), scans.result(hn)
+        has = cnt > 0
+        if is_min:
+            red = torch.where(has & (n_non_nan == 0), float("nan"), red)
+        else:
+            red = torch.where(cnt > n_non_nan, float("nan"), red)
+        return red.to(v.dtype.torch_dtype), has
+    fill = (_INT_MAX if is_min else _INT_MIN)[v.dtype.id]
+    hr = scans.seg(op, torch.where(ok, v.data, torch.tensor(
+        fill, dtype=v.data.dtype, device=v.data.device)))
+    hh = scans.seg("add", ok.to(torch.int32))
+    yield
+    return scans.result(hr).to(v.dtype.torch_dtype), scans.result(hh) > 0
+
+
+@dataclasses.dataclass
+class _MinMax(AggregateFunction):
+    child: Expression
+
+    def result_type(self, schema):
+        return self.child.data_type(schema)
+
+    def intermediate_types(self, schema):
+        return (self.child.data_type(schema),)
+
+    def update_scans(self, ctx, scans, inputs):
+        (v,) = inputs
+        if v.dtype.is_string:
+            return None  # the eager string lane, `update`
+
+        def gen():
+            red, has = yield from _minmax_numeric_gen(v, ctx, scans,
+                                                      self._is_min)
+            return (ColumnVector(v.dtype, red, has),)
+        return gen()
+
+    def merge_scans(self, ctx, scans, partials):
+        return self.update_scans(ctx, scans, partials)
+
+    def merge(self, ctx, partials):
+        return self.update(ctx, partials)
+
+    def evaluate(self, partials, schema):
+        return partials[0]
+
+    def update(self, ctx, inputs):
+        """Strings: argmin/argmax by byte-lexicographic rank.  The rows
+        sort by (segment, null or masked last, value); every segment keeps
+        all its rows, so the s-th run of the sorted segment ids is segment
+        s and its first row is the winner."""
+        from spark_rapids_tpu_torch.ops.sort_encode import (encode_key_bits,
+                                                            masked_positions,
+                                                            packed_lexsort)
+        (v,) = inputs
+        cap = ctx.capacity
+        ok = v.validity & ctx.row_valid
+        keys = encode_key_bits(v, ascending=self._is_min, nulls_first=False)
+        seg = ctx.seg_ids.to(torch.int64) & 0xFFFFFFFF
+        order = packed_lexsort([(seg, 32), ((~ok).to(torch.int64), 1)]
+                               + keys)
+        seg_sorted = ctx.seg_ids[order]
+        isfirst = torch.cat([torch.ones(1, dtype=torch.bool,
+                                        device=ctx.device),
+                             seg_sorted[1:] != seg_sorted[:-1]])
+        pos = masked_positions(isfirst, ctx.out_capacity, fill_value=cap - 1)
+        idx = order[pos]
+        # a group whose rows are all null or masked sorted one of them
+        # first anyway: `has` masks it out
+        has = _sorted_seg_sum(ok.to(torch.int32), ctx) > 0
+        return (v.gather(idx, has),)
+
+
+class Min(_MinMax):
+    _is_min = True
+
+
+class Max(_MinMax):
+    _is_min = False

@@ -95,6 +95,10 @@ class Expression:
     def alias(self, name: str) -> "Alias":
         return Alias(self, name)
 
+    def cast(self, dt: T.DataType, ansi: bool = False):
+        from spark_rapids_tpu_torch.exprs.cast import Cast
+        return Cast(self, dt, ansi)
+
 
 def _lit(v):
     return v if isinstance(v, Expression) else Literal.of(v)

@@ -1,10 +1,12 @@
-"""Predicates and comparisons (port of spark_rapids_tpu/exprs/predicates.py:
-the comparisons, Kleene And/Or and Not that TPC-H Q1 and Q6 use).
+"""Predicates and comparisons (port of spark_rapids_tpu/exprs/predicates.py).
 
 Spark parity:
   - NaN is greater than every other value and NaN == NaN;
   - And/Or use Kleene three-valued logic (false AND null = false);
-  - strings compare lexicographically over their UTF-8 bytes.
+  - EqualNullSafe (<=>) treats two nulls as equal;
+  - strings compare lexicographically over their UTF-8 bytes;
+  - x IN (...) is null when x is null, or when nothing matches and the
+    list holds a null.
 """
 from __future__ import annotations
 
@@ -153,3 +155,122 @@ class Not(UnaryExpression):
 
     def do_columnar(self, c, ctx):
         return ColumnVector(T.BOOL, ~c.data.to(torch.bool), c.validity)
+
+
+@dataclasses.dataclass(eq=False, repr=False)
+class EqualNullSafe(BinaryExpression):
+    left: Expression
+    right: Expression
+
+    def data_type(self, schema):
+        return T.BOOL
+
+    def do_columnar(self, l, r, ctx):
+        _, eq = _compare(l, r)
+        both_null = ~l.validity & ~r.validity
+        one_null = l.validity != r.validity
+        data = torch.where(both_null, True, torch.where(one_null, False, eq))
+        return ColumnVector(T.BOOL, data, ctx.row_mask)
+
+
+@dataclasses.dataclass(eq=False)
+class IsNull(Expression):
+    child: Expression
+
+    def data_type(self, schema):
+        return T.BOOL
+
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, kids):
+        return IsNull(kids[0])
+
+    def eval(self, ctx):
+        c = self.child.eval(ctx)
+        return ColumnVector(T.BOOL, ~c.validity & ctx.row_mask, ctx.row_mask)
+
+
+@dataclasses.dataclass(eq=False)
+class IsNotNull(Expression):
+    child: Expression
+
+    def data_type(self, schema):
+        return T.BOOL
+
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, kids):
+        return IsNotNull(kids[0])
+
+    def eval(self, ctx):
+        c = self.child.eval(ctx)
+        return ColumnVector(T.BOOL, c.validity & ctx.row_mask, ctx.row_mask)
+
+
+@dataclasses.dataclass(eq=False, repr=False)
+class IsNaN(UnaryExpression):
+    child: Expression
+
+    def data_type(self, schema):
+        return T.BOOL
+
+    def do_columnar(self, c, ctx):
+        # Spark's IsNaN is not nullable: a null input gives false
+        return ColumnVector(T.BOOL, torch.isnan(c.data) & c.validity,
+                            ctx.row_mask)
+
+
+def _equals_string_literal(c: ColumnVector, raw: bytes) -> torch.Tensor:
+    """Rows of a string column whose bytes and length equal `raw`."""
+    n = len(raw)
+    if n > c.char_cap:
+        return torch.zeros(c.capacity, dtype=torch.bool,
+                           device=c.data.device)
+    hit = c.lengths == n
+    if n:
+        want = torch.tensor(list(raw), dtype=c.data.dtype,
+                            device=c.data.device)
+        hit = hit & (c.data[:, :n] == want).all(dim=1)
+    return hit
+
+
+@dataclasses.dataclass(eq=False)
+class InSet(Expression):
+    """value IN (literal set).  Numbers compare against the set as one
+    broadcast compare; strings compare bytes and length against each
+    literal."""
+    child: Expression
+    values: tuple
+
+    def data_type(self, schema):
+        return T.BOOL
+
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, kids):
+        return InSet(kids[0], self.values)
+
+    def eval(self, ctx):
+        c = self.child.eval(ctx)
+        has_null_in_list = any(v is None for v in self.values)
+        vals = [v for v in self.values if v is not None]
+        hit = torch.zeros(c.capacity, dtype=torch.bool, device=ctx.device)
+        if c.dtype.is_string:
+            for v in vals:
+                hit = hit | _equals_string_literal(c, str(v).encode("utf-8"))
+        elif vals:
+            want = torch.tensor(vals, dtype=c.dtype.torch_dtype,
+                                device=ctx.device)
+            hit = (c.data[:, None] == want[None, :]).any(dim=1)
+        validity = c.validity & ~(~hit & has_null_in_list)
+        return ColumnVector(T.BOOL, hit, validity)
+
+    def __repr__(self):
+        return f"InSet({self.child!r}, {self.values!r})"
+
+
+def In(child: Expression, values) -> InSet:
+    return InSet(child, tuple(values))

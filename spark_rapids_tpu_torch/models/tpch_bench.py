@@ -13,8 +13,8 @@ are made here from one seed:
     with batch_rows 2^23;
   - `sf10_lineitem_frame`: all 16 lineitem columns with
     `tpch_data.SCHEMAS` types, for the planner's Q1 and Q6.
-`sf10_tables` makes the eight tables Q3-Q5 and Q7-Q10 read, linked by
-dbgen's keys.
+`sf10_tables` makes the eight tables the other twenty queries read,
+linked by dbgen's keys.
 """
 from __future__ import annotations
 
@@ -217,6 +217,72 @@ def _texts(rng, lo: int, hi: int) -> list:
     return [" ".join(w)[:k] for w, k in zip(words, lens)]
 
 
+def _insert_phrases(rng, texts: list, phrases: list) -> list:
+    """`texts` with phrase i of `phrases` inserted into text i at a
+    random point, cut back to the text's own length (or the phrase's,
+    if longer) so the phrase stays whole."""
+    out = []
+    for text, phrase in zip(texts, phrases):
+        k = int(rng.integers(0, max(len(text) - len(phrase), 0) + 1))
+        out.append((text[:k] + phrase + text[k:])[:max(len(text),
+                                                      len(phrase))])
+    return out
+
+
+def _words(rng, n: int) -> list:
+    return [str(w) for w in np.array(tpch_data.COLORS)[
+        rng.integers(0, len(tpch_data.COLORS), n)]]
+
+
+#: orders whose o_comment matches Q13's '%special%requests%': 41 of the
+#: 4,096 pool strings (1.0%); another 41 hold the two words the other
+#: way round, which the pattern must not match
+O_SPECIAL_POOL = 41
+
+
+def _order_comments(rng, n_orders: int) -> tuple[pd.Categorical, np.ndarray]:
+    """o_comment, texts of 19-78 characters from a pool of 4,096, and the
+    mask of the orders whose comment holds "special" before
+    "requests"."""
+    pool = _texts(rng, 19, 78)
+    k = O_SPECIAL_POOL
+    pool[:k] = _insert_phrases(rng, pool[:k], [
+        f"special {w} requests" for w in _words(rng, k)])
+    pool[k:2 * k] = _insert_phrases(rng, pool[k:2 * k], [
+        f"requests {w} special" for w in _words(rng, k)])
+    codes = rng.integers(0, len(pool), n_orders)
+    # short texts of the same words may repeat: categories are distinct
+    uniq, first, inv = np.unique(np.array(pool, dtype=object),
+                                 return_index=True, return_inverse=True)
+    return (_categorical(uniq, inv[codes]),
+            first[inv[codes]] < k)
+
+
+def _supplier_strings(rng, n_supp: int) -> tuple[dict, np.ndarray]:
+    """s_name `Supplier#%09d`, s_address a 10-40 character v-string and
+    s_comment a 25-100 character text, into which dbgen's rule (TPC-H
+    spec 4.2.3) inserts "Customer ... Complaints" for 5 suppliers of
+    every 10,000 and "Customer ... Recommends" for 5 others (at least one
+    of each at small scales); and the mask of the complaints."""
+    keys = np.arange(1, n_supp + 1)
+    comments = np.array(_texts(rng, 25, 100), dtype=object)[
+        rng.integers(0, _POOL_SIZE, n_supp)]
+    k = max(1, round(5 * n_supp / 10_000))
+    rows = rng.choice(n_supp, 2 * k, replace=False)
+    words = _words(rng, 2 * k)
+    comments[rows] = _insert_phrases(rng, list(comments[rows]), [
+        f"Customer {w} {'Complaints' if i < k else 'Recommends'}"
+        for i, w in enumerate(words)])
+    complaint = np.zeros(n_supp, bool)
+    complaint[rows[:k]] = True
+    return {
+        "s_name": np.char.add("Supplier#", np.char.zfill(
+            keys.astype("U9"), 9)).astype(object),
+        "s_address": _pick_pool(rng, _vstrings(rng, 10, 40), n_supp),
+        "s_comment": pd.Categorical(comments),
+    }, complaint
+
+
 def _distinct_words(rng, n: int, k: int) -> np.ndarray:
     """int8[n, k]: k distinct indices into `tpch_data.COLORS` per row, a
     partial Fisher-Yates shuffle done for all rows at once."""
@@ -305,17 +371,22 @@ def sf10_tables(seed: int, sf: float = 10.0
       - ship date = order date + 1..121, commit = order date + 30..90,
         receipt = ship date + 1..30; order status and total price
         follow from the lines.
-    Columns follow `tpch_data.SCHEMAS`.  Q10's printed customer strings
-    have dbgen's widths: c_name `Customer#%09d`, c_address 10-40
-    characters, c_comment 29-116 (pools of 4,096 strings); p_name is
-    five distinct color words (`_part_partsupp`); the other strings no
-    query prints are pandas Categoricals over small pools.  The numpy
+    Columns follow `tpch_data.SCHEMAS`.  The strings the queries print
+    or match have dbgen's widths: c_name `Customer#%09d`, c_address
+    10-40 characters, c_comment 29-116 (pools of 4,096 strings); p_name
+    is five distinct color words (`_part_partsupp`); the supplier's
+    strings and o_comment follow `_supplier_strings` and
+    `_order_comments` (drawn from a third stream, so every other column
+    keeps its bytes for a seed); the other strings no query reads are
+    pandas Categoricals over small pools.  The numpy
     columns hold what a golden needs: every key, the dates, prices,
     quantities and discounts, c_acctbal, ps_supplycost, and the codes
     of c_mktsegment (into `tpch_data.SEGMENTS`), o_orderpriority (into
     `tpch_data.PRIORITIES`), p_type (TYPE_S1 x TYPE_S2 x TYPE_S3 in
     order) and l_returnflag (A/N/R = 0/1/2), with the p_name mask
-    p_green of the parts whose name holds the word green."""
+    p_green of the parts whose name holds the word green, the o_comment
+    mask o_special of Q13's '%special%requests%' and the s_comment mask
+    s_complaint of Q16's '%Customer%Complaints%'."""
     rng = np.random.default_rng(seed)
     n_supp = int(10_000 * sf)
     n_cust = int(150_000 * sf)
@@ -336,14 +407,23 @@ def sf10_tables(seed: int, sf: float = 10.0
         "n_comment": _pooled(rng, nations),
     })
     s_nationkey = rng.integers(0, nations, n_supp).astype(np.int64)
+    # the strings of the queries past Q10 come from a third stream; the
+    # main one still makes the draws of the pooled strings they replace
+    rng3 = np.random.default_rng([seed, 3])
+    s_strings, s_complaint = _supplier_strings(rng3, n_supp)
+    _pooled(rng, n_supp)
+    _pooled(rng, n_supp)
+    s_phone = _phones(rng, s_nationkey)
+    s_acctbal = tpch_data._money(rng, -999.99, 9999.99, n_supp)
+    _pooled(rng, n_supp)
     supplier = pd.DataFrame({
         "s_suppkey": np.arange(1, n_supp + 1, dtype=np.int64),
-        "s_name": _pooled(rng, n_supp),
-        "s_address": _pooled(rng, n_supp),
+        "s_name": s_strings["s_name"],
+        "s_address": s_strings["s_address"],
         "s_nationkey": s_nationkey,
-        "s_phone": _phones(rng, s_nationkey),
-        "s_acctbal": tpch_data._money(rng, -999.99, 9999.99, n_supp),
-        "s_comment": _pooled(rng, n_supp),
+        "s_phone": s_phone,
+        "s_acctbal": s_acctbal,
+        "s_comment": s_strings["s_comment"],
     })
     c_nationkey = rng.integers(0, nations, n_cust).astype(np.int64)
     c_segment = rng.integers(0, len(tpch_data.SEGMENTS), n_cust)
@@ -396,6 +476,7 @@ def sf10_tables(seed: int, sf: float = 10.0
                                  first)
     status = np.where(open_lines == 0, 0, np.where(open_lines == lines,
                                                    1, 2))
+    o_comment, o_special = _order_comments(rng3, n_orders)
     charge = (l_arrays["l_extendedprice"] * (1.0 - l_arrays["l_discount"])
               * (1.0 + l_arrays["l_tax"]))
     orders = pd.DataFrame({
@@ -409,7 +490,7 @@ def sf10_tables(seed: int, sf: float = 10.0
             [f"Clerk#{k:09d}" for k in range(1, max(int(1000 * sf), 1) + 1)],
             rng.integers(0, max(int(1000 * sf), 1), n_orders)),
         "o_shippriority": np.zeros(n_orders, np.int32),
-        "o_comment": _pooled(rng, n_orders),
+        "o_comment": o_comment,
     })
     tables = {"region": region, "nation": nation, "supplier": supplier,
               "customer": customer, "part": part, "partsupp": partsupp,
@@ -422,6 +503,7 @@ def sf10_tables(seed: int, sf: float = 10.0
         "c_acctbal": c_acctbal, **p_arrays,
         "o_orderkey": o_orderkey, "o_custkey": o_custkey,
         "o_orderdate": o_orderdate, "o_orderpriority": o_priority,
+        "o_special": o_special, "s_complaint": s_complaint,
         **{k: l_arrays[k] for k in (
             "l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
             "l_extendedprice", "l_discount", "l_returnflag", "l_shipdate",

@@ -148,6 +148,84 @@ def _cmp(op):
     return f
 
 
+def _eq_null_safe(e, df, schema):
+    l, r = _ev(e.left, df, schema), _ev(e.right, df, schema)
+    ln, rn = l.isna(), r.isna()
+    if l.dtype == object or r.dtype == object:
+        eq = pd.Series([_op_str(a, b, "eq") for a, b in zip(l, r)],
+                       index=l.index, dtype="boolean")
+    else:
+        eq = (l == r).astype("boolean")
+    return (eq.fillna(False) | (ln & rn)).astype("boolean")
+
+
+def _isnull(e, df, schema):
+    return _ev(e.child, df, schema).isna().astype("boolean")
+
+
+def _isnotnull(e, df, schema):
+    return (~_ev(e.child, df, schema).isna()).astype("boolean")
+
+
+def _isnan(e, df, schema):
+    """Not nullable, as on the device: a null input gives false."""
+    v = _ev(e.child, df, schema)
+    vals = v.astype("Float64").to_numpy(np.float64, na_value=0.0)
+    return pd.Series(np.isnan(vals), index=v.index, dtype="boolean")
+
+
+def _inset(e, df, schema):
+    """Spark's IN: null for a null input, and for an input matching
+    nothing when the list holds a null."""
+    v = _ev(e.child, df, schema)
+    vals = [x for x in e.values if x is not None]
+    if v.dtype == object:
+        want = {str(x) for x in vals}
+        hit = v.map(lambda x: not _missing(x) and x in want)
+    else:
+        hit = v.isin(vals).fillna(False)
+    res = hit.astype("boolean")
+    if len(vals) < len(e.values):
+        res[~hit.astype(bool)] = pd.NA
+    res[v.isna()] = pd.NA
+    return res
+
+
+def _cast(e, df, schema):
+    """The pairs exprs/cast.py evaluates: numeric, boolean and date;
+    casts to and from strings are not ported."""
+    from spark_rapids_tpu_torch.exprs.cast import _INT_BOUNDS, Cast
+    v = _ev(e.child, df, schema)
+    src, dst = e.child.data_type(schema), e.to
+    if src == dst:
+        return v
+    if not Cast.supported(src, dst, e.ansi):
+        raise CpuEvalError(f"cast {src} -> {dst} is not ported")
+    if dst.id == T.TypeId.BOOL:
+        return (v != 0).astype("boolean")
+    if src.is_floating and dst.is_integral:
+        # Java: truncate toward zero, NaN -> 0, saturate at the bounds
+        lo, hi = _INT_BOUNDS.get(dst.id, _INT_BOUNDS[T.TypeId.INT64])
+
+        x = v.astype("Float64").to_numpy(np.float64, na_value=0.0)
+        t = np.trunc(np.where(np.isnan(x), 0.0, x))
+        over, under = t >= float(hi), t <= float(lo)
+        safe = np.where(over | under, 0.0, t).astype(np.int64)
+        data = np.where(over, np.int64(hi), np.where(under, np.int64(lo),
+                                                     safe))
+        # an INT64-bounded value in a narrower type (DATE32) wraps
+        out = pd.Series(data.astype(dst.storage_dtype), index=v.index
+                        ).astype(nullable_dtype(dst))
+        out[v.isna()] = pd.NA
+        return out
+    if src.is_integral and dst.is_integral:
+        vals = v.to_numpy(np.int64, na_value=0).astype(dst.storage_dtype)
+        out = pd.Series(vals, index=v.index).astype(nullable_dtype(dst))
+        out[v.isna()] = pd.NA
+        return out
+    return v.astype(nullable_dtype(dst))
+
+
 def _and(e, df, schema):
     return (_ev(e.left, df, schema).astype("boolean")
             & _ev(e.right, df, schema).astype("boolean"))
@@ -322,6 +400,12 @@ _DISPATCH = {
     "LessThanOrEqual": _cmp("le"),
     "GreaterThan": _cmp("gt"),
     "GreaterThanOrEqual": _cmp("ge"),
+    "EqualNullSafe": _eq_null_safe,
+    "IsNull": _isnull,
+    "IsNotNull": _isnotnull,
+    "IsNaN": _isnan,
+    "InSet": _inset,
+    "Cast": _cast,
     "And": _and,
     "Or": _or,
     "Not": _not,

@@ -60,6 +60,20 @@ class ExprMeta(BaseMeta):
             self.will_not_work_on_gpu(
                 f"expression {name} disabled by "
                 f"{C.op_enable_key('expression', name)}")
+        if self.rule.tag_extra is not None:
+            self.rule.tag_extra(self)
+
+    def input_schemas(self) -> list:
+        """The schemas this expression's references resolve against: the
+        owning plan node's child schemas, and both sides together (a join
+        condition sees both)."""
+        m = self.parent
+        while isinstance(m, ExprMeta):
+            m = m.parent
+        out = [c.output_schema() for c in m.node.children]
+        if len(out) > 1:
+            out.append(T.Schema(tuple(f for s in out for f in s.fields)))
+        return out
 
     @property
     def can_expr_tree_be_replaced(self) -> bool:

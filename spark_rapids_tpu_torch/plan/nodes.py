@@ -274,21 +274,43 @@ class CpuSort(CpuNode):
 
 
 #: pandas groupby op of each aggregate function the port has
-_AGG_PANDAS = {"Sum": "sum", "Average": "mean", "Count": "count"}
+_AGG_PANDAS = {"Sum": "sum", "Average": "mean", "Count": "count",
+               "Min": "min", "Max": "max"}
+
+
+def _spark_minmax(s: pd.Series, is_min: bool):
+    """Min or max of a group's non-null values with Spark's NaN rule (NaN
+    is the largest value); None for a group without one."""
+    s = s.dropna()
+    if not len(s):
+        return None
+    if s.dtype.kind == "f" or str(s.dtype) in ("Float32", "Float64"):
+        vals = s.to_numpy(np.float64)
+        nan = np.isnan(vals)
+        if nan.all() or (nan.any() and not is_min):
+            return float("nan")
+        vals = vals[~nan]
+        return vals.min() if is_min else vals.max()
+    return s.min() if is_min else s.max()
 
 
 def _agg_op(func):
     """pandas groupby op for an AggregateFunction; Spark's SUM of only
     nulls is NULL (pandas' default min_count=0 would give 0)."""
-    if type(func).__name__ == "Sum":
+    fname = type(func).__name__
+    if fname == "Sum":
         return lambda s: s.sum(min_count=1)
-    return _AGG_PANDAS[type(func).__name__]
+    if fname in ("Min", "Max"):
+        return lambda s: _spark_minmax(s, fname == "Min")
+    return _AGG_PANDAS[fname]
 
 
 def _reduce(s: pd.Series, func):
     fname = type(func).__name__
     if fname == "Count":
         return int(s.notna().sum())
+    if fname in ("Min", "Max"):
+        return _spark_minmax(s, fname == "Min")
     s2 = s.dropna()
     if not len(s2):
         return None
@@ -339,13 +361,36 @@ class CpuAggregate(CpuNode):
             else:
                 work[a.name] = cpu_eval(a.func.child, df, cs)
         if not key_names:  # reduction
-            out = pd.DataFrame([{a.name: _reduce(work[a.name], a.func)
-                                 for a in self.aggregates}])
+            row = {a.name: _reduce(work[a.name], a.func)
+                   for a in self.aggregates}
+            out = pd.DataFrame([row])
+            for a in self._float_minmax():
+                out[a.name] = _keep_nan(out[a.name], [row[a.name] is None])
             return [iter([normalize_df(out, self._schema)])]
         grouped = work.groupby(key_names, dropna=False, sort=False)
-        out = pd.DataFrame({a.name: grouped[a.name].agg(_agg_op(a.func))
-                            for a in self.aggregates}).reset_index()
+        cols = {a.name: grouped[a.name].agg(_agg_op(a.func))
+                for a in self.aggregates}
+        for a in self._float_minmax():
+            cols[a.name] = _keep_nan(cols[a.name],
+                                     grouped[a.name].count() == 0)
+        out = pd.DataFrame(cols).reset_index()
         return [iter([normalize_df(out, self._schema)])]
+
+    def _float_minmax(self) -> list:
+        """The Min/Max aggregates of floating type, whose NaN results
+        must not turn into nulls on the way out."""
+        return [a for a in self.aggregates
+                if type(a.func).__name__ in ("Min", "Max")
+                and self._schema.field(a.name).dtype.is_floating]
+
+
+def _keep_nan(values: pd.Series, missing) -> pd.Series:
+    """A nullable float column of `values` that is null exactly where
+    `missing` says and keeps NaN elsewhere (pandas would read a float
+    NaN as a null)."""
+    return pd.Series(pd.arrays.FloatingArray(
+        values.to_numpy(np.float64, na_value=np.nan),
+        np.asarray(missing, bool)), index=values.index)
 
 
 class CpuHashJoin(CpuNode):

@@ -47,6 +47,7 @@ class ExprRule:
     both engines, so the rule carries tagging knowledge only."""
     name: str
     desc: str
+    tag_extra: Optional[Callable] = None
 
 
 @dataclasses.dataclass
@@ -62,8 +63,8 @@ EXPR_RULES: dict[str, ExprRule] = {}
 EXEC_RULES: dict[type, ExecRule] = {}
 
 
-def expr(name: str, desc: str) -> None:
-    EXPR_RULES[name] = ExprRule(name, desc)
+def expr(name: str, desc: str, tag_extra=None) -> None:
+    EXPR_RULES[name] = ExprRule(name, desc, tag_extra)
 
 
 def register_exec(cpu_class, desc, convert, exprs_of=lambda n: (),
@@ -85,15 +86,35 @@ for _name in """
 AttributeReference BoundReference Literal Alias
 Add Subtract Multiply Divide IntegralDivide Remainder Pmod UnaryMinus
 UnaryPositive Abs
-EqualTo LessThan LessThanOrEqual GreaterThan GreaterThanOrEqual
-And Or Not
+EqualTo EqualNullSafe LessThan LessThanOrEqual GreaterThan
+GreaterThanOrEqual And Or Not IsNull IsNotNull IsNaN InSet
 If CaseWhen Coalesce NullIf Nvl2 AtLeastNNonNulls NaNvl
 Year Month DayOfMonth DayOfWeek DayOfYear Quarter WeekOfYear LastDay
 DateAdd DateSub DateDiff AddMonths
 Length Substring Contains StartsWith EndsWith Like
-Sum Count Average
+Sum Count Average Min Max
 """.split():
     expr(_name, f"GPU implementation of {_name}")
+
+
+def _tag_cast(m) -> None:
+    """A cast pair exprs/cast.py does not evaluate (to or from a string,
+    or ANSI) stays on the CPU."""
+    from spark_rapids_tpu_torch.exprs.cast import Cast
+    e = m.expr
+    for schema in m.input_schemas():
+        try:
+            src = e.child.data_type(schema)
+        except KeyError:
+            continue
+        if not Cast.supported(src, e.to, e.ansi):
+            m.will_not_work_on_gpu(
+                f"cast {src} -> {e.to}{' (ANSI)' if e.ansi else ''} is not "
+                f"ported")
+        return
+
+
+expr("Cast", "GPU implementation of Cast", tag_extra=_tag_cast)
 
 # the aggregate functions both engines implement
 _SUPPORTED_AGGS = set(N._AGG_PANDAS)

@@ -1,15 +1,20 @@
-"""The date, conditional, arithmetic and string expressions of
-spark_rapids_tpu_torch against their spark_rapids_tpu classes, on the
-CPU: the same seeded inputs (with nulls) go through both, and values,
-strings and null masks must match exactly.  The port's CPU evaluator
-(plan/cpu_eval.py) is held to the same answers where it has the
-expression.
+"""The date, conditional, arithmetic, string, null-test, IN and cast
+expressions of spark_rapids_tpu_torch against their spark_rapids_tpu
+classes, on the CPU: the same seeded inputs (with nulls) go through both,
+and values, strings and null masks must match exactly.  The port's CPU
+evaluator (plan/cpu_eval.py) is held to the same answers where it has
+the expression.  Min and Max go through both packages' HashAggregateExec
+(grouped, with a merge of two batches, and key-less) and the port's CPU
+aggregate.
 
 Edge cases: dates before 1970, leap days and the century years 1900,
 2000 and 2100; division by zero; CASE WHEN over strings of different
 char capacities and without an else; empty, multi-byte and null
 patterns; LIKE's %, _ and escapes; substrings from negative and
-out-of-range positions.
+out-of-range positions; IN lists with a null, empty strings and none at
+all; casts of NaN, infinities and floats past the integer range, and
+narrowing casts that wrap; Min/Max over NaN, infinities, empty strings
+and groups of nulls alone.
 """
 import types
 
@@ -22,6 +27,7 @@ from spark_rapids_tpu import types as RT
 from spark_rapids_tpu.exec.base import make_eval_context as r_context
 from spark_rapids_tpu.exprs import arithmetic as RA
 from spark_rapids_tpu.exprs import base as RE
+from spark_rapids_tpu.exprs import cast as RCa
 from spark_rapids_tpu.exprs import conditional as RC
 from spark_rapids_tpu.exprs import datetime_exprs as RDT
 from spark_rapids_tpu.exprs import predicates as RP
@@ -31,6 +37,7 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec.base import make_eval_context
 from spark_rapids_tpu_torch.exprs import arithmetic as A
 from spark_rapids_tpu_torch.exprs import base as E
+from spark_rapids_tpu_torch.exprs import cast as Ca
 from spark_rapids_tpu_torch.exprs import conditional as C
 from spark_rapids_tpu_torch.exprs import datetime_exprs as DT
 from spark_rapids_tpu_torch.exprs import predicates as P
@@ -47,14 +54,14 @@ def _ns(types_mod, mods, base):
                                Literal=base.Literal, lit=base.lit)
     for m in mods:
         for k, v in vars(m).items():
-            if isinstance(v, type) or k == "Nvl":
+            if isinstance(v, type) or k in ("Nvl", "In"):
                 setattr(ns, k, v)
     return ns
 
 
 #: each package's classes under one set of names
-PORT = _ns(T, (A, C, DT, P, S), E)
-REF = _ns(RT, (RA, RC, RDT, RP, RS), RE)
+PORT = _ns(T, (A, C, Ca, DT, P, S), E)
+REF = _ns(RT, (RA, RC, RCa, RDT, RP, RS), RE)
 
 _SPECIAL_DATES = ["1899-12-31", "1900-01-01", "1900-02-28",
                   "1900-03-01", "1968-02-29", "1969-12-31", "1970-01-01",
@@ -91,7 +98,7 @@ def _frame(seed: int = 5) -> pd.DataFrame:
     b[rng.random(N) < 0.2] = 0.0
     i = rng.integers(-50, 50, N)
     j = rng.integers(-6, 7, N)
-    return pd.DataFrame({
+    frame = pd.DataFrame({
         "d": nulls(days, "Int32"),
         "d2": nulls(rng.integers(-30_000, 30_000, N), "Int32"),
         "n": nulls(rng.integers(-1000, 1000, N), "Int32"),
@@ -105,12 +112,26 @@ def _frame(seed: int = 5) -> pd.DataFrame:
         "t": strings(["", "zz", "q", "xyz"]),
         "p": nulls(rng.integers(-12, 13, N), "Int32"),
     })
+    # drawn after the columns above, which keep their values
+    special = np.array(_SPECIAL_FLOATS)[rng.integers(0, len(_SPECIAL_FLOATS),
+                                                     N)]
+    f = np.where(rng.random(N) < 0.5, special, rng.uniform(-1e12, 1e12, N))
+    frame["f"] = pd.arrays.FloatingArray(f, rng.random(N) < 0.1)
+    frame["big"] = nulls(rng.integers(-2 ** 40, 2 ** 40, N), "Int64")
+    return frame
+
+
+#: NaN (not null), infinities, the integer types' edges and past them
+_SPECIAL_FLOATS = [np.nan, np.inf, -np.inf, 3e20, -3e20, 2.0 ** 63,
+                   -2.0 ** 63, 2.0 ** 31 - 0.5, -2.0 ** 31 - 0.5, 2.0 ** 31,
+                   -2.0 ** 31 - 1, 0.0, -0.0, 2.5, -2.5, 1e10]
 
 
 SCHEMA = [("d", "DATE32"), ("d2", "DATE32"), ("n", "INT32"),
           ("m", "INT32"), ("x", "FLOAT64"), ("y", "FLOAT64"),
           ("i", "INT64"), ("j", "INT64"), ("k", "INT32"), ("s", "STRING"),
-          ("t", "STRING"), ("p", "INT32")]
+          ("t", "STRING"), ("p", "INT32"), ("f", "FLOAT64"),
+          ("big", "INT64")]
 
 
 def _schema(types_mod):
@@ -269,6 +290,211 @@ STRING_EXPRS = {
     "substring_column_positions": lambda M: M.Substring(
         M.col("s"), M.col("p"), M.col("m")),
 }
+
+
+PREDICATE_EXPRS = {
+    "in_set_ints": lambda M: M.InSet(M.col("n"), (1, 5, -3, 999, 0)),
+    "in_set_ints_with_null": lambda M: M.InSet(M.col("k"), (1, 2, None)),
+    "in_set_empty": lambda M: M.InSet(M.col("n"), ()),
+    "in_set_floats": lambda M: M.InSet(M.col("f"), (2.5, 0.0, 1e10)),
+    "in_set_strings": lambda M: M.InSet(
+        M.col("s"), ("", "a", "green", "café", "日本", "never there")),
+    "in_set_strings_with_null": lambda M: M.InSet(M.col("t"), ("zz", None)),
+    "in_set_substring": lambda M: M.InSet(
+        M.Substring(M.col("s"), M.lit(1), M.lit(2)), ("ab", "gr", "日本")),
+    "in_list": lambda M: M.In(M.col("i"), [3, -7, 11]),
+    "equal_null_safe_ints": lambda M: M.EqualNullSafe(M.col("i"),
+                                                      M.col("j")),
+    "equal_null_safe_floats": lambda M: M.EqualNullSafe(M.col("f"),
+                                                        M.col("x")),
+    "equal_null_safe_strings": lambda M: M.EqualNullSafe(M.col("s"),
+                                                         M.col("t")),
+    "is_null_strings": lambda M: M.IsNull(M.col("s")),
+    "is_null_floats": lambda M: M.IsNull(M.col("f")),
+    "is_not_null": lambda M: M.IsNotNull(M.col("x")),
+    "is_not_null_strings": lambda M: M.IsNotNull(M.col("t")),
+    "is_nan": lambda M: M.IsNaN(M.col("f")),
+}
+
+
+def _cast(to, src="f"):
+    return lambda M: M.Cast(M.col(src), getattr(M.T, to))
+
+
+CAST_EXPRS = {
+    "float_to_int32": _cast("INT32"),
+    "float_to_int64": _cast("INT64"),
+    "float_to_float32": _cast("FLOAT32"),
+    "float_to_bool": _cast("BOOL"),
+    "float_to_date": _cast("DATE32"),
+    "int64_to_int32_wraps": _cast("INT32", "big"),
+    "int64_to_double": _cast("FLOAT64", "big"),
+    "int32_to_int64": _cast("INT64", "n"),
+    "int32_to_float32": _cast("FLOAT32", "n"),
+    "int32_to_bool": _cast("BOOL", "m"),
+    "date_to_int32": _cast("INT32", "d"),
+    "date_to_double": _cast("FLOAT64", "d"),
+    "double_to_int32": _cast("INT32", "x"),
+    "bool_to_int64": lambda M: M.Cast(M.GreaterThan(M.col("n"), M.lit(0)),
+                                      M.T.INT64),
+    "bool_to_double": lambda M: M.Cast(M.IsNull(M.col("s")), M.T.FLOAT64),
+    "same_type": _cast("FLOAT64"),
+    "sugar": lambda M: M.col("i").cast(M.T.FLOAT64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PREDICATE_EXPRS))
+def test_predicates_match_the_reference(name, port_batch, ref_batch, frame):
+    _check(PREDICATE_EXPRS[name], port_batch, ref_batch, frame, name)
+
+
+@pytest.mark.parametrize("name", sorted(CAST_EXPRS))
+def test_casts_match_the_reference(name, port_batch, ref_batch, frame):
+    _check(CAST_EXPRS[name], port_batch, ref_batch, frame, name)
+
+
+def test_casts_saturate_and_wrap_as_java_does(port_batch, frame):
+    """float -> int truncates toward zero, NaN -> 0, and saturates;
+    long -> int keeps the low 32 bits."""
+    got, ok = _run_port(CAST_EXPRS["float_to_int32"], port_batch)
+    f = frame["f"].to_numpy(np.float64, na_value=0.0)
+    want = np.where(np.isnan(f), 0, np.clip(np.trunc(np.nan_to_num(
+        f, nan=0.0, posinf=2.0 ** 31, neginf=-2.0 ** 32)), -2 ** 31,
+        2 ** 31 - 1)).astype(np.int64)
+    np.testing.assert_array_equal(got[ok], want[ok])
+    got, ok = _run_port(CAST_EXPRS["int64_to_int32_wraps"], port_batch)
+    big = frame["big"].to_numpy(np.int64, na_value=0)
+    np.testing.assert_array_equal(got[ok], big[ok].astype(np.int32))
+    assert np.abs(big[ok]).max() > 2 ** 31
+
+
+def test_unported_casts_refuse_to_evaluate(port_batch):
+    for to, ansi in ((T.STRING, False), (T.INT32, True)):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            _run_port(lambda M: M.Cast(M.col("x"), to, ansi), port_batch)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        _run_port(lambda M: M.Cast(M.col("s"), T.INT32), port_batch)
+
+
+def _minmax_frame(seed: int = 9) -> pd.DataFrame:
+    """Groups of ints, floats (NaN, infinities), dates and strings (empty
+    ones too), with nulls; group 7 holds nulls alone, group 8 NaNs
+    alone, and the key itself is null on some rows."""
+    rng = np.random.default_rng(seed)
+    n = 600
+    g = rng.integers(0, 7, n)
+    f = np.array([1.5, -2.0, np.nan, np.inf, -np.inf, 0.0, 7.25])[
+        rng.integers(0, 7, n)]
+    f = np.where(rng.random(n) < 0.5, rng.uniform(-1e3, 1e3, n), f)
+    tail = np.arange(n - 24, n)
+    g[tail[:12]] = 7
+    g[tail[12:]] = 8
+    f[tail[12:]] = np.nan
+    null = rng.random(n) < 0.15
+    null[tail[:12]] = True
+    strs = np.array(["", "a", "ab", "b", "café", "日本", "zz", "abc"],
+                    dtype=object)[rng.integers(0, 8, n)]
+    strs[null] = None
+    key = pd.array(g, dtype="Int32")
+    key[rng.random(n) < 0.03] = pd.NA
+    return pd.DataFrame({
+        "g": key,
+        "i": pd.arrays.IntegerArray(
+            rng.integers(-10 ** 6, 10 ** 6, n).astype(np.int64), null),
+        "k": pd.arrays.IntegerArray(
+            rng.integers(-99, 99, n).astype(np.int32), null),
+        "f": pd.arrays.FloatingArray(f, null),
+        "d": pd.arrays.IntegerArray(
+            rng.integers(-9000, 9000, n).astype(np.int32), null),
+        "s": strs,
+    })
+
+
+_MINMAX_SCHEMA = [("g", "INT32"), ("i", "INT64"), ("k", "INT32"),
+                  ("f", "FLOAT64"), ("d", "DATE32"), ("s", "STRING")]
+
+
+def _minmax_aggs(mod, colf):
+    return [getattr(mod, fn)(colf(c)).alias(f"{fn.lower()}_{c}")
+            for c in ("i", "k", "f", "d", "s") for fn in ("Min", "Max")]
+
+
+def _minmax_port(frame, keys):
+    from spark_rapids_tpu_torch.exec.aggregate import HashAggregateExec
+    from spark_rapids_tpu_torch.exec.basic import LocalBatchSource
+    from spark_rapids_tpu_torch.exprs import aggregates as AG
+    schema = T.Schema.of(*[(n, getattr(T, t)) for n, t in _MINMAX_SCHEMA])
+    half = len(frame) // 2
+    batches = [batch_from_df(part.reset_index(drop=True), schema,
+                             device="cpu")
+               for part in (frame.iloc[:half], frame.iloc[half:])]
+    agg = HashAggregateExec([E.col(k) for k in keys],
+                            _minmax_aggs(AG, E.col),
+                            LocalBatchSource([batches], device="cpu"))
+    return agg.collect().to_pandas()
+
+
+def _minmax_ref(frame, keys):
+    from spark_rapids_tpu.exec.aggregate import HashAggregateExec
+    from spark_rapids_tpu.exec.basic import LocalBatchSource
+    from spark_rapids_tpu.exprs import aggregates as AG
+    schema = RT.Schema.of(*[(n, getattr(RT, t)) for n, t in _MINMAX_SCHEMA])
+    half = len(frame) // 2
+    batches = [r_batch(part.reset_index(drop=True), schema)
+               for part in (frame.iloc[:half], frame.iloc[half:])]
+    agg = HashAggregateExec([RE.col(k) for k in keys],
+                            _minmax_aggs(AG, RE.col),
+                            LocalBatchSource([batches]))
+    return agg.collect().to_pandas()
+
+
+def _minmax_cpu(frame, keys):
+    from spark_rapids_tpu_torch.exprs import aggregates as AG
+    from spark_rapids_tpu_torch.plan.nodes import CpuAggregate, CpuSource
+    schema = T.Schema.of(*[(n, getattr(T, t)) for n, t in _MINMAX_SCHEMA])
+    src = CpuSource([normalize_df(frame, schema)], schema)
+    return CpuAggregate([E.col(k) for k in keys], _minmax_aggs(AG, E.col),
+                        src).collect()
+
+
+def _same_frames(got, want, keys, what):
+    got = got.sort_values(keys).reset_index(drop=True) if keys else got
+    want = want.sort_values(keys).reset_index(drop=True) if keys else want
+    assert list(got.columns) == list(want.columns), what
+    assert len(got) == len(want), what
+    for c in want.columns:
+        # a float NaN in a column of strings is pandas' missing string
+        strings = want[c].dtype == object
+
+        def null(x):
+            return x is None or x is pd.NA or (strings and x != x)
+        g, w = got[c].astype(object), want[c].astype(object)
+        gn, wn = g.map(null).to_numpy(), w.map(null).to_numpy()
+        np.testing.assert_array_equal(gn, wn, err_msg=f"{what} {c} nulls")
+        for a, b in zip(g[~gn], w[~wn]):
+            same = (a == b or (isinstance(a, float) and a != a and b != b))
+            assert same, f"{what} {c}: {a!r} != {b!r}"
+
+
+@pytest.mark.parametrize("keys", [["g"], []], ids=["grouped", "key_less"])
+def test_min_max_match_the_reference(keys):
+    """Min/Max on the sort lane (grouped, two batches merged) and in the
+    key-less reduction: Spark's NaN rule (NaN is the largest value, the
+    min only of NaNs alone), null for a group of nulls, strings by their
+    bytes; against the reference's exec and the port's CPU aggregate."""
+    frame = _minmax_frame()
+    got = _minmax_port(frame, keys)
+    _same_frames(got, _minmax_ref(frame, keys), keys, "vs the reference")
+    _same_frames(got, _minmax_cpu(frame, keys), keys, "vs the CPU engine")
+    if keys:
+        by = got.set_index("g")
+        assert by.loc[7].isna().all()
+        assert np.isnan(by.loc[8, "min_f"]) and np.isnan(by.loc[8, "max_f"])
+        assert (by.drop(index=[7, 8])["max_f"].isna()
+                | np.isnan(by.drop(index=[7, 8])["max_f"].astype(float))
+                ).all()
+    assert "" in set(got["min_s"].dropna())
+    assert max(got["max_s"].dropna()) == "日本"
 
 
 @pytest.mark.parametrize("name", sorted(DATE_EXPRS))

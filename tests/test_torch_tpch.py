@@ -30,9 +30,18 @@ from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
 
 SCALE = 3000
 SEED = 11
+#: the queries of this file; the other 13 are in test_torch_tpch_rest.py
+#: (a file of their own, so xdist can put them on another worker)
+FIRST_NINE = [1, 3, 4, 5, 6, 7, 8, 9, 10]
 #: the sort keys whose order each join query's result must keep
 ORDER_KEYS = {3: "l_orderkey", 4: "o_orderpriority", 5: "n_name",
               7: "l_year", 8: "o_year", 9: "o_year", 10: "c_custkey"}
+
+
+def cpu_run(plan):
+    """The CPU engine's runner of a scalar subquery: the sub-plan
+    collected on the CPU engine."""
+    return plan.collect()
 
 
 @pytest.fixture(scope="module")
@@ -73,29 +82,41 @@ def _count_lanes(cls, run) -> Counter:
     return seen
 
 
-@pytest.fixture(scope="module")
-def reference(ref_tables):
-    """The reference's accelerated result, plan and aggregate lane
-    decisions for each query."""
-    from spark_rapids_tpu.exec.aggregate import HashAggregateExec as RHA
-    out = {}
-    for q in QUERIES:
+class Reference(dict):
+    """query -> the reference's accelerated result, plan and aggregate
+    lane decisions, each query run on its first lookup only."""
+
+    def __init__(self, ref_tables):
+        super().__init__()
+        self.ref_tables = ref_tables
+
+    def __missing__(self, q):
+        from spark_rapids_tpu.exec.aggregate import HashAggregateExec as RHA
         got = []
         lanes = _count_lanes(RHA, lambda: got.append(
-            RB.run_query(q, ref_tables, engine="tpu")))
-        out[q] = (got[0], RO.ExecutionPlanCapture.last_plan, lanes)
-    return out
+            RB.run_query(q, self.ref_tables, engine="tpu")))
+        self[q] = (got[0], RO.ExecutionPlanCapture.last_plan, lanes)
+        return self[q]
+
+
+@pytest.fixture(scope="module")
+def reference(ref_tables):
+    return Reference(ref_tables)
 
 
 def _tree(plan) -> list:
-    """Exec class names in tree order (pre-order)."""
-    return [type(plan).__name__] + [n for c in plan.children
-                                    for n in _tree(c)]
+    """Node class names in tree order (pre-order)."""
+    return [type(n).__name__ for n in _walk(plan)]
 
 
 def _accelerate(q, tables, conf=None):
+    """Query q's plan through accelerate, its scalar subqueries collected
+    through the planner as run_query collects them."""
     conf = conf or C.RapidsConf(dict(TB.BENCH_CONF))
-    return accelerate(QUERIES[q](TD.sources(tables, 2), None), conf,
+
+    def run(plan):
+        return collect(accelerate(plan, conf, device="cpu"), conf)
+    return accelerate(QUERIES[q](TD.sources(tables, 2), run), conf,
                       device="cpu")
 
 
@@ -109,7 +130,7 @@ def test_gen_tables_matches_reference(tables, ref_tables):
             [f.dtype.id.value for f in RD.SCHEMAS[name]]
 
 
-@pytest.mark.parametrize("query", sorted(QUERIES))
+@pytest.mark.parametrize("query", FIRST_NINE)
 def test_run_query_matches_reference_and_cpu_engine(tables, ref_tables,
                                                     reference, query):
     got = []
@@ -123,7 +144,7 @@ def test_run_query_matches_reference_and_cpu_engine(tables, ref_tables,
     if query == 10:
         assert lanes[("_use_hash_grouping", True)] >= 1
     compare_frames(reference[query][0], got, f"q{query} vs reference")
-    cpu = QUERIES[query](TD.sources(tables, 2), None).collect()
+    cpu = QUERIES[query](TD.sources(tables, 2), cpu_run).collect()
     compare_frames(cpu, got, f"q{query} vs the CPU engine")
     ref_cpu = RB.run_query(query, ref_tables, engine="cpu")
     compare_frames(ref_cpu, cpu, f"q{query} CPU engines")
@@ -145,7 +166,7 @@ FUSED_MODES = {1: ["partial"], 3: [], 4: [], 5: [], 6: ["partial"],
                7: ["complete"], 8: ["complete"], 9: ["complete"], 10: []}
 
 
-@pytest.mark.parametrize("query", sorted(QUERIES))
+@pytest.mark.parametrize("query", FIRST_NINE)
 def test_plan_matches_reference_tree(tables, reference, query):
     """The reference's exec tree, class for class, with the same
     aggregates fused; the join queries' joins take the reference's
@@ -170,8 +191,11 @@ def test_plan_matches_reference_tree(tables, reference, query):
 
 
 def _walk(plan):
+    """Every node in pre-order, through the device/CPU transitions of a
+    plan with CPU islands."""
     yield plan
-    for c in plan.children:
+    for c in list(plan.children) + [getattr(plan, a) for a in (
+            "cpu_child", "tpu_child") if hasattr(plan, a)]:
         yield from _walk(c)
 
 
@@ -280,7 +304,7 @@ def test_entry_points_refuse_to_run_without_a_card(tables, entry):
         if entry == "run_query":
             TB.run_query(6, tables)
         else:
-            accelerate(QUERIES[6](TD.sources(tables, 2), None))
+            accelerate(QUERIES[6](TD.sources(tables, 2), cpu_run))
 
 
 @pytest.mark.parametrize("settings", [
@@ -296,7 +320,7 @@ def test_q1_string_keys_on_every_lane(tables, settings):
     banded and sort lanes, and without fusion, against the CPU engine."""
     conf = C.RapidsConf({**TB.BENCH_CONF, **settings})
     got = TB.run_query(1, tables, device="cpu", conf=conf)
-    want = QUERIES[1](TD.sources(tables, 2), None).collect()
+    want = QUERIES[1](TD.sources(tables, 2), cpu_run).collect()
     compare_frames(want, got, f"q1 under {settings}")
     plan = _accelerate(1, tables, conf)
     partial = [n for n in _walk(plan) if isinstance(n, HashAggregateExec)][-1]
@@ -397,6 +421,11 @@ def test_sf10_tables_follow_dbgen_keys(sf_small):
     assert np.array_equal(arrays["l_orderkey"], li["l_orderkey"])
 
 
+#: phase 9's rows over sf_parts
+REST_ROWS = {2: 14, 11: 761, 12: 2, 13: 27, 14: 1, 15: 1, 16: 653, 17: 1,
+             18: 100, 19: 1, 20: 6, 21: 7, 22: 7}
+
+
 @pytest.fixture(scope="module")
 def sf_parts():
     """sf10_tables at scale factor 0.025: 250 suppliers, the fewest with
@@ -446,13 +475,120 @@ def test_sf10_part_and_partsupp_follow_dbgen(sf_small, sf_parts):
     assert len(hits) == len(li)
 
 
-@pytest.mark.parametrize("query", [3, 4, 5, 7, 8, 9, 10])
+#: the strings the queries past Q10 read, redrawn from a stream of
+#: their own
+REDRAWN = {"s_name", "s_address", "s_comment", "o_comment"}
+#: sha256 (first 16 hex digits) of every other column of each table,
+#: and of the golden arrays of Q3-Q10, at sf_small and at sf_parts, as
+#: the generator made them before the redraw
+KEPT_BYTES = {
+    (3, 0.002): {"region": "723dd0c02bf1cf67", "nation": "e7f72f84903e62c4",
+                 "supplier": "160268e94d7e4aff",
+                 "customer": "a732c6afcf5b60f5", "part": "873fa6945c936af2",
+                 "partsupp": "e592fc13b66e4a04",
+                 "orders": "0947d586f0d6f703",
+                 "lineitem": "157e3a1fdefd1fcf",
+                 "arrays": "7c75c153a78f4b69"},
+    (5, 0.025): {"region": "b0775f3e623f7c60", "nation": "ccb729055cc87f38",
+                 "supplier": "a77b3cb3e2a255ef",
+                 "customer": "96a7699951ff7f98", "part": "05ae82075dcb25ad",
+                 "partsupp": "1c3462c38605dadf",
+                 "orders": "4d84c31637498e26",
+                 "lineitem": "41a5339954e74bd9",
+                 "arrays": "4ba5218c1e3a5e0b"}}
+_KEPT_ARRAYS = [
+    "c_acctbal", "c_mktsegment", "c_nationkey", "l_commitdate", "l_discount",
+    "l_extendedprice", "l_orderkey", "l_partkey", "l_quantity",
+    "l_receiptdate", "l_returnflag", "l_shipdate", "l_suppkey",
+    "n_regionkey", "o_custkey", "o_orderdate", "o_orderkey",
+    "o_orderpriority", "p_green", "p_type", "ps_supplycost", "s_nationkey"]
+
+
+def _kept_bytes(tables, arrays) -> dict:
+    import hashlib
+    out = {}
+    for name, df in tables.items():
+        h = hashlib.sha256()
+        for c in df.columns:
+            if c in REDRAWN:
+                continue
+            if pd.api.types.is_numeric_dtype(df[c].dtype):
+                h.update(df[c].to_numpy().tobytes())
+            else:
+                h.update("\x1f".join(df[c].astype(str)).encode())
+        out[name] = h.hexdigest()[:16]
+    h = hashlib.sha256()
+    for k in _KEPT_ARRAYS:
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(arrays[k]).tobytes())
+    out["arrays"] = h.hexdigest()[:16]
+    return out
+
+
+def test_sf10_strings_past_q10_follow_dbgen(sf_small, sf_parts):
+    """s_name is Supplier#%09d, s_address a 10-40 character v-string,
+    s_comment 25-100 characters with dbgen's Customer ... Complaints and
+    Customer ... Recommends rows (5 of each per 10,000 suppliers, at
+    least one), o_comment 19-78 characters with 1.0% of the orders
+    matching '%special%requests%'; every other column, and the golden
+    arrays of Q3-Q10, keep their bytes."""
+    import re
+    for key, (tables, arrays) in zip(KEPT_BYTES, (sf_small, sf_parts)):
+        assert _kept_bytes(tables, arrays) == KEPT_BYTES[key]
+        supp, orders = tables["supplier"], tables["orders"]
+        n = len(supp)
+        assert list(supp["s_name"]) == [f"Supplier#{k:09d}"
+                                        for k in supp["s_suppkey"]]
+        assert supp["s_name"].is_unique
+        assert supp["s_address"].astype(str).str.len().between(10, 40).all()
+        comment = supp["s_comment"].astype(str)
+        assert comment.str.len().between(25, 100).all()
+        complaint = comment.str.contains("Customer.*Complaints", regex=True)
+        recommend = comment.str.contains("Customer.*Recommends", regex=True)
+        k = max(1, round(5 * n / 10_000))
+        assert complaint.sum() == recommend.sum() == k
+        assert np.array_equal(complaint.to_numpy(), arrays["s_complaint"])
+        text = orders["o_comment"].astype(str)
+        assert text.str.len().between(19, 78).all()
+        special = text.map(lambda x: re.search("special.*requests", x)
+                           is not None).to_numpy()
+        assert np.array_equal(special, arrays["o_special"])
+        assert 0.005 < special.mean() < 0.015
+        assert text.str.contains("requests.*special", regex=True).any()
+
+
+@pytest.mark.parametrize("query", [3, 4, 5, 7, 8, 9, 10, 2] +
+                         list(range(11, 23)))
 def test_chip_smoke_join_goldens_match_the_cpu_run(request, query):
-    """chip_smoke.py's float64 numpy goldens for Q3-Q5 and Q7-Q10 against
-    the port's run_query on the CPU, over the same small draw."""
+    """chip_smoke.py's float64 numpy goldens for every query but Q1 and
+    Q6 against the port's run_query on the CPU, over the same small draw;
+    phase 9's queries (Q2, Q11-Q22) as the phase runs them: 16
+    partitions, test.enabled, the exec tree of REST_TREES, and the
+    scalar subqueries' own results held too."""
     import chip_smoke
     tables, arrays = request.getfixturevalue(
-        "sf_small" if query < 7 else "sf_parts")
+        "sf_small" if query in (3, 4, 5) else "sf_parts")
+    if query == 2 or query > 10:
+        islands = ({C.TEST_ALLOWED_NONGPU.key: "CpuHashJoin"}
+                   if query == 21 else {})
+        conf = C.RapidsConf({**TB.BENCH_CONF, C.TEST_ENABLED.key: True,
+                             **islands})
+        sub = []
+
+        def run(plan):
+            sub.append(collect(accelerate(plan, conf, device="cpu"), conf))
+            return sub[-1]
+        plan = accelerate(QUERIES[query](
+            TD.sources(tables, TB.SF10_PARTITIONS), run), conf, device="cpu")
+        assert chip_smoke.tree_names(plan) == [
+            chip_smoke.TREE_CODES[c]
+            for c in chip_smoke.REST_TREES[query].split()]
+        got = collect(plan, conf)
+        gold = chip_smoke.golden_rest(arrays, tables, TD, TB)[query]
+        assert chip_smoke.check_rest_query(query, got, gold, sub) <= 1e-6
+        assert len(sub) == (1 if query in (11, 15, 22) else 0)
+        assert len(got) == REST_ROWS[query]
+        return
     got = TB.run_query(query, tables, device="cpu", num_partitions=4)
     if query < 7:
         gold = chip_smoke.golden_joins(arrays, TD)[query]
