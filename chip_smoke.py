@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""GPU smoke run of spark_rapids_tpu_torch: all 22 TPC-H queries at scale
-factor 10 (59,986,052 lineitem rows in phases 4-6, TPC-H spec 4.2.5) on
-one NVIDIA card.
+"""GPU smoke run of spark_rapids_tpu_torch: all 22 TPC-H queries and the
+ETL plans of the type and expression layer at scale factor 10 (59,986,052
+lineitem rows in phases 4-6, TPC-H spec 4.2.5) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -72,7 +72,28 @@ Phases, each of which raises on failure (exit code 1, no result line):
      equal to its subquery's max to the bit), each aggregate's lane
      decisions printed, the widest window_group_sums call of each query
      and every grouped_sum call held against the twins;
- 10. print the kernels line and, last, the device line.
+ 10. run the ETL plans of models/etl_bench.py over the same tables at
+     16 partitions under ETL_CONF (the three cast gates on) with
+     test.enabled, so that no plan has a CPU node: X1 casts o_orderkey,
+     o_orderdate, o_totalprice and a timestamp to STRING and back and
+     counts the mismatches (all 0), and on a sample of 65,536 orders the
+     strings must be str(int), ISO dates, Java's Double.toString and
+     'yyyy-MM-dd HH:mm:ss'; X2 derives a timestamp per order and groups
+     its fields, to_date, trunc, months_between, time_add, weekday and
+     text by the hour (counts and integers exact, months_between rtol
+     1e-12, the sample's rows too); X3 cleans the 1,500,000 customers'
+     strings, every column held against Python's string methods, and
+     counts them by split(c_phone, '-')[0] (c_nationkey + 10); X4 takes
+     var_samp, stddev_samp, first/last, narrow-cast and bitwise sums,
+     sqrt, log10 and a rounded average over lineitem by (l_returnflag,
+     l_linestatus) (var/stddev rtol 1e-9 of a two-pass float64 golden,
+     integer sums exact, float sums rtol 1e-3), stddev_samp by the
+     100,000 suppliers, and two ANSI casts: cast(l_extendedprice as
+     smallint) must raise ArithmeticError at collect, cast(l_quantity
+     as tinyint) must sum exactly; each plan new, accelerate and a cold
+     and a hot collect timed apart, plan runs, peak device memory and
+     the kernels' launches per plan printed;
+ 11. print the kernels line and, last, the device line.
 Every phase prints its wall time.  Without a CUDA device, or without
 the package beside it, it exits non-zero before printing any result.
 """
@@ -1231,6 +1252,338 @@ def lane_spy(AGG, seen):
     return undo
 
 
+#: rows of X1's and X2's row projections drawn from orders
+ETL_SAMPLE = 65_536
+
+
+def java_double(x: float) -> str:
+    """Java's Double.toString of x: the shortest round-trip digits (Python's
+    repr), plain for 1e-3 <= |x| < 1e7, 'd.dddEexp' outside."""
+    import math
+    from decimal import Decimal
+    if math.isnan(x):
+        return "NaN"
+    if math.isinf(x):
+        return "Infinity" if x > 0 else "-Infinity"
+    neg = "-" if math.copysign(1.0, x) < 0 else ""
+    if x == 0.0:
+        return neg + "0.0"
+    d = Decimal(repr(abs(x)))
+    digits = "".join(map(str, d.as_tuple().digits)).rstrip("0") or "0"
+    e = d.adjusted()
+    if -3 <= e < 7:
+        if e >= 0:
+            return (f"{neg}{digits[:e + 1].ljust(e + 1, '0')}."
+                    f"{digits[e + 1:] or '0'}")
+        return f"{neg}0.{'0' * (-e - 1)}{digits}"
+    return f"{neg}{digits[0]}.{digits[1:] or '0'}E{e}"
+
+
+def months_between_golden(days: np.ndarray, secs: np.ndarray,
+                          origin_days: int) -> np.ndarray:
+    """Spark's months_between(ts, origin at midnight) in float64 numpy,
+    rounded to 8 decimals (half to even, as the engine's round)."""
+    dt = days.astype("datetime64[D]")
+    y = dt.astype("datetime64[Y]").astype(np.int64) + 1970
+    m = dt.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    d = (dt - dt.astype("datetime64[M]")).astype(np.int64) + 1
+    last = ((dt.astype("datetime64[M]") + 1).astype("datetime64[D]")
+            - dt.astype("datetime64[M]")).astype(np.int64)
+    o = np.array([origin_days]).astype("datetime64[D]")
+    oy = int(o.astype("datetime64[Y]").astype(np.int64)[0]) + 1970
+    om = int(o.astype("datetime64[M]").astype(np.int64)[0]) % 12 + 1
+    od = int((o - o.astype("datetime64[M]")).astype(np.int64)[0]) + 1
+    olast = int(((o.astype("datetime64[M]") + 1).astype("datetime64[D]")
+                 - o.astype("datetime64[M]")).astype(np.int64)[0])
+    tod = (secs % 86400).astype(np.float64)
+    months = ((y - oy) * 12 + (m - om)).astype(np.float64)
+    frac = ((d - od).astype(np.float64) + tod / 86400.0) / 31.0
+    whole = ((d == last) & (od == olast)) | ((d == od) & (tod == 0))
+    out = np.where(whole, months, months + frac)
+    return np.round(out * 1e8) / 1e8
+
+
+def golden_etl(a: dict, tables: dict, seed: int) -> dict:
+    """float64 numpy goldens of phase 10's plans from the index arrays,
+    and the sample of orders the row projections read."""
+    gold: dict = {}
+    keys, days = a["o_orderkey"], a["o_orderdate"].astype(np.int64)
+    gold["x1"] = {"rows": len(keys)}
+    secs = days * 86400 + keys * 7919 % 86400
+    h = secs % 86400 // 3600
+    mb = months_between_golden(days, secs, 8035)
+    month_start = days.astype("datetime64[D]").astype(
+        "datetime64[M]").astype("datetime64[D]").astype(np.int64)
+    year_start = days.astype("datetime64[D]").astype(
+        "datetime64[Y]").astype("datetime64[D]").astype(np.int64)
+    n_h = np.bincount(h, minlength=24)
+    gold["x2"] = {
+        "rows": n_h,
+        "sum_minute": np.bincount(h, weights=secs % 3600 // 60,
+                                  minlength=24).astype(np.int64),
+        "sum_second": np.bincount(h, weights=secs % 60,
+                                  minlength=24).astype(np.int64),
+        "sum_wd": np.bincount(h, weights=(days + 3) % 7,
+                              minlength=24).astype(np.int64),
+        "min_mb": np.array([mb[h == i].min() for i in range(24)]),
+        "max_mb": np.array([mb[h == i].max() for i in range(24)]),
+        "min_tm": np.array([month_start[h == i].min() for i in range(24)]),
+        "max_ty": np.array([year_start[h == i].max() for i in range(24)]),
+        "max_ta": np.array([secs[h == i].max() for i in range(24)])
+        * 1_000_000 + 3_600_000_000,
+        "text_len": n_h * 19}
+    rng = np.random.default_rng([seed, 10])
+    idx = np.sort(rng.choice(len(keys), ETL_SAMPLE, replace=False))
+    gold["sample"] = {"idx": idx, "keys": keys[idx], "days": days[idx],
+                      "secs": secs[idx], "mb": mb[idx],
+                      "prices": tables["orders"]["o_totalprice"]
+                      .to_numpy()[idx]}
+    nat = a["c_nationkey"]
+    gold["x3_country"] = np.bincount(nat, minlength=25)
+    g = a["l_returnflag"].astype(np.int64) * 2 + a["l_linestatus"]
+    price, qty = a["l_extendedprice"], a["l_quantity"]
+    n = np.bincount(g, minlength=6)
+
+    def var(vals, groups, count):
+        mean = np.bincount(groups, weights=vals, minlength=len(count)) \
+            / np.maximum(count, 1)
+        dev = vals - mean[groups]
+        return np.bincount(groups, weights=dev * dev, minlength=len(count)) \
+            / np.maximum(count - 1, 1)
+    okey = a["l_orderkey"]
+    disc = price * (1.0 - a["l_discount"])
+    gold["x4"] = {
+        "rows": n, "var_price": var(price, g, n),
+        "sd_qty": np.sqrt(var(qty, g, n)),
+        "sum_ln": np.bincount(g, weights=a["l_linenumber"], minlength=6)
+        .astype(np.int64),
+        "sum_q16": np.bincount(g, weights=qty, minlength=6).astype(np.int64),
+        "sum_sqrt": np.bincount(g, weights=np.sqrt(price), minlength=6),
+        "sum_log10": np.bincount(g, weights=np.log10(price), minlength=6),
+        "sum_band": np.bincount(g, weights=okey & 255, minlength=6)
+        .astype(np.int64),
+        "max_shr": np.array([(okey[g == i] >> 3).max() if n[i] else -1
+                             for i in range(6)]),
+        "avg_disc": np.bincount(g, weights=disc, minlength=6)
+        / np.maximum(n, 1),
+        "sum_qty": int(qty.sum())}
+    supp = a["l_suppkey"]
+    ns = np.bincount(supp)
+    gold["x4_supplier"] = {"rows": ns, "sd_price": np.sqrt(var(price, supp,
+                                                               ns))}
+    return gold
+
+
+def check_etl(name: str, df, gold: dict, tables: dict) -> float:
+    """Phase 10's checks of one plan's result (see etl_phase); returns the
+    largest relative error of its float columns."""
+    def ints(col):
+        return df[col].to_numpy(np.int64)
+
+    def rel(got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        return float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                            1e-300)))
+    if name == "x1":
+        require(df.iloc[0].tolist() == [gold["rows"], 0, 0, 0, 0],
+                f"x1: rows and round-trip misses {df.iloc[0].tolist()}")
+        return 0.0
+    if name == "x1_strings":
+        s = gold
+        iso = s["days"].astype("datetime64[D]").astype(str)
+        require(list(df["k_str"]) == [str(int(k)) for k in s["keys"]],
+                "x1: the key strings are not str(int)")
+        require(list(df["d_str"]) == list(iso), "x1: the date strings")
+        require(list(df["t_str"]) == [f"{d} 00:00:00" for d in iso],
+                "x1: the timestamp strings")
+        require(list(df["p_str"]) == [java_double(float(p))
+                                      for p in s["prices"]],
+                "x1: the price strings are not Java's Double.toString")
+        return 0.0
+    if name == "x2":
+        df = df.sort_values("h", ignore_index=True)
+        require(ints("h").tolist() == list(range(24)), "x2: the hours")
+        for k in ("rows", "sum_minute", "sum_second", "sum_wd", "min_tm",
+                  "max_ty", "max_ta", "text_len"):
+            require(np.array_equal(ints(k), gold[k]), f"x2: {k}")
+        require(int(df["d_miss"].sum()) == 0, "x2: to_date != o_orderdate")
+        err = max(rel(df["min_mb"], gold["min_mb"]),
+                  rel(df["max_mb"], gold["max_mb"]))
+        require(err <= 1e-12, f"x2: months_between rel err {err}")
+        return err
+    if name == "x2_rows":
+        s = gold
+        secs, days = s["secs"], s["days"]
+        require(np.array_equal(ints("ts"), secs * 1_000_000), "x2: ts")
+        for k, want in (("h", secs % 86400 // 3600),
+                        ("mi", secs % 3600 // 60), ("s", secs % 60),
+                        ("td", days), ("wd", (days + 3) % 7),
+                        ("ta", secs * 1_000_000 + 3_600_000_000)):
+            require(np.array_equal(ints(k), want), f"x2: {k}")
+        require(list(df["t_str"]) == [
+            str(t).replace("T", " ")
+            for t in secs.astype("datetime64[s]")], "x2: the text")
+        err = rel(df["mb"], s["mb"])
+        require(err <= 1e-12, f"x2: months_between rel err {err}")
+        return err
+    if name == "x3":
+        c = tables["customer"]
+        df = df.sort_values("c_custkey", ignore_index=True)
+        require(np.array_equal(ints("c_custkey"), c["c_custkey"]),
+                "x3: the customers")
+        name_, seg = c["c_name"].astype(str), c["c_mktsegment"].astype(str)
+        phone = c["c_phone"].astype(str)
+        want = {"up": name_.str.upper(), "lo": seg.str.lower(),
+                "ic": seg.str.lower().str.title(), "tr": phone,
+                "cat": name_ + "|" + phone,
+                "rep": phone.str.replace("-", ""),
+                "lp": c["c_custkey"].astype(str).str.zfill(9),
+                "rp": seg.str.ljust(12, "."),
+                "si": phone.str.split("-").str[:2].str.join("-")}
+        for k, w in want.items():
+            require(list(df[k]) == list(w), f"x3: column {k}")
+        require((ints("loc") == 9).all(), "x3: locate('#', c_name) != 9")
+        require(np.array_equal(ints("cc"), c["c_nationkey"] + 10),
+                "x3: the country code is not c_nationkey + 10")
+        return 0.0
+    if name == "x3_country":
+        df = df.sort_values("cc", ignore_index=True)
+        require(ints("cc").tolist() == list(range(10, 35)),
+                "x3: the country codes")
+        require(np.array_equal(ints("n"), gold), "x3: customers per code")
+        return 0.0
+    if name == "x4":
+        df = df.sort_values(["l_returnflag", "l_linestatus"],
+                            ignore_index=True)
+        g = np.array(["ANR".index(f) * 2 + "FO".index(o) for f, o in
+                      zip(df["l_returnflag"], df["l_linestatus"])])
+        require(np.array_equal(ints("rows"), gold["rows"][g]), "x4: rows")
+        require(list(df["first_status"]) == list(df["l_linestatus"])
+                and list(df["last_status"]) == list(df["l_linestatus"]),
+                "x4: first/last of l_linestatus")
+        for k in ("sum_ln", "sum_q16", "sum_band", "max_shr"):
+            require(np.array_equal(ints(k), gold[k][g]), f"x4: {k}")
+        err = max(rel(df["var_price"], gold["var_price"][g]),
+                  rel(df["sd_qty"], gold["sd_qty"][g]))
+        require(err <= 1e-9, f"x4: var/stddev rel err {err}")
+        sums = max(rel(df["sum_sqrt"], gold["sum_sqrt"][g]),
+                   rel(df["sum_log10"], gold["sum_log10"][g]))
+        require(sums <= 1e-3, f"x4: float sums rel err {sums}")
+        avg = df["avg_disc"].to_numpy(np.float64)
+        require(np.all(np.abs(avg - gold["avg_disc"][g]) <= 0.005 + 1e-6)
+                and np.allclose(avg * 100, np.round(avg * 100)),
+                "x4: round(avg, 2)")
+        return max(err, sums)
+    if name == "x4_supplier":
+        df = df.sort_values("l_suppkey", ignore_index=True)
+        k = ints("l_suppkey")
+        require(np.array_equal(ints("rows"), gold["rows"][k]),
+                "x4: rows per supplier")
+        err = rel(df["sd_price"], gold["sd_price"][k])
+        require(len(df) == 100_000 and err <= 1e-9,
+                f"x4: stddev by supplier, {len(df)} rows, rel err {err}")
+        return err
+    raise KeyError(name)
+
+
+def etl_phase(torch, dev, tables: dict, gold: dict, GW, K) -> dict:
+    """Phase 10: the ETL plans of models/etl_bench.py at SF10 over
+    `tables`, 16 partitions, ETL_CONF with test.enabled (no CPU node in
+    any plan): each a new plan, accelerate timed apart from its two
+    collects (cold, then hot on the same plan), plan runs counted, peak
+    device memory and the kernels' launches per plan, and the results
+    held by check_etl; then the two ANSI casts."""
+    from collections import Counter
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.exec.base import TpuExec
+    from spark_rapids_tpu_torch.models import etl_bench as EB
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
+    M = EB.port_classes()
+    conf = C.RapidsConf({**EB.ETL_CONF, C.TEST_ENABLED.key: True})
+    n = TB.SF10_PARTITIONS
+    sample = TD.sources({"orders": tables["orders"].iloc[
+        gold["sample"]["idx"]].reset_index(drop=True)}, n)["orders"]
+    plans = {
+        "x1": (lambda: EB.x1_plan(M, TD.sources(tables, n)), gold["x1"]),
+        "x1_strings": (lambda: EB.x1_strings_plan(M, sample),
+                       gold["sample"]),
+        "x2": (lambda: EB.x2_plan(M, TD.sources(tables, n)), gold["x2"]),
+        "x2_rows": (lambda: EB.x2_rows_plan(M, sample), gold["sample"]),
+        "x3": (lambda: EB.x3_plan(M, TD.sources(tables, n)), None),
+        "x3_country": (lambda: EB.x3_country_plan(M, TD.sources(tables, n)),
+                       gold["x3_country"]),
+        "x4": (lambda: EB.x4_plan(M, TD.sources(tables, n)), gold["x4"]),
+        "x4_supplier": (lambda: EB.x4_supplier_plan(
+            M, TD.sources(tables, n)), gold["x4_supplier"]),
+    }
+    out = {"seconds": {}, "launches": {}, "peak_gb": {}, "rel": 0.0}
+    for name, (build, g) in plans.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = accelerate(build(), conf, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        require(isinstance(plan, TpuExec), f"{name}: a CPU node")
+        times, runs = [], []
+        GW.window_group_sums.launches = 0
+        K.grouped_sum.launches = K.q1_fused.launches = 0
+        for _ in ("cold", "hot"):
+            spied: Counter = Counter()
+            undo = collect_spy(spied)
+            ta = time.perf_counter()
+            try:
+                df = collect(plan, conf)
+            finally:
+                undo()
+            times.append(time.perf_counter() - ta)
+            runs.append(spied["executions"])
+        launches = {"q1_fused": K.q1_fused.launches,
+                    "grouped_sum": K.grouped_sum.launches,
+                    "window_group_sums": GW.window_group_sums.launches}
+        err = check_etl(name, df, g, tables)
+        out["rel"] = max(out["rel"], err)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        out["seconds"][name] = {"accelerate": t1 - t0, "cold": times[0],
+                                "hot": times[1]}
+        out["launches"][name] = launches
+        out["peak_gb"][name] = peak
+        print(f"etl {name} SF10: accelerate {t1 - t0:.3f} s (with the "
+              f"upload), collect cold {times[0]:.3f} s / hot {times[1]:.3f}"
+              f" s (plan runs {runs[0]} / {runs[1]}), {len(df)} rows, peak "
+              f"{peak:.2f} GiB, max rel err {err:.3g}, launches {launches}",
+              flush=True)
+        del plan, df
+    # ANSI: an overflowing cast raises at collect, one in range sums
+    for column, to, raises in (("l_extendedprice", M.T.INT16, True),
+                               ("l_quantity", M.T.INT8, False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = accelerate(EB.x4_ansi_plan(M, TD.sources(tables, n), column,
+                                          to), conf, device=dev)
+        raised = None
+        try:
+            df = collect(plan, conf)
+        except ArithmeticError as e:
+            raised = str(e)
+        want = (f"ANSI cast float64 -> {to} overflow "
+                f"(spark.sql.ansi.enabled semantics)")
+        if raises:
+            require(raised == want, f"ANSI {column} -> {to}: {raised!r}")
+        else:
+            require(raised is None and int(df["total"][0]) ==
+                    gold["x4"]["sum_qty"], f"ANSI {column} -> {to}")
+        out["seconds"][f"ansi_{column}"] = time.perf_counter() - t0
+        print(f"etl ANSI cast({column} as {to}) SF10: "
+              f"{'raised ' + repr(raised) if raised else 'in range'}, "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        del plan
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1576,6 +1929,10 @@ def main() -> int:
     gold_rest = golden_rest(arrays, tables, TD, TB)
     print(f"float64 goldens: Q3-Q10 {t1 - t0:.1f} s, Q2 and Q11-Q22 "
           f"{time.perf_counter() - t1:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    gold_etl = golden_etl(arrays, tables, args.seed)
+    print(f"phase 10 goldens: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     green = arrays["p_green"]
     del arrays
     # one plan per query in phases 7 and 8 (their second, hot plan went
@@ -1618,7 +1975,6 @@ def main() -> int:
         torch, dev, tables, gold_rest, GW, K, check=check_rest_query,
         trees={q: [TREE_CODES[c] for c in t.split()]
                for q, t in REST_TREES.items()})
-    del tables
     print(f"Q15's aggregate lanes on the card: "
           f"{rest['agg_lanes']['q15_hot']}; its revenue equals the "
           f"subquery's max to the bit", flush=True)
@@ -1644,6 +2000,11 @@ def main() -> int:
             "grouped_sum launched in a query whose call was not checked")
     lap("9 (Q2 and Q11-Q22)")
 
+    # 10. the type and expression layer: ETL plans over the same tables
+    etl = etl_phase(torch, dev, tables, gold_etl, GW, K)
+    del tables, gold_etl
+    lap("10 (ETL expressions X1-X4)")
+
     kernels["q1_fused"]["launches"] = step_launches
     kernels["grouped_sum"]["launches"] = engine_launches["grouped_sum"]
     kernels["window_group_sums"]["launches"] = \
@@ -1653,6 +2014,9 @@ def main() -> int:
     for name in ("grouped_sum", "window_group_sums"):
         kernels[name]["join_queries_launches"] = {
             **joins[name], **parts[name], **rest[name]}
+    for name in kernels:
+        kernels[name]["etl_launches"] = {
+            p: v[name] for p, v in etl["launches"].items() if v[name]}
     case_keys = ("query", "shape", "launches", "max_abs_err",
                  "max_rel_err", "ms", "device_ms", "device_ms_by",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1666,7 +2030,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "planner_q1_launches",
-            "join_queries_launches", "join_cases")
+            "join_queries_launches", "join_cases", "etl_launches")
     line = {"kernels": [{k: v[k] for k in keys if k in v}
                         for v in kernels.values()]}
     print(json.dumps(line), flush=True)

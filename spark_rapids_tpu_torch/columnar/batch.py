@@ -150,6 +150,10 @@ class ColumnarBatch:
             vals, validity = c.to_numpy(n)
             if f.dtype.is_string:
                 out[f.name] = pd.Series(list(vals), dtype=object)
+            elif f.dtype.id == T.TypeId.TIMESTAMP_US:
+                s = pd.Series(vals.astype("datetime64[us]"))
+                s[~validity] = pd.NaT
+                out[f.name] = s
             elif validity.all():
                 out[f.name] = pd.Series(vals)
             else:

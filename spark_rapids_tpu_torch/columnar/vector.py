@@ -132,7 +132,10 @@ class ColumnVector:
             data, lengths = strings_to_bytes(values, validity[:n])
             return ColumnVector(dtype, _upload(data, cap, dev), valid_t,
                                 lengths=_upload(lengths, cap, dev))
-        host = values.astype(dtype.storage_dtype, copy=False)
+        if values.dtype.kind == "M":  # datetime64 -> int64 micros
+            host = values.astype("datetime64[us]").astype(np.int64)
+        else:
+            host = values.astype(dtype.storage_dtype, copy=False)
         data = _upload(host, cap, dev)
         narrow = None
         if dtype.id == T.TypeId.INT64:
@@ -149,14 +152,9 @@ class ColumnVector:
         object array of str (None for nulls)."""
         validity = self.validity[:num_rows].cpu().numpy()
         if self.dtype.is_string:
-            raw = self.data[:num_rows].cpu().numpy()
-            lens = self.lengths[:num_rows].cpu().numpy()
-            out = np.empty(num_rows, object)
-            for i in range(num_rows):
-                out[i] = (raw[i, :lens[i]].tobytes().decode("utf-8",
-                                                           "replace")
-                          if validity[i] else None)
-            return out, validity
+            return _decode_strings(self.data[:num_rows],
+                                   self.lengths[:num_rows], validity), \
+                validity
         return self.data[:num_rows].cpu().numpy(), validity
 
     def _map(self, fn) -> "ColumnVector":
@@ -185,6 +183,33 @@ class ColumnVector:
         if index_valid is not None:
             out.validity = out.validity & index_valid
         return out
+
+
+def _decode_strings(data: torch.Tensor, lengths: torch.Tensor,
+                    validity: np.ndarray) -> np.ndarray:
+    """Object array of str (None for nulls).  The bytes past each length
+    are zeroed on the device and the rows read back as fixed-width byte
+    strings (numpy drops their trailing zeros), each decoded on the host;
+    a row with a zero byte of its own (which that read would drop at its
+    end) takes the per-row slice."""
+    n, cc = data.shape
+    out = np.empty(n, object)
+    if n == 0:
+        return out
+    inside = torch.arange(cc, device=data.device)[None, :] < \
+        lengths[:, None]
+    clean = torch.where(inside, data, 0)
+    if cc and not bool(((clean == 0) & inside).any()):
+        raw = np.ascontiguousarray(clean.cpu().numpy()).view(f"S{cc}")
+        out[:] = [b.decode("utf-8", "replace")
+                  for b in raw.reshape(n).astype(object)]
+    else:
+        raw = clean.cpu().numpy()
+        lens = lengths.cpu().numpy()
+        for i in range(n):
+            out[i] = raw[i, :lens[i]].tobytes().decode("utf-8", "replace")
+    out[~validity] = None
+    return out
 
 
 def gather_columns_grouped(columns, order, valid):
@@ -296,7 +321,8 @@ def gather_narrowest(c: ColumnVector, indices: torch.Tensor,
     data and its shadow, if it has one.  Indices are clamped into
     range."""
     idx = indices.clamp(0, c.capacity - 1).to(torch.int64)
-    if c.narrow is not None and c.dtype.id == T.TypeId.INT64:
+    if c.narrow is not None and c.dtype.id in (T.TypeId.INT64,
+                                               T.TypeId.TIMESTAMP_US):
         nd = c.narrow[idx]
         return ColumnVector(c.dtype, nd.to(c.data.dtype), valid, nd)
     narrow = None if c.narrow is None else c.narrow[idx]

@@ -80,6 +80,24 @@ MESH_EXCHANGE_ENABLED = conf(
     "is active.  Not ported yet: the port has no active mesh, so the "
     "local exchange lane runs.")
 
+# --- expressions ------------------------------------------------------------
+INCOMPATIBLE_OPS = conf(
+    "spark.rapids.sql.incompatibleOps.enabled", False,
+    "Enable operators producing results that differ slightly from Spark "
+    "(the transcendental functions, whose last bit may differ from the "
+    "JVM's).")
+CASTS_FLOAT_TO_STRING = conf(
+    "spark.rapids.sql.castFloatToString.enabled", False,
+    "Enable the float->string cast (formatting may differ from Java's at "
+    "extreme exponents).")
+CASTS_STRING_TO_FLOAT = conf(
+    "spark.rapids.sql.castStringToFloat.enabled", False,
+    "Enable the string->float cast (the parse may differ by 1 ulp from "
+    "Java's).")
+CASTS_STRING_TO_TS = conf(
+    "spark.rapids.sql.castStringToTimestamp.enabled", False,
+    "Enable the string->timestamp cast (canonical forms only).")
+
 # --- aggregation ------------------------------------------------------------
 VARIABLE_FLOAT_AGG = conf(
     "spark.rapids.sql.variableFloatAgg.enabled", False,

@@ -16,7 +16,20 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.vector import resolve_device
 from spark_rapids_tpu_torch.exec.base import (TpuExec, UnaryExecBase,
                                               bind_exprs, make_eval_context)
-from spark_rapids_tpu_torch.exprs.base import Expression, output_name
+from spark_rapids_tpu_torch.exprs.base import (EvalContext, Expression,
+                                               output_name)
+
+
+def _register_ansi(ctx: EvalContext) -> tuple:
+    """The ANSI expression checks an evaluation raised (`ctx.
+    pending_checks`), registered as fatal deferred checks."""
+    from spark_rapids_tpu_torch.utils import checks as CK
+    return tuple(
+        CK.register(CK.BatchCheck(
+            flag, label,
+            error=lambda label=label: ArithmeticError(
+                f"{label} (spark.sql.ansi.enabled semantics)")))
+        for label, flag in ctx.pending_checks)
 
 
 class ProjectExec(UnaryExecBase):
@@ -41,7 +54,8 @@ class ProjectExec(UnaryExecBase):
                                     batch.num_rows_i32, batch.sparse)
             out_cols = [e.eval(ctx) for e in self._bound]
             yield ColumnarBatch(self._schema, out_cols, batch._rows,
-                                batch.checks, batch.sparse)
+                                batch.checks + _register_ansi(ctx),
+                                batch.sparse)
 
 
 class FilterExec(UnaryExecBase):
@@ -68,7 +82,8 @@ class FilterExec(UnaryExecBase):
             pred = self._bound.eval(ctx)
             keep = pred.validity & pred.data.to(torch.bool) & ctx.row_mask
             yield ColumnarBatch(self._schema, batch.columns,
-                                keep.sum().to(torch.int32), batch.checks,
+                                keep.sum().to(torch.int32),
+                                batch.checks + _register_ansi(ctx),
                                 sparse=keep)
 
 

@@ -1,5 +1,6 @@
 """Aggregate functions (port of spark_rapids_tpu/exprs/aggregates.py: Sum,
-Count/CountStar, Average, Min and Max).
+Count/CountStar, Average/Avg, Min, Max, First, Last, VarianceSamp and
+StddevSamp).
 
 Aggregation over the sort lane is segment ops over rows sorted by group:
 the exec sorts rows by key, marks segment starts (`bounds`), and each
@@ -19,10 +20,14 @@ from spark_rapids_tpu_torch.columnar.vector import ColumnVector
 from spark_rapids_tpu_torch.exprs.base import Expression
 
 #: the identity of min / max per integral type: what a masked row holds
-_INT_MIN = {T.TypeId.INT32: -(2 ** 31), T.TypeId.INT64: -(2 ** 63),
-            T.TypeId.DATE32: -(2 ** 31), T.TypeId.BOOL: 0}
-_INT_MAX = {T.TypeId.INT32: 2 ** 31 - 1, T.TypeId.INT64: 2 ** 63 - 1,
-            T.TypeId.DATE32: 2 ** 31 - 1, T.TypeId.BOOL: 1}
+_INT_MIN = {T.TypeId.INT8: -(2 ** 7), T.TypeId.INT16: -(2 ** 15),
+            T.TypeId.INT32: -(2 ** 31), T.TypeId.INT64: -(2 ** 63),
+            T.TypeId.DATE32: -(2 ** 31), T.TypeId.TIMESTAMP_US: -(2 ** 63),
+            T.TypeId.BOOL: 0}
+_INT_MAX = {T.TypeId.INT8: 2 ** 7 - 1, T.TypeId.INT16: 2 ** 15 - 1,
+            T.TypeId.INT32: 2 ** 31 - 1, T.TypeId.INT64: 2 ** 63 - 1,
+            T.TypeId.DATE32: 2 ** 31 - 1, T.TypeId.TIMESTAMP_US: 2 ** 63 - 1,
+            T.TypeId.BOOL: 1}
 
 def _segscan(combine_vals, bounds, *vals):
     """Segmented inclusive scan over rows SORTED by group: the carry
@@ -458,3 +463,142 @@ class Min(_MinMax):
 
 class Max(_MinMax):
     _is_min = False
+
+
+@dataclasses.dataclass
+class _FirstLast(AggregateFunction):
+    """The value of the first (last) row of each group; with
+    ignore_nulls the first (last) non-null one, else the raw row's,
+    null or not."""
+    child: Expression
+    ignore_nulls: bool = False
+
+    def result_type(self, schema):
+        return self.child.data_type(schema)
+
+    def intermediate_types(self, schema):
+        return (self.child.data_type(schema),)
+
+    def update_scans(self, ctx, scans, inputs):
+        (v,) = inputs
+
+        def gen():
+            cap = ctx.capacity
+            ok = ctx.row_valid & v.validity if self.ignore_nulls \
+                else ctx.row_valid
+            rows = torch.arange(cap, dtype=torch.int32, device=ctx.device)
+            if self._is_first:
+                hp = scans.seg("min", torch.where(ok, rows, cap))
+            else:
+                hp = scans.seg("max", torch.where(ok, rows, -1))
+            hh = scans.seg("add", ok.to(torch.int32))
+            yield
+            has = scans.result(hh) > 0
+            idx = torch.where(has, scans.result(hp), 0)
+            return (v.gather(idx, has),)
+        return gen()
+
+    def merge_scans(self, ctx, scans, partials):
+        return self.update_scans(ctx, scans, partials)
+
+    def evaluate(self, partials, schema):
+        return partials[0]
+
+
+class First(_FirstLast):
+    _is_first = True
+
+
+class Last(_FirstLast):
+    _is_first = False
+
+
+def Avg(e: Expression) -> Average:
+    return Average(e)
+
+
+@dataclasses.dataclass
+class VarianceSamp(AggregateFunction):
+    """Spark's var_samp -> double.  Intermediates (count, mean, m2) with
+    a Welford/Chan merge, Spark's CentralMomentAgg layout, in two scan
+    rounds: the sums and counts, then the squares about the group mean.
+    Null for a group with fewer than two non-null values."""
+    child: Expression
+
+    def result_type(self, schema):
+        return T.FLOAT64
+
+    def intermediate_types(self, schema):
+        return (T.INT64, T.FLOAT64, T.FLOAT64)
+
+    num_intermediates = 3
+
+    def result_from_intermediates(self, inter):
+        return T.FLOAT64
+
+    @staticmethod
+    def _per_row(group_vals, ctx):
+        idx = ctx.seg_ids.to(torch.int64).clamp(0, ctx.out_capacity - 1)
+        return group_vals[idx]
+
+    def update_scans(self, ctx, scans, inputs):
+        (v,) = inputs
+
+        def gen():
+            ok = v.validity & ctx.row_valid
+            x = torch.where(ok, v.data.to(torch.float64), 0.0)
+            hs = scans.seg("add", x)
+            hc = scans.seg("add", ok.to(torch.int32))
+            yield
+            c = scans.result(hc).to(torch.int64)
+            mean = scans.result(hs) / torch.clamp(c, min=1).to(
+                torch.float64)
+            d = torch.where(ok, x - self._per_row(mean, ctx), 0.0)
+            hm = scans.seg("add", d * d)
+            yield
+            return (ColumnVector(T.INT64, c, _always(ctx)),
+                    ColumnVector(T.FLOAT64, mean, _always(ctx)),
+                    ColumnVector(T.FLOAT64, scans.result(hm), _always(ctx)))
+        return gen()
+
+    def merge_scans(self, ctx, scans, partials):
+        c_p, mean_p, m2_p = partials
+
+        def gen():
+            ok = ctx.row_valid
+            cr = torch.where(ok, c_p.data, 0)
+            crf = cr.to(torch.float64)
+            hc = scans.seg("add", cr)
+            hs = scans.seg("add", torch.where(ok, mean_p.data * crf, 0.0))
+            yield
+            c = scans.result(hc)
+            mean = scans.result(hs) / torch.clamp(c, min=1).to(
+                torch.float64)
+            # Chan: m2 = sum_i(m2_i + c_i * (mean_i - mean)^2)
+            delta = mean_p.data - self._per_row(mean, ctx)
+            contrib = torch.where(ok, m2_p.data + crf * delta * delta, 0.0)
+            hm = scans.seg("add", contrib)
+            yield
+            return (ColumnVector(T.INT64, c, _always(ctx)),
+                    ColumnVector(T.FLOAT64, mean, _always(ctx)),
+                    ColumnVector(T.FLOAT64, scans.result(hm), _always(ctx)))
+        return gen()
+
+    def _var(self, partials):
+        c, _mean, m2 = partials
+        ok = c.data > 1
+        denom = torch.where(ok, c.data.to(torch.float64) - 1.0, 1.0)
+        return m2.data / denom, ok
+
+    def evaluate(self, partials, schema):
+        var, ok = self._var(partials)
+        return ColumnVector(T.FLOAT64, var, ok)
+
+
+@dataclasses.dataclass
+class StddevSamp(VarianceSamp):
+    """Spark's stddev_samp -> double: the square root of var_samp."""
+
+    def evaluate(self, partials, schema):
+        var, ok = self._var(partials)
+        return ColumnVector(T.FLOAT64, torch.sqrt(var), ok)

@@ -21,11 +21,18 @@ from spark_rapids_tpu_torch.columnar.vector import (ColumnVector,
 @dataclasses.dataclass(eq=False)
 class EvalContext:
     """Per-batch evaluation context: the input columns, the static
-    capacity, the row count and the valid-row mask (all on one device)."""
+    capacity, the row count and the valid-row mask (all on one device).
+
+    `pending_checks` collects (label, device bool scalar) pairs that ANSI
+    expressions raise while evaluating (True = error); the exec registers
+    them as fatal deferred checks (utils/checks.py), read at the collect
+    boundary, where a true one raises ArithmeticError (Spark's ANSI
+    runtime errors)."""
     columns: list[ColumnVector]
     capacity: int
     num_rows: Any  # int32 device scalar
     row_mask: torch.Tensor  # bool[capacity]
+    pending_checks: list = dataclasses.field(default_factory=list)
     #: per-evaluation memo of common-subexpression slots
     #: (exprs/simplify.py SharedExpr)
     shared: dict = dataclasses.field(default_factory=dict)
@@ -278,6 +285,13 @@ class BinaryExpression(Expression):
 
     def __repr__(self):
         return f"{type(self).__name__}({self.left!r}, {self.right!r})"
+
+
+def true_divide(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d rounded once, as IEEE division is.  Torch's CUDA division by
+    a Python number multiplies by its reciprocal (two roundings), so the
+    divisor goes in as a device tensor."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
 
 
 def numeric_result_type(schema, *exprs) -> T.DataType:

@@ -1,6 +1,6 @@
 """Vectorized civil-calendar arithmetic on the proleptic Gregorian
-calendar (port of spark_rapids_tpu/exprs/datetime_utils.py, cut to the
-DATE32 functions: the port has no TIMESTAMP type yet).
+calendar (port of spark_rapids_tpu/exprs/datetime_utils.py): DATE32
+is int32 days and TIMESTAMP_US int64 microseconds since the epoch.
 
 Howard Hinnant's days<->civil algorithms in int64 tensor ops, so a date
 field is a handful of elementwise kernels on the batch's own device.
@@ -11,6 +11,9 @@ wrong there).
 from __future__ import annotations
 
 import torch
+
+MICROS_PER_SECOND = 1_000_000
+MICROS_PER_DAY = 86_400 * MICROS_PER_SECOND
 
 
 def floor_div(a, b):
@@ -73,3 +76,21 @@ def last_day_of_month(days: torch.Tensor) -> torch.Tensor:
     nm = torch.where(m == 12, 1, m + 1)
     first_next = ymd_to_days(ny, nm, torch.ones_like(nm))
     return (first_next - 1).to(torch.int32)
+
+
+def micros_to_date_days(micros: torch.Tensor) -> torch.Tensor:
+    """Timestamp micros -> date days (floors, so instants before the
+    epoch fall on the day they belong to)."""
+    return floor_div(micros.to(torch.int64), MICROS_PER_DAY).to(torch.int32)
+
+
+def micros_time_of_day(micros: torch.Tensor):
+    """-> int64 (hour, minute, second, microsecond), all non-negative."""
+    micros = micros.to(torch.int64)
+    tod = micros - floor_div(micros, MICROS_PER_DAY) * MICROS_PER_DAY
+    sec = floor_div(tod, MICROS_PER_SECOND)
+    us = tod - sec * MICROS_PER_SECOND
+    h = floor_div(sec, 3600)
+    mnt = floor_div(sec - h * 3600, 60)
+    s = sec - h * 3600 - mnt * 60
+    return h, mnt, s, us

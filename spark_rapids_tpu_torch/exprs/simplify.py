@@ -3,7 +3,21 @@ spark_rapids_tpu/exprs/simplify.py that plan/fusion.py calls).
 
 * `simplify`: bottom-up peephole rewrites of one tree: boolean-literal
   folds (`And(x, false)` is false under Kleene logic even when x is
-  null), double negation, and literal integer comparison folding.
+  null), double negation, literal integer comparison folding, the
+  collapse of a double or identity cast (never an ANSI one), and a
+  presence test on a find or locate position rewritten to Contains (or
+  StartsWith), which needs the match matrix alone, not the character
+  positions.  With F a 0-based find (-1 when absent, the UDF
+  compiler's `Subtract(StringLocate(sub, s), 1)`) and L a 1-based
+  locate (0 when absent), both over a literal with start 1:
+
+    F >= 0, F > -1       ->  Contains(s, sub)
+    F < 0, F <= -1, F == -1   ->  Not(Contains(s, sub))
+    F == 0               ->  StartsWith(s, sub)
+    L >= 1, L > 0        ->  Contains(s, sub)
+    L < 1, L <= 0, L == 0     ->  Not(Contains(s, sub))
+    L == 1               ->  StartsWith(s, sub)
+
   Fusion runs it over a stage's COMPOSED expressions, so a constant
   introduced at one operator and consumed at another folds away.
 * `dedup_common_subexprs`: across a list of bound trees (a fused stage's
@@ -19,7 +33,9 @@ import dataclasses
 import operator
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.exprs import arithmetic as A
 from spark_rapids_tpu_torch.exprs import predicates as P
+from spark_rapids_tpu_torch.exprs import string_fns as S
 from spark_rapids_tpu_torch.exprs.base import (
     Alias, BoundReference, Expression, Literal, fingerprint)
 
@@ -43,8 +59,79 @@ _CMP_OPS = {P.GreaterThan: operator.gt, P.GreaterThanOrEqual: operator.ge,
             P.EqualTo: operator.eq}
 
 
+def _as_find(e):
+    """(string, pattern, absent value) of F or L over a literal pattern
+    with start 1, else None."""
+    if isinstance(e, A.Subtract) and _int_literal(e.right) == 1 \
+            and isinstance(e.left, S.StringLocate):
+        loc, absent = e.left, -1
+    elif isinstance(e, S.StringLocate):
+        loc, absent = e, 0
+    else:
+        return None
+    if not isinstance(loc.substr, Literal) or loc.substr.value is None:
+        return None
+    if loc.start is not None and _int_literal(loc.start) != 1:
+        return None
+    return loc.child, loc.substr, absent
+
+
+_FLIP = {P.GreaterThan: P.LessThan, P.GreaterThanOrEqual: P.LessThanOrEqual,
+         P.LessThan: P.GreaterThan, P.LessThanOrEqual: P.GreaterThanOrEqual,
+         P.EqualTo: P.EqualTo}
+
+
+def _simplify_cast(e: Expression) -> Expression:
+    """cast(cast(x as t) as t) -> cast(x as t); a cast of a column to
+    its own type -> the column.  An ANSI cast carries its overflow check
+    and is kept."""
+    from spark_rapids_tpu_torch.exprs.cast import Cast
+    if e.ansi:
+        return e
+    c = e.child
+    if isinstance(c, Cast) and not c.ansi and c.to == e.to:
+        return Cast(c.child, e.to)
+    if isinstance(c, BoundReference) and c.dtype == e.to:
+        return c
+    return e
+
+
+def _simplify_find(e: Expression) -> Expression:
+    """A comparison of a find or locate position with an integer
+    literal that only tests presence (table in the module docstring)."""
+    cls = type(e)
+    lhs, rhs = e.left, e.right
+    k = _int_literal(rhs)
+    if k is None:
+        # the literal on the left: flip into `position CMP k`
+        k = _int_literal(lhs)
+        if k is None:
+            return e
+        lhs, cls = rhs, _FLIP[cls]
+    m = _as_find(lhs)
+    if m is None:
+        return e
+    s, sub, absent = m
+    contains = S.Contains(s, sub)
+    # a position is >= absent + 1 when present, == absent when missing
+    if cls in (P.GreaterThan, P.GreaterThanOrEqual):
+        if (k if cls is P.GreaterThanOrEqual else k + 1) == absent + 1:
+            return contains
+    elif cls in (P.LessThan, P.LessThanOrEqual):
+        if (k if cls is P.LessThanOrEqual else k - 1) == absent:
+            return P.Not(contains)
+    elif cls is P.EqualTo:
+        if k == absent:
+            return P.Not(contains)
+        if k == absent + 1:
+            return S.StartsWith(s, sub)
+    return e
+
+
 def _simplify_one(e: Expression) -> Expression:
     cls = type(e)
+    if cls.__name__ == "Cast":
+        return _simplify_cast(e)
     if cls is P.Not:
         if isinstance(e.child, P.Not):
             return e.child.child
@@ -64,6 +151,7 @@ def _simplify_one(e: Expression) -> Expression:
         lk, rk = _int_literal(e.left), _int_literal(e.right)
         if lk is not None and rk is not None:
             return Literal(bool(_CMP_OPS[cls](lk, rk)), T.BOOL)
+        return _simplify_find(e)
     return e
 
 

@@ -383,7 +383,8 @@ def sf10_tables(seed: int, sf: float = 10.0
     quantities and discounts, c_acctbal, ps_supplycost, and the codes
     of c_mktsegment (into `tpch_data.SEGMENTS`), o_orderpriority (into
     `tpch_data.PRIORITIES`), p_type (TYPE_S1 x TYPE_S2 x TYPE_S3 in
-    order) and l_returnflag (A/N/R = 0/1/2), with the p_name mask
+    order), l_returnflag (A/N/R = 0/1/2) and l_linestatus (F/O = 0/1),
+    with l_linenumber, the p_name mask
     p_green of the parts whose name holds the word green, the o_comment
     mask o_special of Q13's '%special%requests%' and the s_comment mask
     s_complaint of Q16's '%Customer%Complaints%'."""
@@ -505,7 +506,8 @@ def sf10_tables(seed: int, sf: float = 10.0
         "o_orderdate": o_orderdate, "o_orderpriority": o_priority,
         "o_special": o_special, "s_complaint": s_complaint,
         **{k: l_arrays[k] for k in (
-            "l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
-            "l_extendedprice", "l_discount", "l_returnflag", "l_shipdate",
-            "l_commitdate", "l_receiptdate")}}
+            "l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
+            "l_quantity", "l_extendedprice", "l_discount", "l_returnflag",
+            "l_linestatus", "l_shipdate", "l_commitdate",
+            "l_receiptdate")}}
     return tables, arrays

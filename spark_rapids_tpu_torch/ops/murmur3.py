@@ -84,9 +84,11 @@ def hash_column(col: ColumnVector, seed: torch.Tensor) -> torch.Tensor:
     dt = col.dtype
     if dt.is_string:
         h = _hash_string(col, seed)
-    elif dt.id in (T.TypeId.BOOL, T.TypeId.INT32, T.TypeId.DATE32):
+    elif dt.id in (T.TypeId.BOOL, T.TypeId.INT8, T.TypeId.INT16,
+                   T.TypeId.INT32, T.TypeId.DATE32):
+        # Spark hashes a byte or a short as its sign-extended int
         h = hash_int(col.data.to(torch.int64) & _M32, seed)
-    elif dt.id == T.TypeId.INT64:
+    elif dt.id in (T.TypeId.INT64, T.TypeId.TIMESTAMP_US):
         # an int32 shadow sign-extends to the same two words
         src = col.narrow if col.narrow is not None else col.data
         h = hash_long(*_long_words(src), seed)

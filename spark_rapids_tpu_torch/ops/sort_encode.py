@@ -68,12 +68,18 @@ def encode_key_bits(col: ColumnVector, ascending: bool = True,
     elif dt.id == T.TypeId.BOOL:
         enc = (valid & col.data).to(torch.int64)
         keys.append((enc if ascending else 1 - enc, 1))
+    elif dt.id in (T.TypeId.INT8, T.TypeId.INT16):
+        bits = 8 if dt.id == T.TypeId.INT8 else 16
+        enc = torch.where(valid, col.data.to(torch.int64), 0) + \
+            (1 << (bits - 1))
+        keys.append((enc if ascending else ((1 << bits) - 1) - enc, bits))
     elif dt.id in (T.TypeId.INT32, T.TypeId.DATE32):
         keys.append(_enc32(torch.where(valid, col.data, 0), ascending))
     elif col.narrow is not None:
-        # int64 whose values fit int32: a 32-bit key packs with others
+        # int64 or timestamp whose values fit int32: a 32-bit key packs
+        # with others
         keys.append(_enc32(torch.where(valid, col.narrow, 0), ascending))
-    else:  # int64: signed order; ~x reverses it without overflow
+    else:  # int64, timestamp: signed order; ~x reverses it exactly
         x = torch.where(valid, col.data, 0)
         keys.append((x if ascending else ~x, None))
     return keys
@@ -221,6 +227,10 @@ def _key_bit_widths(dtype: T.DataType, has_narrow: bool,
         out += [1, None]
     elif dtype.id == T.TypeId.BOOL:
         out += [1]
+    elif dtype.id == T.TypeId.INT8:
+        out += [8]
+    elif dtype.id == T.TypeId.INT16:
+        out += [16]
     elif dtype.id in (T.TypeId.INT32, T.TypeId.DATE32) or has_narrow:
         out += [32]
     else:

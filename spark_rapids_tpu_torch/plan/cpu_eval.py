@@ -1,13 +1,18 @@
 """Host (CPU) expression interpreter over pandas (port of
-spark_rapids_tpu/plan/cpu_eval.py, cut to the expression kinds the port
-has).
+spark_rapids_tpu/plan/cpu_eval.py).
 
 It evaluates the same `Expression` trees with pandas and numpy under
 Spark semantics (null propagation, Kleene and/or, x / 0 is null).  It is both the
 engine of a node the planner leaves on the CPU and the golden for the
 CPU tests.  Column storage matches the device model: DATE32 is int32
-days.  Nulls ride pandas nullable dtypes (Int64/Float64/boolean, object
-for strings).
+days, TIMESTAMP_US int64 microseconds.  Nulls ride pandas nullable
+dtypes (Int64/Float64/boolean, object for strings).
+
+An expression without an entry of its own here (the timestamp fields,
+the math and bitwise functions, the rest of the string functions) runs
+as the reference's do: its columnar implementation over the frame's
+columns as CPU tensors (`_columnar_on_host`), so the CPU engine takes
+every expression the planner does.
 """
 from __future__ import annotations
 
@@ -19,11 +24,14 @@ from spark_rapids_tpu_torch.exprs import base as E
 
 _NULLABLE = {
     T.TypeId.BOOL: "boolean",
+    T.TypeId.INT8: "Int8",
+    T.TypeId.INT16: "Int16",
     T.TypeId.INT32: "Int32",
     T.TypeId.INT64: "Int64",
     T.TypeId.FLOAT32: "Float32",
     T.TypeId.FLOAT64: "Float64",
     T.TypeId.DATE32: "Int32",
+    T.TypeId.TIMESTAMP_US: "Int64",
 }
 
 
@@ -41,9 +49,36 @@ def cpu_eval(expr: E.Expression, df: pd.DataFrame,
     df."""
     fn = _DISPATCH.get(type(expr).__name__)
     if fn is None:
+        return _columnar_on_host(expr, df, schema)
+    return fn(expr, df, schema)
+
+
+def _columnar_on_host(expr, df, schema) -> pd.Series:
+    """`expr`'s columnar implementation over the frame, as CPU tensors.
+    An ANSI check it raises fails here as it would at the collect
+    boundary."""
+    from spark_rapids_tpu_torch.exec.base import make_eval_context
+    from spark_rapids_tpu_torch.plan.transitions import batch_from_df
+    if type(expr).eval is E.Expression.eval:
         raise CpuEvalError(f"no CPU implementation for expression "
                            f"{type(expr).__name__}")
-    return fn(expr, df, schema)
+    batch = batch_from_df(df.reset_index(drop=True), schema, device="cpu")
+    ctx = make_eval_context(batch.columns, batch.capacity,
+                            batch.num_rows_i32)
+    out = expr.bind(schema).eval(ctx)
+    for label, flag in ctx.pending_checks:
+        if bool(flag):
+            raise ArithmeticError(
+                f"{label} (spark.sql.ansi.enabled semantics)")
+    vals, valid = out.to_numpy(batch.num_rows)
+    if out.dtype.is_string:
+        return pd.Series(list(vals), index=df.index, dtype=object)
+    if out.dtype.is_floating:  # NaN is a value, not a null
+        return pd.Series(pd.arrays.FloatingArray(vals, ~valid),
+                         index=df.index)
+    res = pd.Series(vals, index=df.index).astype(nullable_dtype(out.dtype))
+    res[~valid] = pd.NA
+    return res
 
 
 def _ev(e, df, schema):
@@ -191,39 +226,237 @@ def _inset(e, df, schema):
     return res
 
 
+_TRUE_STRINGS = {"t", "true", "y", "yes", "1"}
+_FALSE_STRINGS = {"f", "false", "n", "no", "0"}
+#: what Spark's UTF8String.trimAll strips: every byte <= 0x20
+_TRIM_ALL = "".join(map(chr, range(0x21)))
+
+
+def _java_float_str(x, f32: bool = False) -> str:
+    """Java's Double/Float.toString notation of the shortest round-trip
+    digits: plain for 1e-3 <= |x| < 1e7, 'd.dddEexp' outside; a FLOAT
+    takes its shortest digits as a float32."""
+    import math
+    from decimal import Decimal
+    x = float(np.float32(x)) if f32 else float(x)
+    if math.isnan(x):
+        return "NaN"
+    if math.isinf(x):
+        return "Infinity" if x > 0 else "-Infinity"
+    neg = "-" if math.copysign(1.0, x) < 0 else ""
+    if x == 0.0:
+        return neg + "0.0"
+    d = Decimal(str(np.float32(abs(x))) if f32 else repr(abs(x)))
+    _, digits, _ = d.as_tuple()
+    adj = d.adjusted()
+    ds = "".join(map(str, digits)).rstrip("0") or "0"
+    if -3 <= adj < 7:
+        if adj >= 0:
+            ip = ds[:adj + 1].ljust(adj + 1, "0")
+            fp = ds[adj + 1:] or "0"
+        else:
+            ip, fp = "0", "0" * (-adj - 1) + ds
+        return f"{neg}{ip}.{fp}"
+    return f"{neg}{ds[0]}.{ds[1:] or '0'}E{adj}"
+
+
+def _date_str(days: int) -> str:
+    """'yyyy-MM-dd' of days since the epoch, by the civil-date algorithm
+    of the device, so that years outside 1-9999 print as the device's
+    four digits (each digit of the year floored, as there)."""
+    z = days + 719468
+    era = (z if z >= 0 else z - 146096) // 146097
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = mp + 3 if mp < 10 else mp - 9
+    y = yoe + era * 400 + (m <= 2)
+    year = "".join(str((y // p) % 10) for p in (1000, 100, 10, 1))
+    return f"{year}-{m:02d}-{d:02d}"
+
+
+def _timestamp_str(micros: int) -> str:
+    """'yyyy-MM-dd HH:mm:ss[.ffffff]', the fraction's trailing zeros
+    trimmed."""
+    days, rem = divmod(micros, 86_400_000_000)
+    secs, us = divmod(rem, 1_000_000)
+    h, rs = divmod(secs, 3600)
+    mi, sec = divmod(rs, 60)
+    out = f"{_date_str(days)} {h:02d}:{mi:02d}:{sec:02d}"
+    if us:
+        out += ("." + f"{us:06d}").rstrip("0")
+    return out
+
+
+def _parse_date(s: str):
+    import datetime as _dt
+    import re
+    m = re.fullmatch(r"([0-9]{4})-([0-9]{2})-([0-9]{2})", s)
+    if not m:
+        return None
+    try:
+        d = _dt.date(*map(int, m.groups()))
+    except ValueError:
+        return None
+    return (d - _dt.date(1970, 1, 1)).days
+
+
+def _spark_parse_string(x: str, dt: T.DataType):
+    """Spark's cast of a string: the integral parse trims spaces, the
+    date parse takes 'yyyy-MM-dd' as it is, the others trim every byte
+    <= 0x20; anything invalid is None."""
+    import re
+    from spark_rapids_tpu_torch.exprs.cast import _bounds
+    if dt.is_integral and dt.id not in (T.TypeId.DATE32,
+                                        T.TypeId.TIMESTAMP_US):
+        s = x.strip(" ")
+        if not re.fullmatch(r"[+-]?[0-9]+", s):
+            return None
+        lo, hi = _bounds(dt)
+        val = int(s)
+        return val if lo <= val <= hi else None
+    if dt.id == T.TypeId.DATE32:
+        return _parse_date(x)
+    s = x.strip(_TRIM_ALL)
+    if dt.id == T.TypeId.BOOL:
+        low = s.lower()
+        return True if low in _TRUE_STRINGS else \
+            False if low in _FALSE_STRINGS else None
+    if dt.is_floating:
+        if not s or "_" in s:
+            return None
+        try:
+            return float(s)
+        except ValueError:
+            return None
+    if dt.id == T.TypeId.TIMESTAMP_US:
+        m = re.fullmatch(r"([0-9]{4}-[0-9]{2}-[0-9]{2})"
+                         r"(?: ([0-9]{2}):([0-9]{2}):([0-9]{2})"
+                         r"(?:\.([0-9]{1,6}))?)?", s)
+        if not m:
+            return None
+        days = _parse_date(m.group(1))
+        if days is None:
+            return None
+        h, mi, sec = (int(g or 0) for g in m.groups()[1:4])
+        if h > 23 or mi > 59 or sec > 59:
+            return None
+        us = int((m.group(5) or "0").ljust(6, "0"))
+        return (days * 86400 + h * 3600 + mi * 60 + sec) * 1_000_000 + us
+    return None
+
+
+def _host_map(v: pd.Series, fn, dtype) -> pd.Series:
+    """fn over the non-null values (None maps to null; a NaN of a
+    nullable float column is a value)."""
+    null = v.isna().to_numpy()
+    out = pd.Series([None if n else fn(x) for x, n in zip(v, null)],
+                    index=v.index, dtype=object)
+    return out if dtype == "object" else out.astype(dtype)
+
+
 def _cast(e, df, schema):
-    """The pairs exprs/cast.py evaluates: numeric, boolean and date;
-    casts to and from strings are not ported."""
-    from spark_rapids_tpu_torch.exprs.cast import _INT_BOUNDS, Cast
+    """Every pair exprs/cast.py evaluates, with the device's semantics:
+    Java's saturation and wrapping, timestamps in micros (seconds as
+    numbers), Java's strings, Spark's parses; an ANSI overflow
+    raises."""
+    from spark_rapids_tpu_torch.exprs.cast import _INT_BOUNDS, _bounds
     v = _ev(e.child, df, schema)
     src, dst = e.child.data_type(schema), e.to
     if src == dst:
         return v
-    if not Cast.supported(src, dst, e.ansi):
-        raise CpuEvalError(f"cast {src} -> {dst} is not ported")
-    if dst.id == T.TypeId.BOOL:
+    I = T.TypeId
+    if dst.is_string:
+        if src.is_floating:
+            f32 = src.id == I.FLOAT32
+            return _host_map(v, lambda x: _java_float_str(x, f32), "object")
+        if src.id == I.DATE32:
+            return _host_map(v, lambda x: _date_str(int(x)), "object")
+        if src.id == I.TIMESTAMP_US:
+            return _host_map(v, lambda x: _timestamp_str(int(x)), "object")
+        if src.id == I.BOOL:
+            return _host_map(v, lambda x: "true" if x else "false",
+                             "object")
+        return _host_map(v, lambda x: str(int(x)), "object")
+    if src.is_string:
+        if dst.is_floating:  # a parsed "NaN" is a value, not a null
+            vals = _host_map(v, lambda x: _spark_parse_string(str(x), dst),
+                             "object")
+            null = vals.isna().to_numpy() & ~vals.map(
+                lambda x: isinstance(x, float)).to_numpy()
+            data = np.array([0.0 if n else x for x, n in zip(vals, null)],
+                            dtype=dst.storage_dtype)
+            return pd.Series(pd.arrays.FloatingArray(data, null),
+                             index=v.index)
+        return _host_map(v, lambda x: _spark_parse_string(str(x), dst),
+                         nullable_dtype(dst))
+    if dst.id == I.BOOL:
         return (v != 0).astype("boolean")
+    if src.id == I.BOOL:
+        return v.astype("Int64").astype(nullable_dtype(dst))
     if src.is_floating and dst.is_integral:
         # Java: truncate toward zero, NaN -> 0, saturate at the bounds
-        lo, hi = _INT_BOUNDS.get(dst.id, _INT_BOUNDS[T.TypeId.INT64])
-
+        lo, hi = _bounds(dst)
         x = v.astype("Float64").to_numpy(np.float64, na_value=0.0)
         t = np.trunc(np.where(np.isnan(x), 0.0, x))
+        if e.ansi:
+            _ansi_raise(src, dst, (np.isnan(x) | (t < float(lo))
+                                   | (t > float(hi))) & v.notna().to_numpy())
         over, under = t >= float(hi), t <= float(lo)
         safe = np.where(over | under, 0.0, t).astype(np.int64)
         data = np.where(over, np.int64(hi), np.where(under, np.int64(lo),
                                                      safe))
         # an INT64-bounded value in a narrower type (DATE32) wraps
-        out = pd.Series(data.astype(dst.storage_dtype), index=v.index
-                        ).astype(nullable_dtype(dst))
-        out[v.isna()] = pd.NA
-        return out
+        return _with_nulls(data.astype(dst.storage_dtype), v, dst)
+    if src.id == I.TIMESTAMP_US and dst.id == I.DATE32:
+        micros = v.to_numpy(np.int64, na_value=0)
+        return _with_nulls(np.floor_divide(micros, 86_400_000_000)
+                           .astype(np.int32), v, dst)
+    if src.id == I.DATE32 and dst.id == I.TIMESTAMP_US:
+        days = v.to_numpy(np.int64, na_value=0)
+        return _with_nulls(days * 86_400_000_000, v, dst)
+    if src.id == I.TIMESTAMP_US and dst.is_numeric:
+        micros = v.to_numpy(np.int64, na_value=0)
+        secs = micros / 1e6 if dst.is_floating else \
+            np.floor_divide(micros, 1_000_000)
+        return _with_nulls(secs.astype(dst.storage_dtype), v, dst)
+    if dst.id == I.TIMESTAMP_US and src.is_numeric:
+        if src.is_floating:
+            x = v.astype("Float64").to_numpy(np.float64, na_value=0.0)
+            bad = ~np.isfinite(x)
+            us = np.where(bad, 0.0, x) * 1e6
+            # past +-2^63 the bound, as the device's convert
+            over, under = us >= 2.0 ** 63, us < -(2.0 ** 63)
+            data = np.where(over, np.int64(2 ** 63 - 1), np.where(
+                under, np.int64(-(2 ** 63)),
+                np.where(over | under, 0.0, us).astype(np.int64)))
+            out = _with_nulls(data, v, dst)
+            out[bad] = pd.NA
+            return out
+        return _with_nulls(v.to_numpy(np.int64, na_value=0) * 1_000_000,
+                           v, dst)
     if src.is_integral and dst.is_integral:
-        vals = v.to_numpy(np.int64, na_value=0).astype(dst.storage_dtype)
-        out = pd.Series(vals, index=v.index).astype(nullable_dtype(dst))
-        out[v.isna()] = pd.NA
-        return out
+        vals = v.to_numpy(np.int64, na_value=0)
+        if e.ansi and dst.id in _INT_BOUNDS:
+            lo, hi = _INT_BOUNDS[dst.id]
+            _ansi_raise(src, dst, ((vals < lo) | (vals > hi))
+                        & v.notna().to_numpy())
+        return _with_nulls(vals.astype(dst.storage_dtype), v, dst)
     return v.astype(nullable_dtype(dst))
+
+
+def _with_nulls(data: np.ndarray, like: pd.Series, dst) -> pd.Series:
+    out = pd.Series(data, index=like.index).astype(nullable_dtype(dst))
+    out[like.isna().to_numpy()] = pd.NA
+    return out
+
+
+def _ansi_raise(src, dst, bad: np.ndarray) -> None:
+    if bad.any():
+        raise ArithmeticError(f"ANSI cast {src} -> {dst} overflow "
+                              f"(spark.sql.ansi.enabled semantics)")
 
 
 def _and(e, df, schema):
@@ -369,12 +602,103 @@ def _like(e, df, schema):
                  else rx.match(x) is not None).astype("boolean")
 
 
+_ASCII_UPPER = str.maketrans("abcdefghijklmnopqrstuvwxyz",
+                             "ABCDEFGHIJKLMNOPQRSTUVWXYZ")
+_ASCII_LOWER = str.maketrans("ABCDEFGHIJKLMNOPQRSTUVWXYZ",
+                             "abcdefghijklmnopqrstuvwxyz")
+
+
+def _strmap(fn):
+    def f(e, df, schema):
+        return _host_map(_ev(e.child, df, schema), fn, "object")
+    return f
+
+
+def _concat(e, df, schema):
+    parts = [_ev(c, df, schema) for c in e.children()]
+    return pd.Series([None if any(_missing(x) for x in vals)
+                      else "".join(vals) for vals in zip(*parts)],
+                     index=df.index, dtype=object)
+
+
+def _get_array_item(e, df, schema):
+    """split(s, d)[i] by Java's split (the pattern as a regex, as Spark
+    runs it) and array(...)[i] by a per-row select."""
+    import re
+    from spark_rapids_tpu_torch.exprs.complex import CreateArray
+    from spark_rapids_tpu_torch.exprs.string_fns import StringSplit
+    n = _ev(e.ordinal, df, schema)
+    ch = e.child
+    if isinstance(ch, StringSplit):
+        if not isinstance(ch.pattern, E.Literal) or ch.pattern.value is None:
+            raise TypeError("split pattern must be a literal")
+        limit = ch.literal_limit()
+        if limit is None:
+            raise TypeError("split limit must be a literal")
+        rx = re.compile(str(ch.pattern.value))
+        s = _ev(ch.child, df, schema)
+
+        def part(x, i):
+            if _missing(x) or pd.isna(i):
+                return None
+            # Java: limit <= 0 keeps every split (0 also drops the
+            # trailing empties)
+            parts = rx.split(x, maxsplit=0 if limit <= 0 else limit - 1)
+            if limit == 0:
+                while parts and parts[-1] == "":
+                    parts.pop()
+            i = int(i)
+            return parts[i] if 0 <= i < len(parts) else None
+        return pd.Series([part(x, i) for x, i in zip(s, n)],
+                         index=df.index, dtype=object)
+    if isinstance(ch, CreateArray):
+        dt = ch.element_type(schema)
+        cols = [_branch(el, df, schema, dt) for el in ch.elements]
+
+        def pick(i, row):
+            if pd.isna(i) or not 0 <= int(i) < len(cols):
+                return None
+            x = cols[int(i)].iloc[row]
+            return None if pd.isna(x) else x
+        out = pd.Series([pick(i, r) for r, i in enumerate(n)],
+                        index=df.index, dtype=object)
+        return out if dt.is_string else out.astype(nullable_dtype(dt))
+    raise TypeError(f"GetArrayItem over {type(ch).__name__}")
+
+
+def _get_map_value(e, df, schema):
+    from spark_rapids_tpu_torch.exprs.complex import CreateMap
+    ch = e.child
+    if not isinstance(ch, CreateMap):
+        raise TypeError(f"GetMapValue over {type(ch).__name__}")
+    dt = ch.value_type(schema)
+    key = _ev(e.key, df, schema)
+    keys = [_ev(k, df, schema) for k in ch.entries[0::2]]
+    vals = [_branch(v, df, schema, dt) for v in ch.entries[1::2]]
+
+    def pick(row):
+        kq = key.iloc[row]
+        if pd.isna(kq):
+            return None
+        for kc, vc in zip(keys, vals):
+            kv = kc.iloc[row]
+            if not pd.isna(kv) and kv == kq:
+                x = vc.iloc[row]
+                return None if pd.isna(x) else x
+        return None
+    out = pd.Series([pick(r) for r in range(len(df))], index=df.index,
+                    dtype=object)
+    return out if dt.is_string else out.astype(nullable_dtype(dt))
+
+
 # -- dates (DATE32 storage: int32 days) ---------------------------------------
 def _datefield(attr):
     def f(e, df, schema):
         v = _ev(e.child, df, schema)
         mask = v.isna()
         days = v.fillna(0).astype("int64").to_numpy()
+        if e.child.data_type(schema).id == T.TypeId.TIMESTAMP_US:
+            days = np.floor_divide(days, 86_400_000_000)  # micros
         dts = pd.to_datetime(days, unit="D")
         out = pd.Series(getattr(dts, attr), index=v.index).astype("Int32")
         out[mask] = pd.NA
@@ -421,5 +745,11 @@ _DISPATCH = {
     "Year": _datefield("year"),
     "Month": _datefield("month"),
     "DayOfMonth": _datefield("day"),
+    # the ASCII folds of the device (Python's own upper() is Unicode's)
+    "Upper": _strmap(lambda x: x.translate(_ASCII_UPPER)),
+    "Lower": _strmap(lambda x: x.translate(_ASCII_LOWER)),
+    "ConcatStrings": _concat,
+    "GetArrayItem": _get_array_item,
+    "GetMapValue": _get_map_value,
 }
 

@@ -13,6 +13,10 @@ crossed; only Project and Filter are fusible) and collapses:
   into the aggregate itself, as its `pre_stage`, whose composed
   predicates and outputs every update lane evaluates before grouping.
 
+A member with an ANSI-checked expression is never fused: it stays a
+per-operator exec between the fused runs around it (the reference's
+per-stage deopt).
+
 Before evaluating, the composed DAG is simplified (`exprs/simplify.py`:
 literal folding, then common-subexpression dedup, so a subtree shared
 by several outputs evaluates once per batch).  PyTorch runs eagerly, so
@@ -31,7 +35,8 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.exec.aggregate import AggMode, HashAggregateExec
 from spark_rapids_tpu_torch.exec.base import (TpuExec, UnaryExecBase,
                                               make_eval_context)
-from spark_rapids_tpu_torch.exec.basic import FilterExec, ProjectExec
+from spark_rapids_tpu_torch.exec.basic import (FilterExec, ProjectExec,
+                                               _register_ansi)
 from spark_rapids_tpu_torch.exprs.base import (BoundReference, EvalContext,
                                                Expression)
 from spark_rapids_tpu_torch.exprs.simplify import (dedup_common_subexprs,
@@ -42,6 +47,20 @@ from spark_rapids_tpu_torch.exprs.simplify import (dedup_common_subexprs,
 #: members a fused stage may contain.  Everything else (exchange,
 #: coalesce, sort, join) is a pipeline break.
 _FUSIBLE = (ProjectExec, FilterExec)
+
+
+def _contains_ansi(e: Expression) -> bool:
+    """An ANSI-checked expression registers deferred error checks whose
+    row scope would change under composition across a filter: the one
+    expression the fuser refuses."""
+    if getattr(e, "ansi", False):
+        return True
+    return any(_contains_ansi(c) for c in e.children())
+
+
+def _member_fusible(ex: TpuExec) -> bool:
+    bound = ex._bound if isinstance(ex, ProjectExec) else [ex._bound]
+    return not any(_contains_ansi(e) for e in bound)
 
 
 def inline_refs(e: Expression, producers: list) -> Expression:
@@ -103,7 +122,7 @@ def _eval_stage(stage: ComposedStage, ctx: EvalContext):
         v = p.eval(ctx)
         keep = keep & v.validity & v.data.to(torch.bool)
     octx = EvalContext(ctx.columns, ctx.capacity, ctx.num_rows, keep,
-                       ctx.shared)
+                       ctx.pending_checks, ctx.shared)
     return [e.eval(octx) for e in stage.out_exprs], keep
 
 
@@ -111,7 +130,8 @@ def eval_stage_ctx(stage: ComposedStage, ctx: EvalContext) -> EvalContext:
     """The aggregate-update prologue: the consuming lane sees the
     post-stage columns and row mask."""
     cols, keep = _eval_stage(stage, ctx)
-    return EvalContext(cols, ctx.capacity, ctx.num_rows, keep, ctx.shared)
+    return EvalContext(cols, ctx.capacity, ctx.num_rows, keep,
+                       ctx.pending_checks, ctx.shared)
 
 
 class FusedStageExec(UnaryExecBase):
@@ -149,13 +169,14 @@ class FusedStageExec(UnaryExecBase):
             ctx = make_eval_context(batch.columns, batch.capacity,
                                     batch.num_rows_i32, batch.sparse)
             cols, keep = _eval_stage(self.stage, ctx)
+            checks = batch.checks + _register_ansi(ctx)
             if self.stage.preds:
                 yield ColumnarBatch(self._schema, cols,
-                                    keep.sum().to(torch.int32),
-                                    batch.checks, sparse=keep)
+                                    keep.sum().to(torch.int32), checks,
+                                    sparse=keep)
             else:
-                yield ColumnarBatch(self._schema, cols, batch._rows,
-                                    batch.checks, batch.sparse)
+                yield ColumnarBatch(self._schema, cols, batch._rows, checks,
+                                    batch.sparse)
 
 
 # ---------------------------------------------------------------------------
@@ -198,18 +219,38 @@ def _agg_fusible(node: TpuExec) -> bool:
             and node._pre_stage is None)
 
 
-def _fuse_chain(chain: list, base: TpuExec) -> TpuExec:
-    """Rebuild a top-down Project/Filter chain over `base` as one fused
+def _fuse_segment(run: list, base: TpuExec) -> TpuExec:
+    """One bottom-up run of fusible members over `base` as one fused
     stage; a lone operator stays as it is, and an identity projection
     disappears."""
-    stage = compose_chain(chain, base.output_schema())
+    stage = compose_chain(list(reversed(run)), base.output_schema())
     if not stage.preds and is_identity_projection(
             stage.out_exprs, stage.in_schema, stage.schema):
         return base
-    if len(chain) < 2:
-        chain[0]._children[0] = base
-        return chain[0]
+    if len(run) < 2:
+        run[0]._children[0] = base
+        return run[0]
     return FusedStageExec(stage, base)
+
+
+def _fuse_chain(chain: list, base: TpuExec) -> TpuExec:
+    """Rebuild a top-down Project/Filter chain over `base`, fusing each
+    maximal run of fusible members; a member that is not fusible stays
+    per-operator between them."""
+    members = list(reversed(chain))  # bottom-up execution order
+    cur, i = base, 0
+    while i < len(members):
+        j = i
+        while j < len(members) and _member_fusible(members[j]):
+            j += 1
+        if j > i:
+            cur = _fuse_segment(members[i:j], cur)
+            i = j
+        else:
+            members[i]._children[0] = cur
+            cur = members[i]
+            i += 1
+    return cur
 
 
 def _fuse_node(node: TpuExec) -> TpuExec:
@@ -219,7 +260,7 @@ def _fuse_node(node: TpuExec) -> TpuExec:
         return node
     if _agg_fusible(node):
         chain, base = _collect_chain(node.child)
-        if chain:
+        if chain and all(_member_fusible(m) for m in chain):
             return HashAggregateExec(
                 node.group_exprs, node.aggregates, _fuse_node(base),
                 mode=node.mode,

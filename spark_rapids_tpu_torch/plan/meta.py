@@ -60,6 +60,10 @@ class ExprMeta(BaseMeta):
             self.will_not_work_on_gpu(
                 f"expression {name} disabled by "
                 f"{C.op_enable_key('expression', name)}")
+        if self.rule.incompat and not self.conf[C.INCOMPATIBLE_OPS]:
+            self.will_not_work_on_gpu(
+                f"expression {name} is incompatible ({self.rule.incompat}); "
+                f"enable with {C.INCOMPATIBLE_OPS.key}")
         if self.rule.tag_extra is not None:
             self.rule.tag_extra(self)
 

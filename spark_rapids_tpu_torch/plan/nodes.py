@@ -98,10 +98,12 @@ def normalize_df(df: pd.DataFrame, schema: T.Schema) -> pd.DataFrame:
 
 
 def schema_of_df(df: pd.DataFrame) -> T.Schema:
-    """Engine schema of a frame's dtypes; object columns of dates are
-    DATE32, other object columns STRING."""
-    named = {"Int32": T.INT32, "Int64": T.INT64, "Float32": T.FLOAT32,
-             "Float64": T.FLOAT64, "boolean": T.BOOL}
+    """Engine schema of a frame's dtypes; datetime64 columns are
+    TIMESTAMP_US, object columns of dates DATE32, other object columns
+    STRING."""
+    named = {"Int8": T.INT8, "Int16": T.INT16, "Int32": T.INT32,
+             "Int64": T.INT64, "Float32": T.FLOAT32, "Float64": T.FLOAT64,
+             "boolean": T.BOOL}
     fields = []
     for name in df.columns:
         s = df[name]
@@ -109,7 +111,7 @@ def schema_of_df(df: pd.DataFrame) -> T.Schema:
         kind = getattr(s.dtype, "kind", "O")
         if sd in named:
             dt = named[sd]
-        elif kind in ("b", "i", "f"):
+        elif kind in ("b", "i", "f", "M"):
             dt = T.from_numpy_dtype(s.dtype)
         else:
             try:
@@ -129,6 +131,17 @@ class CpuSource(CpuNode):
         super().__init__()
         self.partitions = partitions
         self._schema = schema
+
+    @staticmethod
+    def from_pandas(df: pd.DataFrame, num_partitions: int = 1) -> "CpuSource":
+        """A source of `df` in its own dtypes' schema, cut into
+        `num_partitions` row ranges."""
+        schema = schema_of_df(df)
+        if num_partitions <= 1 or not len(df):
+            return CpuSource([df], schema)
+        bounds = np.linspace(0, len(df), num_partitions + 1).astype(int)
+        return CpuSource([df.iloc[bounds[i]:bounds[i + 1]].reset_index(
+            drop=True) for i in range(num_partitions)], schema)
 
     def output_schema(self):
         return self._schema
@@ -275,7 +288,16 @@ class CpuSort(CpuNode):
 
 #: pandas groupby op of each aggregate function the port has
 _AGG_PANDAS = {"Sum": "sum", "Average": "mean", "Count": "count",
-               "Min": "min", "Max": "max"}
+               "Min": "min", "Max": "max", "First": "first", "Last": "last",
+               "StddevSamp": "std", "VarianceSamp": "var"}
+
+
+def _raw_first_last(func) -> bool:
+    """First/Last without ignore_nulls take the group's raw first or
+    last row, null or not (Spark's default; pandas' first/last skip
+    nulls)."""
+    return type(func).__name__ in ("First", "Last") and \
+        not getattr(func, "ignore_nulls", False)
 
 
 def _spark_minmax(s: pd.Series, is_min: bool):
@@ -298,6 +320,9 @@ def _agg_op(func):
     """pandas groupby op for an AggregateFunction; Spark's SUM of only
     nulls is NULL (pandas' default min_count=0 would give 0)."""
     fname = type(func).__name__
+    if _raw_first_last(func):
+        idx = 0 if fname == "First" else -1
+        return lambda s: s.iloc[idx] if len(s) else None
     if fname == "Sum":
         return lambda s: s.sum(min_count=1)
     if fname in ("Min", "Max"):
@@ -311,10 +336,17 @@ def _reduce(s: pd.Series, func):
         return int(s.notna().sum())
     if fname in ("Min", "Max"):
         return _spark_minmax(s, fname == "Min")
+    if _raw_first_last(func):
+        if not len(s):
+            return None
+        v = s.iloc[0 if fname == "First" else -1]
+        return None if v is pd.NA else v
     s2 = s.dropna()
     if not len(s2):
         return None
-    return {"Sum": s2.sum, "Average": s2.mean}[fname]()
+    return {"Sum": s2.sum, "Average": s2.mean, "First": lambda: s2.iloc[0],
+            "Last": lambda: s2.iloc[-1], "StddevSamp": s2.std,
+            "VarianceSamp": s2.var}[fname]()
 
 
 class CpuAggregate(CpuNode):

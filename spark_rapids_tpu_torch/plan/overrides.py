@@ -23,6 +23,7 @@ import logging
 from typing import Callable, Optional, Sequence
 
 from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.vector import resolve_device
 from spark_rapids_tpu_torch.exec import basic as B
 from spark_rapids_tpu_torch.exec.aggregate import AggMode, HashAggregateExec
@@ -48,6 +49,9 @@ class ExprRule:
     name: str
     desc: str
     tag_extra: Optional[Callable] = None
+    #: why the result may differ from Spark's; such an expression runs on
+    #: the device only under spark.rapids.sql.incompatibleOps.enabled
+    incompat: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -63,8 +67,8 @@ EXPR_RULES: dict[str, ExprRule] = {}
 EXEC_RULES: dict[type, ExecRule] = {}
 
 
-def expr(name: str, desc: str, tag_extra=None) -> None:
-    EXPR_RULES[name] = ExprRule(name, desc, tag_extra)
+def expr(name: str, desc: str, tag_extra=None, incompat=None) -> None:
+    EXPR_RULES[name] = ExprRule(name, desc, tag_extra, incompat)
 
 
 def register_exec(cpu_class, desc, convert, exprs_of=lambda n: (),
@@ -81,49 +85,163 @@ def exec_rule_for(node: N.CpuNode) -> Optional[ExecRule]:
     return EXEC_RULES.get(type(node))
 
 
-# the expressions the port implements on the device
+# the expressions the port implements on the device (the reference's
+# _SIMPLE_EXPRS less what is not ported: MonotonicallyIncreasingID,
+# SparkPartitionID, NormalizeNaNAndZero, KnownFloatingPointNormalized,
+# KnownNotNull and GroupRef)
 for _name in """
 AttributeReference BoundReference Literal Alias
 Add Subtract Multiply Divide IntegralDivide Remainder Pmod UnaryMinus
 UnaryPositive Abs
 EqualTo EqualNullSafe LessThan LessThanOrEqual GreaterThan
 GreaterThanOrEqual And Or Not IsNull IsNotNull IsNaN InSet
+BitwiseAnd BitwiseOr BitwiseXor BitwiseNot ShiftLeft ShiftRight
+ShiftRightUnsigned
 If CaseWhen Coalesce NullIf Nvl2 AtLeastNNonNulls NaNvl
 Year Month DayOfMonth DayOfWeek DayOfYear Quarter WeekOfYear LastDay
-DateAdd DateSub DateDiff AddMonths
-Length Substring Contains StartsWith EndsWith Like
-Sum Count Average Min Max
+Hour Minute Second DateAdd DateSub DateDiff AddMonths MonthsBetween
+UnixTimestamp FromUnixTime ToDate TruncDate
+Sqrt Cbrt Exp Expm1 Log Log1p Log2 Log10 Rint Signum Ceil Floor Pow Round
+Length Upper Lower InitCap Substring StringTrim StringTrimLeft
+StringTrimRight ConcatStrings Contains StartsWith EndsWith Like
+StringLocate StringReplace LPad RPad
+Sum Count Min Max First Last
+Logarithm WeekDay ToUnixTimestamp TimeAdd
 """.split():
     expr(_name, f"GPU implementation of {_name}")
 
+# the transcendentals' last bit may differ from the JVM's StrictMath
+for _name in ("Sin", "Cos", "Tan", "Asin", "Acos", "Atan", "Sinh", "Cosh",
+              "Tanh", "ToDegrees", "ToRadians", "Cot", "Acosh", "Asinh",
+              "Atanh"):
+    expr(_name, f"GPU implementation of {_name}",
+         incompat="floating point results differ in ulp from the JVM")
+
 
 def _tag_cast(m) -> None:
-    """A cast pair exprs/cast.py does not evaluate (to or from a string,
-    or ANSI) stays on the CPU."""
-    from spark_rapids_tpu_torch.exprs.cast import Cast
+    """Per-direction cast gating: the gated directions format or parse
+    in ways that may differ from the JVM's; ANSI runs only the numeric
+    -> integral overflow checks."""
     e = m.expr
+    src = None
     for schema in m.input_schemas():
         try:
             src = e.child.data_type(schema)
+            break
         except KeyError:
             continue
-        if not Cast.supported(src, e.to, e.ansi):
-            m.will_not_work_on_gpu(
-                f"cast {src} -> {e.to}{' (ANSI)' if e.ansi else ''} is not "
-                f"ported")
-        return
+    if src is None:
+        return  # an unresolvable child type is left to other tagging
+    dst = e.to
+    if e.ansi and not (src.is_numeric and dst.is_numeric
+                       and not dst.is_floating):
+        m.will_not_work_on_gpu(
+            "ANSI cast supported only for numeric -> integral overflow "
+            "checks")
+    if src.is_floating and dst.is_string and \
+            not m.conf[C.CASTS_FLOAT_TO_STRING]:
+        m.will_not_work_on_gpu(
+            "float->string formatting differs from Java at extreme "
+            f"exponents; enable with {C.CASTS_FLOAT_TO_STRING.key}")
+    if src.is_string and dst.is_floating and \
+            not m.conf[C.CASTS_STRING_TO_FLOAT]:
+        m.will_not_work_on_gpu(
+            "string->float parse may differ by 1 ulp from Java; enable "
+            f"with {C.CASTS_STRING_TO_FLOAT.key}")
+    if src.is_string and dst.id == T.TypeId.TIMESTAMP_US and \
+            not m.conf[C.CASTS_STRING_TO_TS]:
+        m.will_not_work_on_gpu(
+            "string->timestamp supports canonical forms only; enable "
+            f"with {C.CASTS_STRING_TO_TS.key}")
 
 
 expr("Cast", "GPU implementation of Cast", tag_extra=_tag_cast)
+
+
+def _tag_substring_index(m) -> None:
+    d, n = m.expr.literal_args()
+    if d is None or n is None:
+        m.will_not_work_on_gpu(
+            "substring_index delimiter and count must be literals")
+
+
+def _consumer(m):
+    """The expression that consumes m's, or None at a plan node."""
+    return getattr(m.parent, "expr", None)
+
+
+def _tag_string_split(m) -> None:
+    """A split is evaluable only as split(s, d)[i] with a literal
+    pattern free of regex metacharacters and a literal limit that is -1
+    or positive."""
+    from spark_rapids_tpu_torch.exprs.complex import GetArrayItem
+    e = m.expr
+    if not isinstance(_consumer(m), GetArrayItem):
+        m.will_not_work_on_gpu(
+            "split() result must be indexed (split(s,d)[i]); array "
+            "columns are outside the type matrix")
+    if e.literal_pattern() is None:
+        m.will_not_work_on_gpu(
+            "split pattern must be a literal without regex "
+            "metacharacters")
+    if e.literal_limit() in (None, 0):
+        m.will_not_work_on_gpu(
+            "split limit must be a literal -1 or positive")
+
+
+def _tag_inline_only(consumer_name, consumer_cls):
+    def tag(m):
+        if not isinstance(_consumer(m), consumer_cls):
+            m.will_not_work_on_gpu(
+                f"{type(m.expr).__name__} must be consumed by "
+                f"{consumer_name}; array/map columns are outside the type "
+                "matrix")
+    return tag
+
+
+def _tag_get_array_item(m) -> None:
+    from spark_rapids_tpu_torch.exprs.complex import CreateArray
+    from spark_rapids_tpu_torch.exprs.string_fns import StringSplit
+    if not isinstance(m.expr.child, (CreateArray, StringSplit)):
+        m.will_not_work_on_gpu(
+            "GetArrayItem supports inline arrays (split()/array()) only")
+
+
+def _tag_get_map_value(m) -> None:
+    from spark_rapids_tpu_torch.exprs.complex import CreateMap
+    if not isinstance(m.expr.child, CreateMap):
+        m.will_not_work_on_gpu("GetMapValue supports inline map(...) only")
+
+
+def _register_complex_rules() -> None:
+    from spark_rapids_tpu_torch.exprs.complex import (GetArrayItem,
+                                                      GetMapValue)
+    expr("SubstringIndex", "GPU implementation of SubstringIndex",
+         tag_extra=_tag_substring_index)
+    expr("StringSplit", "split into parts, consumed by []",
+         tag_extra=_tag_string_split)
+    expr("GetArrayItem", "index an inline array",
+         tag_extra=_tag_get_array_item)
+    expr("GetMapValue", "look up an inline map",
+         tag_extra=_tag_get_map_value)
+    expr("CreateArray", "inline array constructor",
+         tag_extra=_tag_inline_only("GetArrayItem or explode",
+                                    (GetArrayItem,)))
+    expr("CreateMap", "inline map constructor",
+         tag_extra=_tag_inline_only("GetMapValue", (GetMapValue,)))
+
+
+_register_complex_rules()
+expr("Average", "GPU average")
 
 # the aggregate functions both engines implement
 _SUPPORTED_AGGS = set(N._AGG_PANDAS)
 
 
 def _tag_aggregate(meta) -> None:
-    """Aggregate-function checks: registry membership, and float Sum/
-    Average, whose result varies with evaluation order, gated on
-    spark.rapids.sql.variableFloatAgg.enabled."""
+    """Aggregate-function checks: registry membership, and float Sum,
+    Average, StddevSamp and VarianceSamp, whose results vary with
+    evaluation order, gated on spark.rapids.sql.variableFloatAgg.enabled."""
     node = meta.node
     child_schema = node.child.output_schema()
     for a in node.aggregates:
@@ -132,7 +250,8 @@ def _tag_aggregate(meta) -> None:
             meta.will_not_work_on_gpu(
                 f"aggregate function {fname} has no GPU implementation")
             continue
-        if fname in ("Average", "Sum") and a.func.child is not None \
+        if fname in ("Average", "Sum", "StddevSamp", "VarianceSamp") \
+                and a.func.child is not None \
                 and not meta.conf[C.VARIABLE_FLOAT_AGG]:
             try:
                 dt = a.func.child.data_type(child_schema)

@@ -68,7 +68,11 @@ def batch_from_df(df: pd.DataFrame, schema: T.Schema,
             continue
         storage = f.dtype.storage_dtype
         if str(s.dtype).startswith(("Int", "Float", "boolean")):
-            vals = s.fillna(0).to_numpy(dtype=storage)
+            vals = s.fillna(False if str(s.dtype) == "boolean" else 0
+                            ).to_numpy(dtype=storage)
+        elif s.dtype.kind == "M":  # datetime64 -> int64 micros
+            vals = s.to_numpy().astype("datetime64[us]").astype(np.int64)
+            vals = np.where(mask, 0, vals)
         else:
             vals = s.to_numpy().astype(storage, copy=False)
             if mask.any() and vals.dtype.kind == "f":
@@ -89,7 +93,8 @@ def series_from_column(field: T.Field, vals, valid) -> pd.Series:
 
 def df_from_batch(batch: ColumnarBatch) -> pd.DataFrame:
     """Device batch -> host rows with nullable dtypes (DATE32 stays int
-    days), after the batch's deferred checks verify."""
+    days, TIMESTAMP_US int micros), after the batch's deferred checks
+    verify."""
     batch = batch.dense()
     batch.verify_checks()
     out = {}

@@ -1,11 +1,12 @@
-"""Type system for columnar batches (port of spark_rapids_tpu/types.py,
-cut to the types TPC-H Q1 and Q6 use).
+"""Type system for columnar batches (port of spark_rapids_tpu/types.py):
+Boolean/Byte/Short/Int/Long/Float/Double/Date/Timestamp/String.
 
 Spark's 64-bit types stay explicit: LONG is torch.int64 and DOUBLE is
 torch.float64 (torch's default float type is float32, so nothing here
-relies on a default).  Dates are int32 days since the epoch.  Strings
-are fixed-width byte tensors: uint8[capacity, char_cap] plus int32
-lengths (see columnar/vector.py).
+relies on a default).  Dates are int32 days since the epoch, timestamps
+int64 microseconds since the epoch (UTC only).  Strings are fixed-width
+byte tensors: uint8[capacity, char_cap] plus int32 lengths (see
+columnar/vector.py).
 """
 from __future__ import annotations
 
@@ -18,11 +19,14 @@ import torch
 
 class TypeId(enum.Enum):
     BOOL = "bool"
+    INT8 = "int8"
+    INT16 = "int16"
     INT32 = "int32"
     INT64 = "int64"
     FLOAT32 = "float32"
     FLOAT64 = "float64"
     DATE32 = "date32"          # days since unix epoch, int32 storage
+    TIMESTAMP_US = "timestamp"  # microseconds since epoch UTC, int64 storage
     STRING = "string"          # byte-tensor encoded
 
 
@@ -40,11 +44,13 @@ class DataType:
 
     @property
     def is_integral(self) -> bool:
-        return self.id in (TypeId.INT32, TypeId.INT64, TypeId.DATE32)
+        return self.id in (TypeId.INT8, TypeId.INT16, TypeId.INT32,
+                           TypeId.INT64, TypeId.DATE32, TypeId.TIMESTAMP_US)
 
     @property
     def is_numeric(self) -> bool:
-        return self.is_floating or self.id in (TypeId.INT32, TypeId.INT64)
+        return self.is_floating or self.id in (
+            TypeId.INT8, TypeId.INT16, TypeId.INT32, TypeId.INT64)
 
     @property
     def storage_dtype(self) -> np.dtype:
@@ -61,37 +67,49 @@ class DataType:
 
 
 BOOL = DataType(TypeId.BOOL)
+INT8 = DataType(TypeId.INT8)
+INT16 = DataType(TypeId.INT16)
 INT32 = DataType(TypeId.INT32)
 INT64 = DataType(TypeId.INT64)
 FLOAT32 = DataType(TypeId.FLOAT32)
 FLOAT64 = DataType(TypeId.FLOAT64)
 DATE32 = DataType(TypeId.DATE32)
+TIMESTAMP_US = DataType(TypeId.TIMESTAMP_US)
 STRING = DataType(TypeId.STRING)
 
-ALL_TYPES = (BOOL, INT32, INT64, FLOAT32, FLOAT64, DATE32, STRING)
+ALL_TYPES = (BOOL, INT8, INT16, INT32, INT64, FLOAT32, FLOAT64, DATE32,
+             TIMESTAMP_US, STRING)
 
 _STORAGE = {
     TypeId.BOOL: np.dtype(np.bool_),
+    TypeId.INT8: np.dtype(np.int8),
+    TypeId.INT16: np.dtype(np.int16),
     TypeId.INT32: np.dtype(np.int32),
     TypeId.INT64: np.dtype(np.int64),
     TypeId.FLOAT32: np.dtype(np.float32),
     TypeId.FLOAT64: np.dtype(np.float64),
     TypeId.DATE32: np.dtype(np.int32),
+    TypeId.TIMESTAMP_US: np.dtype(np.int64),
     TypeId.STRING: np.dtype(np.uint8),
 }
 
 _TORCH = {
     TypeId.BOOL: torch.bool,
+    TypeId.INT8: torch.int8,
+    TypeId.INT16: torch.int16,
     TypeId.INT32: torch.int32,
     TypeId.INT64: torch.int64,
     TypeId.FLOAT32: torch.float32,
     TypeId.FLOAT64: torch.float64,
     TypeId.DATE32: torch.int32,
+    TypeId.TIMESTAMP_US: torch.int64,
     TypeId.STRING: torch.uint8,
 }
 
 _FROM_NP = {
     np.dtype(np.bool_): BOOL,
+    np.dtype(np.int8): INT8,
+    np.dtype(np.int16): INT16,
     np.dtype(np.int32): INT32,
     np.dtype(np.int64): INT64,
     np.dtype(np.float32): FLOAT32,
@@ -105,6 +123,8 @@ def from_numpy_dtype(dt) -> DataType:
     dt = np.dtype(dt)
     if dt.kind in ("U", "S", "O"):
         return STRING
+    if dt.kind == "M":  # datetime64
+        return TIMESTAMP_US
     if dt not in _FROM_NP:
         raise TypeError(f"unsupported numpy dtype {dt}")
     return _FROM_NP[dt]
@@ -122,7 +142,7 @@ def common_type(a: DataType, b: DataType) -> DataType:
     """Numeric promotion following Spark's binary arithmetic widening."""
     if a == b:
         return a
-    order = [INT32, INT64, FLOAT32, FLOAT64]
+    order = [INT8, INT16, INT32, INT64, FLOAT32, FLOAT64]
     if a in order and b in order:
         return order[max(order.index(a), order.index(b))]
     raise TypeError(f"no common type for {a}, {b}")

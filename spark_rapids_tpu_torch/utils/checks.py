@@ -8,6 +8,9 @@ the collect boundary, where `verify` reads them all back in one transfer.
 On failure, `FastPathInvalid` carries recovery callbacks that disable the
 fast paths at fault; `TpuExec.collect` recovers and re-executes the plan.
 
+A check with an `error` factory is fatal: a failed one raises that
+error (an ANSI cast's overflow) rather than FastPathInvalid.
+
 Checks attach to batches (`ColumnarBatch.checks`) AND register in a
 per-thread pending list, so a check dropped from a batch's tuple still
 fails safe at the next collect.
@@ -27,6 +30,9 @@ class BatchCheck:
     flag: object                      # device bool scalar; True = invalid
     origin: str                       # human-readable fast-path name
     recover: Optional[Callable] = None  # disables the fast path
+    #: factory of a fatal error (an ANSI overflow): raised at once
+    #: instead of the deopt-and-retry FastPathInvalid
+    error: Optional[Callable] = None
 
     #: memoized verify outcome (a check may reach several verify
     #: boundaries; it is read back once)
@@ -110,6 +116,9 @@ def verify(checks, scalars=()) -> list:
         except ValueError:
             pass
     bad = [c for c in checks if c._resolved]
+    for c in bad:
+        if c.error is not None:
+            raise c.error()
     if bad:
         raise FastPathInvalid(bad)
     return scalar_vals

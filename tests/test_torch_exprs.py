@@ -368,12 +368,16 @@ def test_casts_saturate_and_wrap_as_java_does(port_batch, frame):
     assert np.abs(big[ok]).max() > 2 ** 31
 
 
-def test_unported_casts_refuse_to_evaluate(port_batch):
+def test_unported_casts_refuse_to_evaluate(port_batch, ref_batch, frame):
+    """The casts the port refused before it had the string and ANSI
+    casts (double -> string, an ANSI double -> int, string -> int) now
+    evaluate, as the reference's do (tests/test_torch_cast.py holds the
+    rest)."""
     for to, ansi in ((T.STRING, False), (T.INT32, True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            _run_port(lambda M: M.Cast(M.col("x"), to, ansi), port_batch)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _run_port(lambda M: M.Cast(M.col("s"), T.INT32), port_batch)
+        _check(lambda M: M.Cast(M.col("x"), getattr(M.T, to.id.name), ansi),
+               port_batch, ref_batch, frame, f"x -> {to}")
+    _check(lambda M: M.Cast(M.col("s"), M.T.INT32), port_batch, ref_batch,
+           frame, "s -> int32")
 
 
 def _minmax_frame(seed: int = 9) -> pd.DataFrame:

@@ -286,3 +286,154 @@ def test_expressions_match_on_the_card(cuda_device, name):
     np.testing.assert_array_equal(gok, wok)
     assert list(gv[wok]) == list(wv[wok])
     torch.cuda.synchronize()
+
+
+def _slice7_inputs(n=4096):
+    """Timestamps on both sides of the epoch, dates, doubles across the
+    exponent range (with +-0, subnormals, NaN, +-Infinity), int64s,
+    shift distances past the width, and strings (numbers, dates,
+    timestamps, phones, padding, multi-byte), a tenth of each null."""
+    import pandas as pd
+    rng = np.random.default_rng(9)
+    day = 86_400_000_000
+
+    def nulls(values, dtype):
+        s = pd.Series(values).astype(dtype)
+        s[rng.random(n) < 0.1] = pd.NA
+        return s
+    bits = rng.integers(0, 2 ** 63, n, dtype=np.int64).view(np.float64)
+    f = np.where(rng.random(n) < 0.5, rng.normal(0, 1e4, n), bits)
+    f[:8] = [0.0, -0.0, np.nan, np.inf, -np.inf, 5e-324, 0.1, 1e7]
+    pool = np.array(["12", " -7 ", "9223372036854775808", "1.5e3", "abc",
+                     "2020-02-29", "2021-02-29 10:00:00", "1999-12-31 "
+                     "23:59:59.5", "25-989-741-2988", "Customer#000000042",
+                     "  hi  ", "café", "日本", "t", "NaN", "-Infinity", ""],
+                    dtype=object)
+    s = pool[rng.integers(0, len(pool), n)]
+    s[rng.random(n) < 0.1] = None
+    return pd.DataFrame({
+        "ts": nulls(rng.integers(-40 * 365 * day, 60 * 365 * day, n),
+                    "Int64"),
+        "d": nulls(rng.integers(-30_000, 30_000, n), "Int32"),
+        "f": pd.arrays.FloatingArray(f, rng.random(n) < 0.1),
+        "i": nulls(rng.integers(-2 ** 62, 2 ** 62, n), "Int64"),
+        "sh": nulls(rng.integers(-70, 70, n), "Int32"),
+        "s": s})
+
+
+def _slice7_expressions():
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exprs import bitwise as B
+    from spark_rapids_tpu_torch.exprs import datetime_exprs as D
+    from spark_rapids_tpu_torch.exprs import math_exprs as M
+    from spark_rapids_tpu_torch.exprs import string_fns as S
+    from spark_rapids_tpu_torch.exprs.base import Literal, col, lit
+    from spark_rapids_tpu_torch.exprs.cast import Cast
+    from spark_rapids_tpu_torch.exprs.complex import GetArrayItem
+
+    def cast(name, to):
+        return Cast(col(name), getattr(T, to))
+    return {
+        "double_to_string": cast("f", "STRING"),
+        "float_to_string": Cast(cast("f", "FLOAT32"), T.STRING),
+        "int_to_string": cast("i", "STRING"),
+        "timestamp_to_string": cast("ts", "STRING"),
+        "string_to_double": cast("s", "FLOAT64"),
+        "string_to_int": cast("s", "INT64"),
+        "string_to_date": cast("s", "DATE32"),
+        "string_to_timestamp": cast("s", "TIMESTAMP_US"),
+        "string_to_bool": cast("s", "BOOL"),
+        "double_to_timestamp": cast("f", "TIMESTAMP_US"),
+        "timestamp_to_date": cast("ts", "DATE32"),
+        "hour": D.Hour(col("ts")), "second": D.Second(col("ts")),
+        "months_between": D.MonthsBetween(col("ts"), Literal(
+            8035 * 86_400_000_000, T.TIMESTAMP_US)),
+        "from_unixtime": D.FromUnixTime(D.UnixTimestamp(col("d"))),
+        "trunc": D.TruncDate(col("ts"), lit("MM")),
+        "weekday": D.WeekDay(col("d")),
+        "upper": S.Upper(col("s")), "initcap": S.InitCap(col("s")),
+        "trim": S.StringTrim(col("s")),
+        "concat": S.ConcatStrings((col("s"), lit("|"), col("s"))),
+        "replace": S.StringReplace(col("s"), lit("-"), lit("")),
+        "lpad": S.LPad(col("s"), lit(9), lit("日")),
+        "locate": S.StringLocate(lit("9"), col("s")),
+        "substring_index": S.SubstringIndex(col("s"), lit("-"), lit(-2)),
+        "split": GetArrayItem(S.StringSplit(col("s"), lit("-")), lit(1)),
+        "round": M.Round(col("f"), 2),
+        "log10": M.Log10(col("f")), "cbrt": M.Cbrt(col("f")),
+        "shift_right_unsigned": B.ShiftRightUnsigned(col("i"), col("sh")),
+        "bit_and": B.BitwiseAnd(col("i"), Literal(255, T.INT64)),
+    }
+
+
+#: the functions whose last bit the card's libm may change
+_SLICE7_CLOSE = {"months_between", "log10", "cbrt"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(_slice7_expressions()))
+def test_slice7_expressions_match_the_cpu_engine(cuda_device, name):
+    """The casts, timestamp, string, math and bitwise expressions on CUDA
+    tensors against the port's CPU engine (plan/cpu_eval.py) on the same
+    rows: strings, integers and nulls exact (the float formatter's and
+    parser's bits too); log10, cbrt and months_between rtol 1e-14."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exec.base import make_eval_context
+    from spark_rapids_tpu_torch.plan.cpu_eval import cpu_eval
+    from spark_rapids_tpu_torch.plan.nodes import normalize_df
+    from spark_rapids_tpu_torch.plan.transitions import batch_from_df
+    df = _slice7_inputs()
+    schema = T.Schema.of(("ts", T.TIMESTAMP_US), ("d", T.DATE32),
+                         ("f", T.FLOAT64), ("i", T.INT64), ("sh", T.INT32),
+                         ("s", T.STRING))
+    expr = _slice7_expressions()[name]
+    b = batch_from_df(df, schema, device=cuda_device)
+    ctx = make_eval_context(b.columns, b.capacity,
+                            torch.tensor(len(df), dtype=torch.int32,
+                                         device=cuda_device))
+    gv, gok = expr.bind(schema).eval(ctx).to_numpy(len(df))
+    cpu = cpu_eval(expr, normalize_df(df, schema), schema)
+    wok = ~cpu.isna().to_numpy()
+    np.testing.assert_array_equal(gok, wok, err_msg=name)
+    if gv.dtype == object:
+        assert list(gv[wok]) == list(cpu[wok]), name
+    elif name in _SLICE7_CLOSE:
+        np.testing.assert_allclose(gv[wok], cpu[wok].to_numpy(gv.dtype),
+                                   rtol=1e-14, equal_nan=True, err_msg=name)
+    else:
+        np.testing.assert_array_equal(gv[wok], cpu[wok].to_numpy(gv.dtype),
+                                      err_msg=name)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", ["x1", "x2", "x3", "x3_country", "x4",
+                                  "x4_supplier"])
+def test_etl_plans_match_the_cpu_engine(cuda_device, plan):
+    """chip_smoke.py's phase-10 plans (models/etl_bench.py) at scale
+    factor 0.01 on the card, wholly there (spark.rapids.sql.test.enabled),
+    against the CPU engine: keys, counts, integers and strings exact;
+    floats rtol 1e-9 (pandas' var/std sum in another order)."""
+    from parity import compare_frames
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.models import etl_bench as EB
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
+    tables, _ = TB.sf10_tables(2, 0.01)
+    build = getattr(EB, f"{plan}_plan")
+    conf = C.RapidsConf({**EB.ETL_CONF, C.TEST_ENABLED.key: True})
+    got = collect(accelerate(build(EB.port_classes(), TD.sources(tables, 4)),
+                             conf, device=cuda_device), conf)
+    want = build(EB.port_classes(), TD.sources(tables, 4)).collect()
+    keys = list(want.columns[:2 if plan == "x4" else 1])
+    want = want.sort_values(keys, ignore_index=True)
+    got = got.sort_values(keys, ignore_index=True)
+    floats = [c for c in want.columns if want[c].dtype.kind == "f"
+              or str(want[c].dtype).startswith("Float")]
+    compare_frames(want.drop(columns=floats), got.drop(columns=floats),
+                   f"{plan} on the card", rtol=0, atol=0)
+    if floats:
+        compare_frames(want[floats], got[floats], f"{plan} on the card",
+                       rtol=1e-9, atol=0)

@@ -14,6 +14,7 @@ from spark_rapids_tpu_torch.exec.basic import LocalBatchSource
 from spark_rapids_tpu_torch.models import tpch
 from spark_rapids_tpu_torch.ops import grouped_window as GW
 from spark_rapids_tpu_torch.ops import kernels as K
+from spark_rapids_tpu_torch.utils import fuzzer
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "spark_rapids_tpu_torch").rglob("*.py")) + [
@@ -54,6 +55,7 @@ _ENTRY_POINTS = {
     "LocalBatchSource": lambda: LocalBatchSource([[]]),
     "build_q1_fused_kernel": lambda: tpch.build_q1_fused_kernel(1024, 256),
     "build_q1_kernel": lambda: tpch.build_q1_kernel(1024),
+    "random_batch": lambda: fuzzer.random_batch(np.random.default_rng(0)),
 }
 
 

@@ -126,25 +126,35 @@ def test_q21_islands_are_the_two_residual_joins(tables, reference):
 
 
 def test_unported_cast_makes_a_cpu_island(tables):
-    """A cast to a string is not ported: its node stays on the CPU with
-    the reason given, test.enabled refuses the plan, and the CPU node
-    does not evaluate it either."""
+    """A gated cast with its conf key off (float -> string,
+    spark.rapids.sql.castFloatToString.enabled) stays on the CPU with the
+    reference's reason, test.enabled refuses the plan, and the CPU node
+    evaluates it in Java's notation; with the key on it runs on the
+    device to the same strings."""
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.exprs.base import col
-    from spark_rapids_tpu_torch.plan.cpu_eval import CpuEvalError
+    from spark_rapids_tpu_torch.plan.cpu_eval import _java_float_str
     from spark_rapids_tpu_torch.plan.nodes import CpuProject
 
     def plan():
-        return CpuProject([col("p_size").cast(T.STRING).alias("s"),
+        return CpuProject([col("p_retailprice").cast(T.STRING).alias("s"),
                            col("p_size").cast(T.FLOAT64).alias("f")],
                           TD.sources(tables, 2)["part"])
     acc = accelerate(plan(), C.RapidsConf(dict(TB.BENCH_CONF)),
                      device="cpu")
     assert type(acc).__name__ == "CpuProject"
-    assert any("cast int32 -> string is not ported" in r
+    assert any("float->string formatting differs from Java at extreme "
+               "exponents; enable with "
+               "spark.rapids.sql.castFloatToString.enabled" in r
                for r in acc._meta.reasons)
-    with pytest.raises(CpuEvalError, match="not ported"):
-        collect(acc)
+    got = collect(acc)
+    prices = TD.sources(tables, 1)["part"].partitions[0]["p_retailprice"]
+    assert sorted(got["s"]) == sorted(_java_float_str(float(p))
+                                      for p in prices)
     with pytest.raises(AssertionError, match="CpuProject"):
         accelerate(plan(), C.RapidsConf({C.TEST_ENABLED.key: True}),
                    device="cpu")
+    on = C.RapidsConf({**TB.BENCH_CONF, C.TEST_ENABLED.key: True,
+                       C.CASTS_FLOAT_TO_STRING.key: True})
+    dev = accelerate(plan(), on, device="cpu")
+    assert sorted(collect(dev, on)["s"]) == sorted(got["s"])
