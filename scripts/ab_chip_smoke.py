@@ -1,12 +1,8 @@
 #!/usr/bin/env python3
 """Run chip_smoke.py of two checkouts on one card, in turns (A, B, B, A),
-and print each run's kernel lines, engine lines and exit code; with
---queries, run only those TPC-H queries at SF10 instead (each checkout's
-tpch_bench.run_query over sf10_tables(0), 16 partitions, the bench conf
-with test.enabled, two collects of new plans per query, timed).
+and print each run's kernel lines, engine lines and exit code.
 
     python3 scripts/ab_chip_smoke.py A_DIR B_DIR [--timeout S]
-    python3 scripts/ab_chip_smoke.py A_DIR B_DIR --queries 16,20
 
 Each directory holds a checkout with its own chip_smoke.py (for example
 the parent commit, unpacked with `git archive` into a directory that
@@ -23,32 +19,11 @@ from pathlib import Path
 KEEP = ("kernel ", "engine ", "stacked ", "build:", "NVIDIA", "{")
 
 
-#: the program --queries runs in each checkout
-QUERY_RUN = """
-import sys, time, torch
-from spark_rapids_tpu_torch import config as C
-from spark_rapids_tpu_torch.models import tpch_bench as TB
-tables, _ = TB.sf10_tables(0)
-conf = C.RapidsConf({**TB.BENCH_CONF, C.TEST_ENABLED.key: True})
-for q in map(int, sys.argv[1].split(",")):
-    for run in ("cold", "hot"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        df = TB.run_query(q, tables, num_partitions=TB.SF10_PARTITIONS,
-                          conf=conf)
-        torch.cuda.synchronize()
-        print(f"query q{q} {run}: {time.perf_counter() - t0:.3f} s, "
-              f"{len(df)} rows", flush=True)
-"""
-
-
-def run(tree: Path, timeout: float, queries=None) -> int:
-    cmd = [sys.executable, "chip_smoke.py"] if queries is None else \
-        [sys.executable, "-c", QUERY_RUN, queries]
-    proc = subprocess.run(cmd, cwd=tree, capture_output=True, text=True,
-                          timeout=timeout)
+def run(tree: Path, timeout: float) -> int:
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree,
+                          capture_output=True, text=True, timeout=timeout)
     for line in proc.stdout.splitlines():
-        if line.startswith(KEEP + ("query ",)):
+        if line.startswith(KEEP):
             print(f"  {line}")
     if proc.returncode:
         print(proc.stderr[-3000:])
@@ -60,15 +35,12 @@ def main() -> int:
     ap.add_argument("a", type=Path)
     ap.add_argument("b", type=Path)
     ap.add_argument("--timeout", type=float, default=600.0)
-    ap.add_argument("--queries", default=None,
-                    help="comma-separated TPC-H query numbers to time "
-                    "instead of chip_smoke.py")
     args = ap.parse_args()
     rcs = []
     for label, tree in (("A", args.a), ("B", args.b), ("B", args.b),
                         ("A", args.a)):
         print(f"== {label}: {tree}", flush=True)
-        rcs.append(run(tree.resolve(), args.timeout, args.queries))
+        rcs.append(run(tree.resolve(), args.timeout))
         print(f"   exit {rcs[-1]}", flush=True)
     return max(rcs)
 

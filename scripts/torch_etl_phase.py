@@ -6,7 +6,7 @@ goldens and checks (chip_smoke.etl_phase).  Prints the card's name and
 power limit first, then one line per plan (accelerate, cold and hot
 collect, plan runs, peak device memory, launches).
 
-    python3 scripts/torch_etl_phase.py [--seed N] [--sf F]
+    python3 scripts/torch_etl_phase.py [--seed N]
 """
 import argparse
 import sys
@@ -20,7 +20,6 @@ sys.path.insert(0, str(ROOT))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--sf", type=float, default=10.0)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -34,7 +33,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t0 = time.perf_counter()
-    tables, arrays = TB.sf10_tables(args.seed, args.sf)
+    tables, arrays = TB.sf10_tables(args.seed)
     gold = CS.golden_etl(arrays, tables, args.seed)
     del arrays
     print(f"data and goldens: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -33,10 +33,11 @@ from __future__ import annotations
 
 import types
 
+from spark_rapids_tpu_torch.models import tpch_bench
+
 #: the conf of the ETL plans: the TPC bench conf plus the three cast gates
 ETL_CONF = {
-    "spark.rapids.sql.variableFloatAgg.enabled": True,
-    "spark.rapids.sql.incompatibleOps.enabled": True,
+    **tpch_bench.BENCH_CONF,
     "spark.rapids.sql.castFloatToString.enabled": True,
     "spark.rapids.sql.castStringToFloat.enabled": True,
     "spark.rapids.sql.castStringToTimestamp.enabled": True,
