@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""GPU smoke run of spark_rapids_tpu_torch: all 22 TPC-H queries and the
-ETL plans of the type and expression layer at scale factor 10 (59,986,052
-lineitem rows in phases 4-6, TPC-H spec 4.2.5) on one NVIDIA card.
+"""GPU smoke run of spark_rapids_tpu_torch: all 22 TPC-H queries, the
+ETL plans of the type and expression layer and the 18 TPC-DS queries
+with a window, a ROLLUP or a UNION ALL at scale factor 10 (59,986,052
+lineitem rows in phases 4-6, TPC-H spec 4.2.5; 28,800,991 store_sales
+rows in phase 11, TPC-DS Table 3-2) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -40,7 +42,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      collects; accelerate (with the upload) and collect are timed apart,
      cold and hot;
   7. run TPC-H Q3, Q4 and Q5 (joins: HashJoinExec, SortedTopNExec) the
-     same way over the eight TPC-H tables at SF10, linked by dbgen's
+     same way over the eight TPC-H tables at SF5 (see the cuts below),
+     linked by dbgen's
      keys (tpch_bench.sf10_tables), 16 partitions: the exec trees must
      be the planner's, every join's lane and its probe batches are
      named and the kernels' launches counted, and the results must hold
@@ -62,8 +65,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
      same window_group_sums checks; then time LIKE '%green%' over 2^20
      p_name values, which must select the rows Contains does;
   9. run TPC-H Q2 and Q11-Q22 (InSet, Min/Max, scalar subqueries
-     through run, Cast) the same way over the same tables, cold and hot
-     (a second new plan; its collect is the one checked), each scalar
+     through run, Cast) the same way over the same tables, each scalar
      subquery a collect of its own on the card (timed apart), Q21 with
      its two semi/anti joins with a residual condition as CpuHashJoin
      islands (spark.rapids.sql.test.allowedNonGpu=CpuHashJoin, every
@@ -81,26 +83,50 @@ Phases, each of which raises on failure (exit code 1, no result line):
      'yyyy-MM-dd HH:mm:ss'; X2 derives a timestamp per order and groups
      its fields, to_date, trunc, months_between, time_add, weekday and
      text by the hour (counts and integers exact, months_between rtol
-     1e-12, the sample's rows too); X3 cleans the 1,500,000 customers'
+     1e-12, the sample's rows too); X3 cleans the customers'
      strings, every column held against Python's string methods, and
      counts them by split(c_phone, '-')[0] (c_nationkey + 10); X4 takes
      var_samp, stddev_samp, first/last, narrow-cast and bitwise sums,
      sqrt, log10 and a rounded average over lineitem by (l_returnflag,
      l_linestatus) (var/stddev rtol 1e-9 of a two-pass float64 golden,
      integer sums exact, float64 sums rtol 1e-9), stddev_samp by the
-     100,000 suppliers, and two ANSI casts: cast(l_extendedprice as
+     suppliers, and two ANSI casts: cast(l_extendedprice as
      smallint) must raise ArithmeticError at collect, cast(l_quantity
      as tinyint) must sum exactly; each plan new, accelerate and a cold
      and a hot collect timed apart, plan runs, peak device memory and
      the kernels' launches per plan printed, and the widest call of each
      kernel in each plan's hot collect held against its twin;
- 11. print the kernels line and, last, the device line.
+ 11. run the 18 TPC-DS queries of models/tpcds_queries.py (windows,
+     ROLLUPs through ExpandExec, UNION ALL) as a user submits them,
+     under the TPC bench conf with test.enabled, so that no plan has a
+     CPU node, after freeing phases 1-10's data: 11a over the
+     generator's tables at 100,000 store_sales rows, 16 partitions, each
+     result held against the CPU engine's (keys, strings, ranks, row
+     numbers, counts and the sort keys' order exact; sums and averages
+     rtol 1e-3: the banded lane adds in f32); 11b over
+     tpcds_bench.sf10_tables(seed, DS_SCALE) (7,200,248 store_sales
+     rows, a quarter of SF10's, the generator's own ratios for the
+     rest), 16 partitions, one new plan per query: accelerate and
+     collect timed apart, plan runs, peak device memory, rows, lane
+     decisions and the kernels' launches printed; the widest input batch of every WindowExec and ExpandExec
+     downloaded and the exec's output held against CpuWindow's pandas
+     evaluation / CpuExpand over the same rows (exact, window sums of
+     floats within n*eps*sum|x| of their input), and the widest call of
+     each kernel in each query against its twin;
+ 12. print the kernels line and, last, the device line.
+Cuts, to keep the script within 950 s of its 1,200 s limit once phase
+11 came: phase 9 runs one new plan per query, as phases 7 and 8 do
+(its second, hot plan went); phases 7-10 run over TPC-H at scale factor
+JOIN_SF = 5 (they ran at 10 before); phase 11b at a quarter of SF10's
+store_sales rows (at SF10 it took ~900 s alone on an H100;
+`scripts/torch_tpcds_phase.py --scale 28800991` runs it there).
 Every phase prints its wall time.  Without a CUDA device, or without
 the package beside it, it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import sys
 import time
@@ -112,6 +138,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 Q1_NAMES = ["sum_qty", "sum_base_price", "sum_disc_price", "sum_charge",
             "avg_qty", "avg_price", "avg_disc", "count_order"]
+
+
+def sf_of(tables: dict) -> str:
+    """The TPC-H scale factor of `tables`, from its orders (1,500,000 a
+    unit, spec 4.2.5)."""
+    return f"SF{len(tables['orders']) / 1_500_000:g}"
 
 
 def require(ok: bool, what: str) -> None:
@@ -1175,7 +1207,7 @@ def join_phase(torch, dev, tables, gold: dict, GW, K, trees=None,
                        f"{spied['device_to_host']:.3f} s, pandas joins "
                        f"{spied['cpu_joins']:.3f} s"
                        if spied["cpu_joins"] else "")
-            print(f"join q{q} SF10 {run}: "
+            print(f"join q{q} {sf_of(tables)} {run}: "
                   + (f"subqueries {t0 - ts:.3f} s, " if sub else "")
                   + f"accelerate {t1 - t0:.3f} s (with the upload), "
                   f"collect {t2 - t1:.3f} s (plan runs "
@@ -1189,7 +1221,8 @@ def join_phase(torch, dev, tables, gold: dict, GW, K, trees=None,
             torch.cuda.max_memory_allocated(dev) / 2**30
     out["peak_gb"] = max(out["peak_gb_by_query"].values())
     peaks = {k: round(v, 2) for k, v in out["peak_gb_by_query"].items()}
-    print(f"join queries {list(gold)} SF10 against the float64 golden: "
+    print(f"join queries {list(gold)} {sf_of(tables)} against the float64 "
+          f"golden: "
           f"keys, dates, counts and order exact, max rel err "
           f"{out['rel']:.3g}; peak device memory {out['peak_gb']:.2f} GiB "
           f"(by query {peaks})", flush=True)
@@ -1483,7 +1516,7 @@ def check_etl(name: str, df, gold: dict, tables: dict) -> float:
         require(np.array_equal(ints("rows"), gold["rows"][k]),
                 "x4: rows per supplier")
         err = rel(df["sd_price"], gold["sd_price"][k])
-        require(len(df) == 100_000 and err <= 1e-9,
+        require(len(df) == len(tables["supplier"]) and err <= 1e-9,
                 f"x4: stddev by supplier, {len(df)} rows, rel err {err}")
         return err
     raise KeyError(name)
@@ -1579,8 +1612,9 @@ def etl_phase(torch, dev, tables: dict, gold: dict, GW, K) -> dict:
         out["seconds"][name] = {"accelerate": t1 - t0, "cold": times[0],
                                 "hot": times[1]}
         out["peak_gb"][name] = peak
-        print(f"etl {name} SF10: accelerate {t1 - t0:.3f} s (with the "
-              f"upload), collect cold {times[0]:.3f} s / hot {times[1]:.3f}"
+        print(f"etl {name} {sf_of(tables)}: accelerate {t1 - t0:.3f} s "
+              f"(with the upload), collect cold {times[0]:.3f} s / hot "
+              f"{times[1]:.3f}"
               f" s (plan runs {runs[0]} / {runs[1]}), {len(df)} rows, peak "
               f"{peak:.2f} GiB, max rel err {err:.3g}, launches {launches}",
               flush=True)
@@ -1605,12 +1639,446 @@ def etl_phase(torch, dev, tables: dict, gold: dict, GW, K) -> dict:
             require(raised is None and int(df["total"][0]) ==
                     gold["x4"]["sum_qty"], f"ANSI {column} -> {to}")
         out["seconds"][f"ansi_{column}"] = time.perf_counter() - t0
-        print(f"etl ANSI cast({column} as {to}) SF10: "
+        print(f"etl ANSI cast({column} as {to}) {sf_of(tables)}: "
               f"{'raised ' + repr(raised) if raised else 'in range'}, "
               f"{time.perf_counter() - t0:.3f} s, launches "
               f"{out['launches'][f'ansi_{column}']}", flush=True)
         del plan
     return out
+
+
+#: TPC-H scale factor of phases 7-10's tables: cut from 10 when phase 11
+#: came, to keep the script within 950 s of its 1,200 s limit
+JOIN_SF = 5.0
+#: phase 11a's tables: store_sales rows
+DS_CHECK_SCALE = 100_000
+#: phase 11b's store_sales rows: a quarter of SF10's 28,800,991 (TPC-DS
+#: Table 3-2).  At SF10 phase 11b alone took ~900 s on an H100 (q67
+#: 213 s and 76.7 GiB, q49 133 s), past the script's limit
+DS_SCALE = 7_200_248
+#: sums and averages of phase 11a's card results against the CPU
+#: engine: the banded lane adds in f32
+DS_RTOL = 1e-3
+EPS64 = float(np.finfo(np.float64).eps)
+
+
+def _ds_norm(df):
+    """`df` with every non-float column as text (None for null) and
+    every float column as float64 (NaN for null)."""
+    import pandas as pd
+    out = {}
+    for c in df.columns:
+        s = df[c]
+        if str(s.dtype).lower() in ("float64", "float32"):
+            out[c] = pd.to_numeric(s, errors="coerce").astype("float64") \
+                .to_numpy()
+        else:
+            out[c] = pd.Series([None if v is None or v is pd.NA or (
+                isinstance(v, float) and v != v) else str(v)
+                for v in s], dtype=object)
+    return pd.DataFrame(out)
+
+
+def _ds_rows(df):
+    """_ds_norm's frame with its rows sorted by the text columns, then
+    by the floats to 4 significant digits (row sets compare in one
+    order whatever the engines' order of ties)."""
+    out = _ds_norm(df)
+    text = [c for c in out.columns if out[c].dtype == object]
+    rounded = {f"__{c}": out[c].map(lambda v: f"{v:.4e}")
+               for c in out.columns if c not in text}
+    order = out.assign(**rounded).fillna("").sort_values(
+        text + list(rounded)).index
+    return out.loc[order].reset_index(drop=True)
+
+
+def _ds_same(want, got, rtol: float, label: str) -> float:
+    """Normalized frames column by column in row order: nulls and text
+    exact, floats within rtol.  Returns the largest relative float
+    error."""
+    require(list(want.columns) == list(got.columns),
+            f"{label}: columns {list(got.columns)}")
+    require(len(want) == len(got),
+            f"{label}: {len(got)} rows, expected {len(want)}")
+    rel = 0.0
+    for c in want.columns:
+        w, g = want[c].to_numpy(), got[c].to_numpy()
+        if w.dtype == object or g.dtype == object:
+            require(w.tolist() == g.tolist(), f"{label}: column {c}")
+            continue
+        require(np.array_equal(np.isnan(w), np.isnan(g)),
+                f"{label}: nulls of {c}")
+        ok = ~np.isnan(w)
+        if ok.any():
+            rel = max(rel, float(np.max(np.abs(g[ok] - w[ok]) / np.maximum(
+                np.abs(w[ok]), 1e-12))))
+            require(np.allclose(g[ok], w[ok], rtol=rtol, atol=1e-9),
+                    f"{label}: column {c} beyond rtol {rtol}")
+    return rel
+
+
+def ds_order_columns(plan) -> list:
+    """The output columns a TPC-DS plan's final sort orders by."""
+    from spark_rapids_tpu_torch.exprs.base import AttributeReference
+    from spark_rapids_tpu_torch.plan.nodes import CpuSort
+    out = set(plan.output_schema().names)
+    node = plan
+    while not isinstance(node, CpuSort):
+        node = node.children[0]
+    return [o.expr.name for o in node.order
+            if isinstance(o.expr, AttributeReference) and o.expr.name in out]
+
+
+def check_ds_query(q: str, want, got, order_cols) -> float:
+    """Phase 11a: the card's result of query q against the CPU engine's:
+    the row sets (keys, strings, ranks, row numbers and counts exact;
+    sums and averages rtol DS_RTOL) and the sequence of every sort key
+    in result order."""
+    rel = _ds_same(_ds_rows(want), _ds_rows(got), DS_RTOL, q)
+    for c in order_cols:
+        _ds_same(_ds_norm(want[[c]]), _ds_norm(got[[c]]), DS_RTOL,
+                 f"{q} order of {c}")
+    return rel
+
+
+def widest_inputs(widest: dict, EX, W):
+    """While in use, keep in `widest` the widest input batch (the first
+    of the largest capacity) of every ExpandExec and WindowExec that
+    runs: {exec_id: (exec, batch)}.  Returns the undo."""
+    saved = (EX.ExpandExec.expand_batch, W.WindowExec.window_batch)
+
+    def keep(fn):
+        def call(self, batch):
+            have = widest.get(self.exec_id)
+            if have is None or batch.capacity > have[1].capacity:
+                widest[self.exec_id] = (self, batch)
+            return fn(self, batch)
+        return call
+    EX.ExpandExec.expand_batch = keep(saved[0])
+    W.WindowExec.window_batch = keep(saved[1])
+
+    def undo():
+        EX.ExpandExec.expand_batch, W.WindowExec.window_batch = saved
+    return undo
+
+
+def check_exec_batch(ex, batch, W) -> dict:
+    """One ExpandExec's or WindowExec's widest input batch, downloaded:
+    the exec's device output against CpuExpand / the CPU window
+    evaluation over the same rows, in the same row order.  Exact, but
+    for window sums and averages of floats: within n*eps*sum|x| of that
+    function's input over the batch."""
+    from spark_rapids_tpu_torch.plan import nodes as N
+    from spark_rapids_tpu_torch.plan.cpu_eval import cpu_eval
+    from spark_rapids_tpu_torch.plan.transitions import df_from_batch
+    t0 = time.perf_counter()
+    schema = ex.child.output_schema()
+    df_in = df_from_batch(batch)
+    is_window = isinstance(ex, W.WindowExec)
+    got = df_from_batch(ex.window_batch(batch) if is_window
+                        else ex.expand_batch(batch))
+    t1 = time.perf_counter()
+    tol = {}
+    if is_window:
+        names = ex.output_schema().names[-len(ex.fns):]
+        pairs = list(zip(ex.fns, names))
+        want = N.normalize_df(W._cpu_window_eval(
+            df_in, schema, ex.spec, pairs), ex.output_schema())
+        for fn, name in pairs:
+            if fn.kind in ("sum", "avg") and (
+                    fn.kind == "avg" or
+                    fn.child.data_type(schema).is_floating):
+                x = cpu_eval(fn.child, df_in, schema).astype("Float64")
+                x = np.abs(x.dropna().to_numpy(np.float64))
+                tol[name] = len(df_in) * EPS64 * float(x.sum())
+    else:
+        stand_in = N.CpuSource([], schema)
+        want = N.CpuExpand(ex.projections, ex.output_schema().names,
+                           stand_in)._expand_df(df_in)
+    t2 = time.perf_counter()
+    require(len(want) == len(got), f"{ex.describe()}: rows differ")
+    worst = 0.0
+    for c in want.columns:
+        w, g = _ds_norm(want[[c]])[c].to_numpy(), \
+            _ds_norm(got[[c]])[c].to_numpy()
+        if c in tol:
+            require(np.array_equal(np.isnan(w), np.isnan(g)),
+                    f"{ex.describe()}: nulls of {c}")
+            ok = ~np.isnan(w)
+            err = float(np.max(np.abs(g[ok] - w[ok]))) if ok.any() else 0.0
+            require(err <= tol[c], f"{ex.describe()}: {c} off by {err} "
+                    f"past n*eps*sum|x| = {tol[c]}")
+            worst = max(worst, err / tol[c] if tol[c] else 0.0)
+        else:
+            require(w.tolist() == g.tolist() if w.dtype == object
+                    else np.array_equal(w, g, equal_nan=True),
+                    f"{ex.describe()}: column {c} differs")
+    return {"exec": ex.describe(), "rows": len(df_in),
+            "out_rows": len(got), "download_s": t1 - t0,
+            "cpu_s": t2 - t1, "worst_sum_share_of_bound": worst}
+
+
+def ds_check_phase(torch, dev, seed: int) -> dict:
+    """Phase 11a: the 18 queries over the generator's tables at
+    DS_CHECK_SCALE, 16 partitions, on the card against the CPU engine."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.models import tpcds_bench as DB
+    from spark_rapids_tpu_torch.models import tpcds_data as DD
+    from spark_rapids_tpu_torch.models.tpcds_queries import QUERIES
+    tables = DB.sf10_tables(seed, DS_CHECK_SCALE)
+    n = DB.SF10_PARTITIONS
+    conf = C.RapidsConf({**DB.BENCH_CONF, C.TEST_ENABLED.key: True})
+    out = {"rel": 0.0, "seconds": {}}
+    for q in sorted(QUERIES, key=lambda s: int(s[1:])):
+        t0 = time.perf_counter()
+        cpu_plan = QUERIES[q](DD.sources(tables, n),
+                              lambda p: p.collect())
+        want = cpu_plan.collect()
+        t1 = time.perf_counter()
+        got = DB.run_query(q, tables, device=dev, conf=conf,
+                           num_partitions=n)
+        t2 = time.perf_counter()
+        require(len(want) > 0, f"{q}: the CPU engine's result is empty")
+        rel = check_ds_query(q, want, got, ds_order_columns(cpu_plan))
+        out["rel"] = max(out["rel"], rel)
+        out["seconds"][q] = {"cpu": t1 - t0, "card": t2 - t1}
+        print(f"tpcds {q} at scale {DS_CHECK_SCALE}: {len(got)} rows equal "
+              f"to the CPU engine's (CPU {t1 - t0:.2f} s, card "
+              f"{t2 - t1:.2f} s), max rel err {rel:.3g}", flush=True)
+    return out
+
+
+def ds_query(q: str, tables: dict, torch, dev, GW, K, cases) -> dict:
+    """Phase 11b's run of query q (see ds_phase); every device tensor it
+    made is dropped when it returns."""
+    from collections import Counter
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.exec import aggregate as AGG
+    from spark_rapids_tpu_torch.exec import expand as EX
+    from spark_rapids_tpu_torch.exec import window as W
+    from spark_rapids_tpu_torch.models import tpcds_bench as DB
+    from spark_rapids_tpu_torch.models import tpcds_data as DD
+    from spark_rapids_tpu_torch.models.tpcds_queries import QUERIES
+    from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
+    grouped_case, window_case = cases
+    conf = C.RapidsConf({**DB.BENCH_CONF, C.TEST_ENABLED.key: True})
+
+    def run(plan):
+        return collect(accelerate(plan, conf, device=dev), conf)
+    calls: list = []
+    gcalls: list = []
+    widest: dict = {}
+    lanes: Counter = Counter()
+    spied: Counter = Counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ts = time.perf_counter()
+    plan = accelerate(QUERIES[q](DD.sources(tables, DB.SF10_PARTITIONS),
+                                 run), conf, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    GW.window_group_sums.launches = 0
+    K.grouped_sum.launches = 0
+    K.q1_fused.launches = 0
+    AGG.window_group_sums = recording(calls, GW)
+    AGG.grouped_sum = recording_grouped(gcalls, K)
+    undo = [lane_spy(AGG, lanes), collect_spy(spied),
+            widest_inputs(widest, EX, W)]
+    try:
+        df = collect(plan, conf)
+    finally:
+        for u in undo:
+            u()
+        AGG.window_group_sums = GW.window_group_sums
+        AGG.grouped_sum = K.grouped_sum
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {"window_group_sums": GW.window_group_sums.launches,
+                "grouped_sum": K.grouped_sum.launches,
+                "q1_fused": K.q1_fused.launches}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    names = [type(e).__name__ for e in walk(plan)]
+    del plan
+    require(any(x in names for x in ("WindowExec", "ExpandExec")),
+            f"{q}: no WindowExec or ExpandExec in {names}")
+    require(widest, f"{q}: no ExpandExec or WindowExec ran")
+    floats = [c for c in df.columns
+              if str(df[c].dtype).lower().startswith("float")]
+    require(all(np.isfinite(df[c].dropna().to_numpy(np.float64)).all()
+                for c in floats), f"{q}: a non-finite value")
+    require(launches["q1_fused"] == 0,
+            f"{q}: q1_fused launched: no call of it is checked")
+    agg_lanes = {f"{m}={d}": c for (m, d), c in sorted(lanes.items())}
+    print(f"tpcds {q} ({len(tables['store_sales'])} store_sales rows): "
+          f"accelerate {t1 - ts:.3f} s (with the "
+          f"upload), collect {t2 - t1:.3f} s (plan runs "
+          f"{spied['executions']}), {len(df)} rows, peak device memory "
+          f"{peak:.2f} GiB, launches {launches}, aggregate lanes "
+          f"{agg_lanes}", flush=True)
+    out = {"launches": launches, "peak_gb": peak, "rows": len(df),
+           "seconds": {"accelerate": t1 - ts, "collect": t2 - t1},
+           "plan_runs": spied["executions"], "execs": []}
+    for ex, batch in widest.values():
+        res = check_exec_batch(ex, batch, W)
+        out["execs"].append(res)
+        print(f"tpcds {q} {res['exec']}: widest input {res['rows']} rows "
+              f"-> {res['out_rows']}, equal to the CPU node (worst window "
+              f"sum at {res['worst_sum_share_of_bound']:.3g} of its bound; "
+              f"download {res['download_s']:.2f} s, CPU {res['cpu_s']:.2f} "
+              f"s)", flush=True)
+    require(bool(calls) == bool(launches["window_group_sums"]),
+            f"{q}: window_group_sums launched but no call recorded")
+    require(bool(gcalls) == bool(launches["grouped_sum"]),
+            f"{q}: grouped_sum launched but no call recorded")
+    if calls:
+        gid, vals, cap = calls
+        case = window_case(gid, vals, cap, 10, strict=False)
+        case.update(query=q, launches=launches["window_group_sums"],
+                    shape=f"{q} widest call: capacity {gid.numel()}, "
+                    f"out_cap {cap}, M={len(vals)}")
+        print(kernel_text("window_group_sums", case), flush=True)
+        out["window_case"] = case
+    if gcalls:
+        keys, vals, rows, groups = gcalls
+        case = grouped_case(keys, vals, rows, groups, None, 10,
+                            strict=False)
+        case.update(query=q, launches=launches["grouped_sum"],
+                    shape=f"{q} widest call: capacity {keys.numel()}, "
+                    f"G={groups}, M={len(vals)}, tier {case['tier']}")
+        print(kernel_text("grouped_sum", case), flush=True)
+        out["grouped_case"] = case
+    return out
+
+
+def ds_phase(torch, dev, seed: int, GW, K, scale: Optional[int] = None,
+             queries: Optional[list] = None) -> dict:
+    """Phase 11b: the 18 queries (or `queries`) over
+    `tpcds_bench.sf10_tables(seed, scale)` (SF10's 28,800,991
+    store_sales rows by default), 16 partitions, one new plan each,
+    under the TPC bench conf with test.enabled.  Per query: accelerate
+    and collect timed apart, plan runs, peak device memory, rows, lane
+    decisions, the kernels' launches; the widest input batch of every
+    WindowExec and ExpandExec held against its CPU node
+    (check_exec_batch), and the widest call of each kernel against its
+    twin."""
+    from spark_rapids_tpu_torch.models import tpcds_bench as DB
+    from spark_rapids_tpu_torch.models.tpcds_queries import QUERIES
+    cases = kernel_cases(torch, dev, GW, K)
+    scale = scale or DB.SF10_STORE_SALES
+    t0 = time.perf_counter()
+    tables = DB.sf10_tables(seed, scale)
+    print("tpcds data: " + ", ".join(f"{k} {len(v)}" for k, v in
+                                     tables.items())
+          + f" rows, {time.perf_counter() - t0:.1f} s", flush=True)
+    out = {}
+    for q in queries or sorted(QUERIES, key=lambda s: int(s[1:])):
+        out[q] = ds_query(q, tables, torch, dev, GW, K, cases)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def kernel_cases(torch, dev, GW, K):
+    """(grouped_case, window_case): a kernel's call on `dev` held
+    against its plain twin, its second call's bits, and its times (the
+    wrapper, the kernel alone, the twin and the library call), for
+    phases 3 and 7-11."""
+    def grouped_case(keys, vals, nrows, n_groups, tier, reps, strict=True):
+        def call():
+            return K.grouped_sum(keys, vals, nrows, n_groups=n_groups,
+                                 capacity=keys.numel())
+
+        got_s, got_c = call()
+        if tier is None:  # a main-path call: whichever tier it takes
+            (tier,) = set(K.grouped_sum.last_tiers)
+        require(K.grouped_sum.last_tiers == [tier],
+                f"grouped_sum at G={n_groups} took tiers "
+                f"{K.grouped_sum.last_tiers}, expected {tier}")
+        if tier in ("A", "B"):
+            same_bits((got_s, got_c), call(), f"grouped_sum tier {tier}")
+        nr = torch.full((1,), nrows, dtype=torch.int32, device=dev)
+        want_s, want_c = K.grouped_sum_plain(
+            keys, vals, nr, n_groups=n_groups, capacity=keys.numel())
+        require(torch.equal(got_c, want_c), "grouped_sum counts differ")
+        # a dictionary batch of counts alone (Q13's) has no measure
+        err = (got_s - want_s).abs().max().item() if vals else 0.0
+        rel = ((got_s - want_s).abs() / want_s.abs().clamp_min(1.0)
+               ).max().item() if vals else 0.0
+        require(rel <= 1e-4, f"grouped_sum vs plain rel err {rel}")
+        m = len(vals)
+        kept = ((keys >= 0) & (keys < n_groups)
+                & (torch.arange(keys.numel(), device=dev) < nrows))
+        n_kept = int(kept.sum().item())
+        b_ms, b_by = bound(keys.numel() * 4 + n_kept * m * 4
+                           + n_groups * (m + 1) * 4, n_kept * (m + 1))
+        seg = torch.where(kept, keys, n_groups).to(torch.int64)
+        lib_vals = torch.where(kept[:, None], torch.stack(vals, 1), 0.0) \
+            if vals else torch.zeros((keys.numel(), 0), device=dev)
+
+        def library():
+            torch.zeros((n_groups + 1, m), device=dev).index_add_(
+                0, seg, lib_vals)
+            torch.bincount(seg, minlength=n_groups + 1)
+
+        prof_ms = device_ms(torch, call, "grouped_sum", reps, strict)
+        ev_ms = event_ms(torch, call, reps)
+        return {
+            "max_abs_err": err, "max_rel_err": rel, "rtol": 1e-4,
+            "tier": tier, "ms": cuda_ms(torch, call, reps),
+            "device_ms": ev_ms if prof_ms is None else prof_ms,
+            "device_ms_by": "events" if prof_ms is None else "profiler",
+            "event_ms": ev_ms,
+            "plain_ms": cuda_ms(torch, lambda: K.grouped_sum_plain(
+                keys, vals, nr, n_groups=n_groups,
+                capacity=keys.numel()), reps),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(torch, library, reps)}
+
+    def window_case(gid, vals, out_cap, reps, strict=True):
+        def call():
+            return GW.window_group_sums(gid, vals, out_cap=out_cap,
+                                        capacity=gid.numel())
+
+        before = GW.window_group_sums.launches
+        got = call()
+        require(GW.window_group_sums.launches
+                == before + -(-len(vals) // K.MAX_MEASURES),
+                "window_group_sums did not launch its kernel")
+        same_bits((got,), (call(),), "window_group_sums")
+        want = GW.window_group_sums_plain(gid, vals, out_cap=out_cap)
+        err = (got - want).abs().max().item()
+        rel = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+        require(rel <= 1e-4, f"window_group_sums vs plain rel err {rel}")
+        for j, v in enumerate(vals):
+            # integers whose absolute sum is below 2^24 add exactly in f32
+            # in any order
+            if (bool((v == v.round()).all().item())
+                    and v.abs().double().sum().item() < 2**24):
+                require(torch.equal(got[:, j], want[:, j]),
+                        f"window_group_sums measure {j} of integers is "
+                        f"not exact")
+        m, n = len(vals), gid.numel()
+        b_ms, b_by = bound(n * 4 + n * m * 4 + out_cap * m * 4, n * m)
+        seg = torch.where((gid >= 0) & (gid < out_cap), gid,
+                          out_cap).to(torch.int64)
+        lib_vals = torch.stack(vals, 1)
+        prof_ms = device_ms(torch, call, "window_group_sums", reps, strict)
+        ev_ms = event_ms(torch, call, reps)
+        return {
+            "max_abs_err": err, "max_rel_err": rel, "rtol": 1e-4,
+            "ms": cuda_ms(torch, call, reps),
+            # the profiler's, or where it records nothing the events'
+            "device_ms": ev_ms if prof_ms is None else prof_ms,
+            "device_ms_by": "events" if prof_ms is None else "profiler",
+            "event_ms": ev_ms,
+            "plain_ms": cuda_ms(torch, lambda: GW.window_group_sums_plain(
+                gid, vals, out_cap=out_cap), reps),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(torch, lambda: torch.zeros(
+                (out_cap + 1, m), device=dev).index_add_(0, seg, lib_vals),
+                reps)}
+
+    return grouped_case, window_case
 
 
 def main() -> int:
@@ -1694,56 +2162,7 @@ def main() -> int:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"{TB.N_BATCHES}x2^23 stacked"}
 
-    def grouped_case(keys, vals, nrows, n_groups, tier, reps, strict=True):
-        def call():
-            return K.grouped_sum(keys, vals, nrows, n_groups=n_groups,
-                                 capacity=keys.numel())
-
-        got_s, got_c = call()
-        if tier is None:  # a main-path call: whichever tier it takes
-            (tier,) = set(K.grouped_sum.last_tiers)
-        require(K.grouped_sum.last_tiers == [tier],
-                f"grouped_sum at G={n_groups} took tiers "
-                f"{K.grouped_sum.last_tiers}, expected {tier}")
-        if tier in ("A", "B"):
-            same_bits((got_s, got_c), call(), f"grouped_sum tier {tier}")
-        nr = torch.full((1,), nrows, dtype=torch.int32, device=dev)
-        want_s, want_c = K.grouped_sum_plain(
-            keys, vals, nr, n_groups=n_groups, capacity=keys.numel())
-        require(torch.equal(got_c, want_c), "grouped_sum counts differ")
-        # a dictionary batch of counts alone (Q13's) has no measure
-        err = (got_s - want_s).abs().max().item() if vals else 0.0
-        rel = ((got_s - want_s).abs() / want_s.abs().clamp_min(1.0)
-               ).max().item() if vals else 0.0
-        require(rel <= 1e-4, f"grouped_sum vs plain rel err {rel}")
-        m = len(vals)
-        kept = ((keys >= 0) & (keys < n_groups)
-                & (torch.arange(keys.numel(), device=dev) < nrows))
-        n_kept = int(kept.sum().item())
-        b_ms, b_by = bound(keys.numel() * 4 + n_kept * m * 4
-                           + n_groups * (m + 1) * 4, n_kept * (m + 1))
-        seg = torch.where(kept, keys, n_groups).to(torch.int64)
-        lib_vals = torch.where(kept[:, None], torch.stack(vals, 1), 0.0) \
-            if vals else torch.zeros((keys.numel(), 0), device=dev)
-
-        def library():
-            torch.zeros((n_groups + 1, m), device=dev).index_add_(
-                0, seg, lib_vals)
-            torch.bincount(seg, minlength=n_groups + 1)
-
-        prof_ms = device_ms(torch, call, "grouped_sum", reps, strict)
-        ev_ms = event_ms(torch, call, reps)
-        return {
-            "max_abs_err": err, "max_rel_err": rel, "rtol": 1e-4,
-            "tier": tier, "ms": cuda_ms(torch, call, reps),
-            "device_ms": ev_ms if prof_ms is None else prof_ms,
-            "device_ms_by": "events" if prof_ms is None else "profiler",
-            "event_ms": ev_ms,
-            "plain_ms": cuda_ms(torch, lambda: K.grouped_sum_plain(
-                keys, vals, nr, n_groups=n_groups,
-                capacity=keys.numel()), reps),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_ms(torch, library, reps)}
+    grouped_case, window_case = kernel_cases(torch, dev, GW, K)
 
     # Q1's dictionary-lane shape: composite slot (flag window 4+1 x status
     # window 4+1) = 25 slots + the masked slot, 14 measures
@@ -1775,50 +2194,6 @@ def main() -> int:
     mid_keys = torch.remainder(wide_keys, 300)
     gs_mid = grouped_case(mid_keys, q1_vals, TB.BATCH_CAP, 300, "B", 10)
     gs_mid["shape"] = "2^23 rows, G=300, M=14"
-
-    def window_case(gid, vals, out_cap, reps, strict=True):
-        def call():
-            return GW.window_group_sums(gid, vals, out_cap=out_cap,
-                                        capacity=gid.numel())
-
-        before = GW.window_group_sums.launches
-        got = call()
-        require(GW.window_group_sums.launches
-                == before + -(-len(vals) // K.MAX_MEASURES),
-                "window_group_sums did not launch its kernel")
-        same_bits((got,), (call(),), "window_group_sums")
-        want = GW.window_group_sums_plain(gid, vals, out_cap=out_cap)
-        err = (got - want).abs().max().item()
-        rel = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
-        require(rel <= 1e-4, f"window_group_sums vs plain rel err {rel}")
-        for j, v in enumerate(vals):
-            # integers whose absolute sum is below 2^24 add exactly in f32
-            # in any order
-            if (bool((v == v.round()).all().item())
-                    and v.abs().double().sum().item() < 2**24):
-                require(torch.equal(got[:, j], want[:, j]),
-                        f"window_group_sums measure {j} of integers is "
-                        f"not exact")
-        m, n = len(vals), gid.numel()
-        b_ms, b_by = bound(n * 4 + n * m * 4 + out_cap * m * 4, n * m)
-        seg = torch.where((gid >= 0) & (gid < out_cap), gid,
-                          out_cap).to(torch.int64)
-        lib_vals = torch.stack(vals, 1)
-        prof_ms = device_ms(torch, call, "window_group_sums", reps, strict)
-        ev_ms = event_ms(torch, call, reps)
-        return {
-            "max_abs_err": err, "max_rel_err": rel, "rtol": 1e-4,
-            "ms": cuda_ms(torch, call, reps),
-            # the profiler's, or where it records nothing the events'
-            "device_ms": ev_ms if prof_ms is None else prof_ms,
-            "device_ms_by": "events" if prof_ms is None else "profiler",
-            "event_ms": ev_ms,
-            "plain_ms": cuda_ms(torch, lambda: GW.window_group_sums_plain(
-                gid, vals, out_cap=out_cap), reps),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_ms(torch, lambda: torch.zeros(
-                (out_cap + 1, m), device=dev).index_add_(0, seg, lib_vals),
-                reps)}
 
     # Q1's merge shape: 8 partials x 6 groups sorted into a 16384-row
     # batch, 17 measures (4 Sum x 2, 3 Average x 2, 1 Count, 2 limbs)
@@ -1947,7 +2322,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     from spark_rapids_tpu_torch.models import tpch_data as TD
     t0 = time.perf_counter()
-    tables, arrays = TB.sf10_tables(args.seed)
+    tables, arrays = TB.sf10_tables(args.seed, sf=JOIN_SF)
     print("join data: " + ", ".join(f"{k} {len(v)}" for k, v in
                                     tables.items())
           + f" rows, {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2002,10 +2377,10 @@ def main() -> int:
     # Q21's two CPU islands
     rest = join_phase(
         torch, dev, tables, gold_rest, GW, K, check=check_rest_query,
-        trees={q: [TREE_CODES[c] for c in t.split()]
+        runs=("cold",), trees={q: [TREE_CODES[c] for c in t.split()]
                for q, t in REST_TREES.items()})
     print(f"Q15's aggregate lanes on the card: "
-          f"{rest['agg_lanes']['q15_hot']}; its revenue equals the "
+          f"{rest['agg_lanes']['q15_cold']}; its revenue equals the "
           f"subquery's max to the bit", flush=True)
     join_cases += check_join_calls(
         rest, [q for q in gold_rest if rest["window_group_sums"][f"q{q}"]])
@@ -2061,6 +2436,18 @@ def main() -> int:
             "q1_fused launched in an ETL plan: no call of it is checked")
     lap("10 (ETL expressions X1-X4)")
 
+    # 11. the TPC-DS slice, with phases 1-10's device and host data freed
+    for ph in (joins, parts, rest, etl):
+        ph.pop("calls", None)
+        ph.pop("grouped_calls", None)
+    del gold, gold_parts, gold_rest, green
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds_check = ds_check_phase(torch, dev, args.seed)
+    lap("11a (TPC-DS 18 queries at scale 100,000 against the CPU engine)")
+    ds = ds_phase(torch, dev, args.seed, GW, K, DS_SCALE)
+    lap(f"11b (TPC-DS 18 queries at {DS_SCALE} store_sales rows)")
+
     kernels["q1_fused"]["launches"] = step_launches
     kernels["grouped_sum"]["launches"] = engine_launches["grouped_sum"]
     kernels["window_group_sums"]["launches"] = \
@@ -2073,6 +2460,8 @@ def main() -> int:
     for name in kernels:
         kernels[name]["etl_launches"] = {
             p: v[name] for p, v in etl["launches"].items() if v[name]}
+        kernels[name]["tpcds_launches"] = {
+            q: v["launches"][name] for q, v in ds.items()}
     case_keys = ("query", "plan", "shape", "launches", "max_abs_err",
                  "max_rel_err", "ms", "device_ms", "device_ms_by",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2083,6 +2472,11 @@ def main() -> int:
     for name, cases in etl_cases.items():
         kernels[name]["etl_cases"] = [
             {k: c[k] for k in case_keys if k in c} for c in cases]
+    for name, key in (("window_group_sums", "window_case"),
+                      ("grouped_sum", "grouped_case")):
+        kernels[name]["tpcds_cases"] = [
+            {k: v[key][k] for k in case_keys if k in v[key]}
+            for v in ds.values() if key in v]
     print(f"like over {like['rows']} rows: {like['ms']:.4f} ms "
           f"(Contains {like['contains_ms']:.4f} ms), same rows as "
           f"Contains and the p_name green mask", flush=True)
@@ -2090,7 +2484,7 @@ def main() -> int:
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "planner_q1_launches",
             "join_queries_launches", "join_cases", "etl_launches",
-            "etl_cases")
+            "etl_cases", "tpcds_launches", "tpcds_cases")
     line = {"kernels": [{k: v[k] for k in keys if k in v}
                         for v in kernels.values()]}
     print(json.dumps(line), flush=True)

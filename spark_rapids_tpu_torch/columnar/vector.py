@@ -266,15 +266,20 @@ def strings_to_bytes(values, valid) -> tuple[np.ndarray, np.ndarray]:
     Values that are all str (or null) with few distinct ones, as flag
     and code columns are, encode each distinct value once and gather its
     bytes by the factorized codes; anything else takes the per-row
-    encode."""
+    encode.  `pd.factorize` hashes a value only up to its first NUL, so
+    it may merge "a\\x00b" with "a\\x00": the codes are kept only when
+    every row equals the unique it was given (one C-level compare per
+    row)."""
     import pandas as pd
     values = np.asarray(values)
     valid = np.asarray(valid, bool)
     n = len(values)
     if n and pd.api.types.infer_dtype(values[valid], skipna=False) in (
             "string", "empty"):
-        codes, uniques = pd.factorize(np.where(valid, values, ""))
-        if len(uniques) * 8 <= n:
+        flat = np.where(valid, values, "")
+        codes, uniques = pd.factorize(flat)
+        if len(uniques) * 8 <= n and \
+                np.array_equal(np.asarray(uniques, object)[codes], flat):
             data, lens = _bytes_matrix(_encode_rows(
                 uniques, np.ones(len(uniques), bool)))
             return data[codes], lens[codes]

@@ -139,17 +139,38 @@ def sort_with_bounds(key_cols: list, row_mask: torch.Tensor):
     segment boundaries from the sorted words.  Returns (perm,
     sorted_valid, bounds); invalid rows sort last and never start a
     segment."""
+    perm, sorted_valid, bounds, _ = sort_with_prefix_bounds(
+        key_cols, row_mask, len(key_cols))
+    return perm, sorted_valid, bounds
+
+
+def sort_with_prefix_bounds(key_cols: list, row_mask: torch.Tensor,
+                            prefix: int):
+    """`sort_with_bounds` whose first `prefix` keys form the grouping (a
+    window's PARTITION BY) and the rest its order: the prefix packs into
+    words of its own, so no word straddles the border.  Returns (perm,
+    sorted_valid, prefix_bounds, all_bounds); invalid rows sort last and
+    never start a segment."""
     cap = row_mask.shape[0]
-    keys = [((~row_mask).to(torch.int64), 1)]
-    for c, asc, nf in key_cols:
-        keys.extend(encode_key_bits(c, asc, nf))
-    words = _pack_words(keys)
-    perm = _sort_words(words)
+    lead = [((~row_mask).to(torch.int64), 1)]
+    for c, asc, nf in key_cols[:prefix]:
+        lead.extend(encode_key_bits(c, asc, nf))
+    rest: list = []
+    for c, asc, nf in key_cols[prefix:]:
+        rest.extend(encode_key_bits(c, asc, nf))
+    pwords = _pack_words(lead)
+    rwords = _pack_words(rest)
+    perm = _sort_words(pwords + rwords)
     iota = torch.arange(cap, device=row_mask.device)
     sorted_valid = iota < row_mask.sum()
-    bounds = sorted_valid & (_neq_prev([w[perm] for w in words])
-                             | (iota == 0))
-    return perm, sorted_valid, bounds
+    first = iota == 0
+    pneq = _neq_prev([w[perm] for w in pwords])
+    prefix_bounds = sorted_valid & (pneq | first)
+    if not rwords:
+        return perm, sorted_valid, prefix_bounds, prefix_bounds
+    all_bounds = sorted_valid & (pneq | _neq_prev([w[perm] for w in rwords])
+                                 | first)
+    return perm, sorted_valid, prefix_bounds, all_bounds
 
 
 def multi_key_argsort(key_cols: list, row_mask: torch.Tensor

@@ -556,3 +556,152 @@ class CpuHashJoin(CpuNode):
         both = T.Schema(tuple(ls.fields) + tuple(rs.fields))
         m = cpu_eval(self.condition, comb, both)
         return m.astype("boolean").fillna(False).astype(bool).to_numpy()
+
+
+class CpuRange(CpuNode):
+    def __init__(self, start: int, end: int, step: int = 1,
+                 num_partitions: int = 1):
+        super().__init__()
+        self.start, self.end, self.step = start, end, step
+        self.num_partitions = num_partitions
+        self._schema = T.Schema.of(("id", T.INT64, False))
+
+    def output_partition_count(self) -> int:
+        return self.num_partitions
+
+    def output_schema(self):
+        return self._schema
+
+    def execute(self):
+        vals = np.arange(self.start, self.end, self.step, np.int64)
+        bounds = np.linspace(0, len(vals),
+                             self.num_partitions + 1).astype(int)
+        return [iter([pd.DataFrame(
+            {"id": pd.array(vals[bounds[i]:bounds[i + 1]], "Int64")})])
+            for i in range(self.num_partitions)]
+
+
+class CpuUnion(CpuNode):
+    """UNION ALL under the first child's schema; the other children's
+    frames take its column names by position."""
+
+    def __init__(self, *children: CpuNode):
+        super().__init__(*children)
+        self._schema = children[0].output_schema()
+
+    def output_schema(self):
+        return self._schema
+
+    def output_partition_count(self) -> int:
+        return sum(c.output_partition_count() for c in self.children)
+
+    def execute(self):
+        names = list(self._schema.names)
+
+        def renamed(it):
+            for df in it:
+                yield df.set_axis(names, axis=1)
+        return [renamed(it) for c in self.children for it in c.execute()]
+
+
+def _common_types(cs: T.Schema, projections) -> list:
+    """Per output column, the common type of what every projection
+    puts there."""
+    dts = [e.data_type(cs) for e in projections[0]]
+    for p in projections[1:]:
+        for i, e in enumerate(p):
+            dt = e.data_type(cs)
+            if dt != dts[i]:
+                dts[i] = T.common_type(dts[i], dt)
+    return dts
+
+
+class CpuExpand(CpuNode):
+    """Every input row emits one output row per projection list (Spark's
+    ExpandExec: the building block of grouping sets, ROLLUP and CUBE).
+    Device conversion: exec/expand.py ExpandExec."""
+
+    def __init__(self, projections: Sequence[Sequence[Expression]],
+                 names: Sequence[str], child: CpuNode):
+        super().__init__(child)
+        self.projections = [list(p) for p in projections]
+        self.names = list(names)
+        dts = _common_types(child.output_schema(), self.projections)
+        self._schema = T.Schema(tuple(
+            T.Field(n, dt) for n, dt in zip(self.names, dts)))
+
+    def output_schema(self):
+        return self._schema
+
+    def describe(self):
+        return f"CpuExpand({len(self.projections)} projections)"
+
+    def _expand_df(self, df: pd.DataFrame) -> pd.DataFrame:
+        cs = self.child.output_schema()
+        frames = []
+        for p_i, proj in enumerate(self.projections):
+            cols = {}
+            for n, e in zip(self.names, proj):
+                v = cpu_eval(e, df, cs)
+                cols[n] = (v.reset_index(drop=True)
+                           if isinstance(v, pd.Series) else v)
+            f = pd.DataFrame(cols, index=pd.RangeIndex(len(df)))
+            f["__row"] = np.arange(len(df))
+            f["__proj"] = p_i
+            frames.append(f)
+        out = pd.concat(frames, ignore_index=True).sort_values(
+            ["__row", "__proj"], kind="stable", ignore_index=True)
+        return normalize_df(out.drop(columns=["__row", "__proj"]),
+                            self._schema)
+
+    def execute(self):
+        def run(it):
+            for df in it:
+                yield self._expand_df(df)
+        return [run(it) for it in self.child.execute()]
+
+
+class CpuGenerate(CpuNode):
+    """explode/posexplode of an inline array of expressions (Spark's
+    GenerateExec with the generator shape the reference accelerates).
+    Device conversion: exec/expand.py GenerateExec."""
+
+    def __init__(self, element_exprs: Sequence[Expression], child: CpuNode,
+                 include_pos: bool = False, value_name: str = "col",
+                 retained: Optional[Sequence[str]] = None):
+        super().__init__(child)
+        self.element_exprs = list(element_exprs)
+        self.include_pos = include_pos
+        self.value_name = value_name
+        cs = child.output_schema()
+        self.retained = (list(retained) if retained is not None
+                         else list(cs.names))
+        (dt,) = _common_types(cs, [[e] for e in self.element_exprs])
+        fields = [cs.field(n) for n in self.retained]
+        if include_pos:
+            fields.append(T.Field("pos", T.INT32))
+        fields.append(T.Field(value_name, dt))
+        self._schema = T.Schema(tuple(fields))
+
+    def output_schema(self):
+        return self._schema
+
+    def describe(self):
+        return (f"CpuGenerate(explode[{len(self.element_exprs)}], "
+                f"pos={self.include_pos})")
+
+    def _as_expand(self) -> CpuExpand:
+        from spark_rapids_tpu_torch.exprs.base import (AttributeReference,
+                                                       Literal)
+        projections = []
+        for p, e in enumerate(self.element_exprs):
+            proj = [AttributeReference(n) for n in self.retained]
+            if self.include_pos:
+                proj.append(Literal(p, T.INT32))
+            proj.append(e)
+            projections.append(proj)
+        return CpuExpand(projections, [f.name for f in self._schema.fields],
+                         self.child)
+
+    def execute(self):
+        return self._as_expand().execute()

@@ -8,9 +8,10 @@ pair elimination) -> fusion -> coalesce insertion -> the test-mode
 check.  Conversion plans too: an aggregate over several partitions
 becomes partial -> exchange -> final, a global sort over several
 partitions a range exchange under the sort, a join over several
-partitions hash exchanges of both sides on their keys, and a global
-limit over a global sort a top-N.  `collect(plan, conf)`
-runs the result to a pandas DataFrame.
+partitions hash exchanges of both sides on their keys, a window over
+several partitions a hash exchange on its PARTITION BY keys (or one
+partition), and a global limit over a global sort a top-N.
+`collect(plan, conf)` runs the result to a pandas DataFrame.
 
 Only rules for what the port has are registered: any other node or
 expression is tagged "will not work" with its reason and stays on the
@@ -86,9 +87,7 @@ def exec_rule_for(node: N.CpuNode) -> Optional[ExecRule]:
 
 
 # the expressions the port implements on the device (the reference's
-# _SIMPLE_EXPRS less what is not ported: MonotonicallyIncreasingID,
-# SparkPartitionID, NormalizeNaNAndZero, KnownFloatingPointNormalized,
-# KnownNotNull and GroupRef)
+# _SIMPLE_EXPRS less GroupRef, which the port's aggregate does not use)
 for _name in """
 AttributeReference BoundReference Literal Alias
 Add Subtract Multiply Divide IntegralDivide Remainder Pmod UnaryMinus
@@ -102,6 +101,8 @@ Year Month DayOfMonth DayOfWeek DayOfYear Quarter WeekOfYear LastDay
 Hour Minute Second DateAdd DateSub DateDiff AddMonths MonthsBetween
 UnixTimestamp FromUnixTime ToDate TruncDate
 Sqrt Cbrt Exp Expm1 Log Log1p Log2 Log10 Rint Signum Ceil Floor Pow Round
+MonotonicallyIncreasingID SparkPartitionID
+NormalizeNaNAndZero KnownFloatingPointNormalized KnownNotNull
 Length Upper Lower InitCap Substring StringTrim StringTrimLeft
 StringTrimRight ConcatStrings Contains StartsWith EndsWith Like
 StringLocate StringReplace LPad RPad
@@ -116,6 +117,9 @@ for _name in ("Sin", "Cos", "Tan", "Asin", "Acos", "Atan", "Sinh", "Cosh",
               "Atanh"):
     expr(_name, f"GPU implementation of {_name}",
          incompat="floating point results differ in ulp from the JVM")
+
+expr("Rand", "per-row uniform random", incompat="the threefry stream "
+     "differs from the JVM's XORShiftRandom")
 
 
 def _tag_cast(m) -> None:
@@ -274,6 +278,86 @@ def _conv_source(meta, kids) -> TpuExec:
     return B.LocalBatchSource(parts, schema, device=meta.device)
 
 
+def _conv_range(meta, kids) -> TpuExec:
+    node: N.CpuRange = meta.node
+    return B.RangeExec(node.start, node.end, node.step,
+                       num_partitions=node.num_partitions,
+                       device=meta.device)
+
+
+def _conv_union(meta, kids) -> TpuExec:
+    return B.UnionExec(*kids)
+
+
+def _conv_expand(meta, kids) -> TpuExec:
+    from spark_rapids_tpu_torch.exec.expand import ExpandExec
+    node: N.CpuExpand = meta.node
+    return ExpandExec(node.projections, list(node.names), kids[0])
+
+
+def _conv_generate(meta, kids) -> TpuExec:
+    from spark_rapids_tpu_torch.exec.expand import GenerateExec
+    node: N.CpuGenerate = meta.node
+    return GenerateExec(node.element_exprs, kids[0],
+                        include_pos=node.include_pos,
+                        value_name=node.value_name,
+                        retained=node.retained)
+
+
+def _conv_window(meta, kids) -> TpuExec:
+    """A window over several partitions co-locates each window partition
+    first: a hash exchange on the PARTITION BY keys (clustering only, so
+    a small input may land whole in one partition), or one partition
+    when there are none."""
+    from spark_rapids_tpu_torch.exec.window import WindowExec
+    node = meta.node
+    child = kids[0]
+    nparts = child.output_partition_count()
+    if nparts > 1:
+        if node.spec.partition_by:
+            child = ShuffleExchangeExec(
+                HashPartitioning(list(node.spec.partition_by), nparts),
+                child, coalesce_small=True)
+        else:
+            child = ShuffleExchangeExec(SinglePartitioning(), child)
+    return WindowExec(node.window_exprs, node.spec, child)
+
+
+def _tag_window(meta) -> None:
+    """Frame shapes and functions WindowExec does not evaluate stay on
+    the CPU engine instead of failing at run time."""
+    from spark_rapids_tpu_torch.exec.window import KINDS
+    node = meta.node
+    child_schema = node.child.output_schema()
+    if not node.spec.frame.is_rows:
+        if len(node.spec.order_by) != 1:
+            meta.will_not_work_on_gpu(
+                "range frames need exactly one order key on the GPU")
+        else:
+            # the exec reads the order key as int64: a float or string
+            # key would be truncated into false peers
+            try:
+                dt = node.spec.order_by[0].expr.data_type(child_schema)
+            except Exception:
+                dt = None
+            if dt is not None and not dt.is_integral:
+                meta.will_not_work_on_gpu(
+                    f"range frame order key must be integral/date/"
+                    f"timestamp, got {dt}")
+    for fn, _ in node.window_exprs:
+        if fn.kind not in KINDS:
+            meta.will_not_work_on_gpu(
+                f"window function {fn.kind} has no GPU implementation")
+        elif fn.kind in ("min", "max") and fn.child is not None:
+            try:
+                dt = fn.child.data_type(child_schema)
+            except Exception:
+                continue
+            if dt.is_string:
+                meta.will_not_work_on_gpu(
+                    "string window min/max has no GPU implementation")
+
+
 def _conv_project(meta, kids) -> TpuExec:
     return B.ProjectExec(meta.node.exprs, kids[0])
 
@@ -378,6 +462,14 @@ def _tag_join(meta) -> None:
 
 
 register_exec(N.CpuSource, "in-memory source", _conv_source)
+register_exec(N.CpuRange, "range generation", _conv_range)
+register_exec(N.CpuUnion, "union all", _conv_union)
+register_exec(
+    N.CpuExpand, "expand (grouping sets/rollup/cube)", _conv_expand,
+    exprs_of=lambda n: [e for p in n.projections for e in p])
+register_exec(
+    N.CpuGenerate, "generate (inline-array explode)", _conv_generate,
+    exprs_of=lambda n: list(n.element_exprs))
 register_exec(N.CpuProject, "projection", _conv_project,
               exprs_of=lambda n: n.exprs)
 register_exec(N.CpuFilter, "filtering", _conv_filter,
@@ -395,6 +487,20 @@ register_exec(
     exprs_of=lambda n: list(n.left_keys) + list(n.right_keys) +
     ([n.condition] if n.condition is not None else []),
     tag_extra=_tag_join)
+
+
+def _register_window_rule() -> None:
+    from spark_rapids_tpu_torch.exec.window import CpuWindow
+    register_exec(
+        CpuWindow, "window aggregation", _conv_window,
+        exprs_of=lambda n: (
+            [fn.child for fn, _ in n.window_exprs if fn.child is not None]
+            + list(n.spec.partition_by)
+            + [o.expr for o in n.spec.order_by]),
+        tag_extra=_tag_window)
+
+
+_register_window_rule()
 
 
 # ---------------------------------------------------------------------------

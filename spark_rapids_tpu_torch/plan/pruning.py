@@ -161,4 +161,23 @@ def _prune(node: N.CpuNode, required: Optional[set], prune_columns,
                              prune_columns(node.children[1], rreq),
                              condition=node.condition,
                              broadcast=node.broadcast)
+    if isinstance(node, N.CpuUnion):
+        kids = [prune_columns(c, required) for c in node.children]
+        if build:
+            # union children line up by position; a shared child pruned
+            # to the union of its parents' needs can come back wider
+            # than its siblings: project it down to what this union asks
+            schema0 = node.children[0].output_schema()
+            want = [f.name for f in schema0.fields
+                    if required is None or f.name in required]
+            if not want:
+                want = [schema0.fields[0].name]
+            kids = [k if list(k.output_schema().names) == want
+                    else N.CpuProject([AttributeReference(n) for n in want],
+                                      k)
+                    for k in kids]
+        return N.CpuUnion(*kids)
+    if isinstance(node, N.CpuExpand):
+        return N.CpuExpand(node.projections, node.names, prune_columns(
+            node.child, expr_refs(node.projections)))
     return node  # unknown node: keep its subtree

@@ -52,11 +52,16 @@ def _per_row(values, valid):
 
 
 @pytest.mark.parametrize("kind", ["few_distinct", "many_distinct",
-                                  "numpy_str", "categorical"])
+                                  "numpy_str", "categorical",
+                                  "nul_prefixes"])
 def test_vectorized_upload_equals_the_per_row_encode(kind):
     rng = np.random.default_rng(3)
     vals = (_strings(rng) if kind != "many_distinct"
             else _unique_strings(rng))
+    if kind == "nul_prefixes":
+        # few distinct values that agree up to their first NUL: the
+        # factorized path must not merge them
+        vals = np.array(["a\x00b", "a\x00"] * 64 + ["c"] * 64, dtype=object)
     valid = np.array([v is not None for v in vals])
     if kind == "numpy_str":
         vals = np.where(valid, vals, "").astype(np.str_)
