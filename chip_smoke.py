@@ -3,7 +3,8 @@
 ETL plans of the type and expression layer and the 18 TPC-DS queries
 with a window, a ROLLUP or a UNION ALL at scale factor 10 (59,986,052
 lineitem rows in phases 4-6, TPC-H spec 4.2.5; 28,800,991 store_sales
-rows in phase 11, TPC-DS Table 3-2) on one NVIDIA card.
+rows in phase 11, TPC-DS Table 3-2), and the memory layer's out-of-core
+lanes and OOM retry lattice (phase 12), on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -113,7 +114,26 @@ Phases, each of which raises on failure (exit code 1, no result line):
      evaluation / CpuExpand over the same rows (exact, window sums of
      floats within n*eps*sum|x| of their input), and the widest call of
      each kernel in each query against its twin;
- 12. print the kernels line and, last, the device line.
+ 12. (run after phase 10, over its tables, before phase 11 frees them)
+     the memory layer: the native host runtime must be live; 12a runs
+     Q18 and Q9 as phases 8-9 do, a SortExec over lineitem (30M rows x
+     13 columns, by l_shipdate, l_orderkey desc, l_linenumber) and Q17's
+     subquery aggregate (avg(l_quantity) by l_partkey over batches of
+     2^20 rows) through the exec tree, each under
+     spark.rapids.memory.hbmBudgetBytes = a quarter of its unbudgeted
+     peak max_memory_allocated (Q18's and Q9's from phases 8-9, the exec
+     trees' from an in-core run first; the aggregate's an eighth, as at
+     a quarter its partial state never outgrows the budget, see
+     MEM_AGG_BUDGET_SHARE): each result equal to its
+     unbudgeted one (keys, counts, strings and order exact, the sort bit
+     for bit, sums rtol 1e-3), the aggregate's spill, the grace-hash join
+     and the external merge sort each engaged in one of them, no run and
+     no reservation left behind, spill bytes by tier, plan runs, wall
+     time and peak against the budget printed; 12b runs Q5 under
+     spark.rapids.memory.faultInjection.oomRate=0.05, .seed=0 against
+     phase 7's golden with retries and split retries > 0; the widest
+     call of each kernel in each plan is held against its twin;
+ 13. print the kernels line and, last, the device line.
 Cuts, to keep the script within 950 s of its 1,200 s limit once phase
 11 came: phase 9 runs one new plan per query, as phases 7 and 8 do
 (its second, hot plan went); phases 7-10 run over TPC-H at scale factor
@@ -130,6 +150,7 @@ import gc
 import json
 import sys
 import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -1121,7 +1142,7 @@ def join_phase(torch, dev, tables, gold: dict, GW, K, trees=None,
     n = TB.SF10_PARTITIONS
     out = {"rel": 0.0, "window_group_sums": {}, "grouped_sum": {},
            "calls": {}, "grouped_calls": {}, "peak_gb_by_query": {},
-           "agg_lanes": {}, "seconds": {}}
+           "agg_lanes": {}, "seconds": {}, "frames": {}}
     torch.cuda.reset_peak_memory_stats(dev)
     for q in gold:
         # Q21's semi and anti joins with a residual condition are CPU
@@ -1196,6 +1217,7 @@ def join_phase(torch, dev, tables, gold: dict, GW, K, trees=None,
                 rel = (check_join_query(q, df, gold[q]) if q < 7
                        else check_part_query(q, df, gold[q]))
             out["rel"] = max(out["rel"], rel)
+            out["frames"][q] = df  # phase 12's unbudgeted result
             for k, v in launches.items():
                 out[k][f"q{q}_{run}"] = out[k][f"q{q}"] = v
             out["agg_lanes"][f"q{q}_{run}"] = {
@@ -1644,6 +1666,434 @@ def etl_phase(torch, dev, tables: dict, gold: dict, GW, K) -> dict:
               f"{time.perf_counter() - t0:.3f} s, launches "
               f"{out['launches'][f'ansi_{column}']}", flush=True)
         del plan
+    return out
+
+
+# -- phase 12: the memory layer ---------------------------------------------
+#: each budgeted plan of 12a runs under spark.rapids.memory.hbmBudgetBytes
+#: = its unbudgeted peak max_memory_allocated / MEM_BUDGET_SHARE
+MEM_BUDGET_SHARE = 4
+#: ... but the aggregate at an eighth: its own merge, ~7x its partial
+#: state, sets its peak, so at a quarter the partial state's estimate
+#: (2x its bytes, 1.9 GB at SF5) stays under the budget (3.1 GB) and it
+#: never spills (measured on an H100); at an eighth it does
+MEM_AGG_BUDGET_SHARE = 8
+#: the host tier of phase 12's spills (the machine holds 96 GiB); what it
+#: cannot hold falls through to disk
+MEM_HOST_SPILL = 16 << 30
+#: 12b: Q5 under seeded OOM injection
+MEM_INJECT = {"spark.rapids.memory.faultInjection.oomRate": 0.05,
+              "spark.rapids.memory.faultInjection.seed": 0}
+#: the lineitem columns of 12a's SortExec (all but the three comment-like
+#: strings), uploaded in batches of SORT_BATCH_ROWS
+SORT_COLUMNS = ("l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
+                "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                "l_returnflag", "l_linestatus", "l_shipdate",
+                "l_commitdate", "l_receiptdate")
+SORT_BATCH_ROWS = 1 << 22
+#: 12a's aggregate reads (l_partkey, l_quantity) in batches of this many
+#: rows: each touches most of the parts, so its partial state grows
+#: with the batch count, as a scan's does
+AGG_BATCH_ROWS = 1 << 20
+#: the disk tier's directory (git-ignored), emptied when a phase-12
+#: environment closes
+SPILL_DIR = Path(__file__).resolve().parent / ".spill"
+_MEM_METRICS = ("spillRunBytes", "numExternalMergePasses",
+                "numGracePartitions", "numRetries", "numSplitRetries",
+                "numOomFallbacks", "spillBytes")
+
+
+def memory_cases(mem: dict, window_case, grouped_case) -> dict:
+    """The widest call of each kernel in each phase-12 plan against its
+    twin, as phases 7-11 hold theirs; every plan that launched a kernel
+    must have its call checked."""
+    cases: dict = {"window_group_sums": [], "grouped_sum": []}
+    for name, (gid, vals, cap) in sorted(mem.pop("calls").items()):
+        case = window_case(gid, vals, cap, 10, strict=False)
+        case.update(plan=name, launches=mem["launches"][name][
+            "window_group_sums"], shape=f"{name} widest call: capacity "
+            f"{gid.numel()}, out_cap {cap}, M={len(vals)}")
+        print(kernel_text("window_group_sums", case), flush=True)
+        cases["window_group_sums"].append(case)
+    for name, (keys, vals, rows, groups) in sorted(
+            mem.pop("grouped_calls").items()):
+        case = grouped_case(keys, vals, rows, groups, None, 10, strict=False)
+        case.update(plan=name, launches=mem["launches"][name][
+            "grouped_sum"], shape=f"{name} widest call: capacity "
+            f"{keys.numel()}, G={groups}, M={len(vals)}, tier "
+            f"{case['tier']}")
+        print(kernel_text("grouped_sum", case), flush=True)
+        cases["grouped_sum"].append(case)
+    for kernel, done in cases.items():
+        checked = {c["plan"] for c in done}
+        require(all(p in checked for p, v in mem["launches"].items()
+                    if v[kernel]),
+                f"{kernel} launched in a phase-12 plan whose call was not "
+                f"checked")
+    return cases
+
+
+def tree_metrics(plan) -> dict:
+    """The memory metrics summed over every exec of `plan`, and the
+    spill-run bytes by exec class."""
+    from collections import Counter
+    out = dict.fromkeys(_MEM_METRICS, 0.0)
+    by_exec: Counter = Counter()
+    for node in walk(plan):
+        ms = getattr(node, "metrics", None)
+        if ms is None:
+            continue
+        for name in _MEM_METRICS:
+            v = ms.value(name)
+            out[name] += v
+            if name == "spillRunBytes" and v:
+                by_exec[type(node).__name__] += v
+    out["spill_run_bytes_by_exec"] = dict(by_exec)
+    return out
+
+
+def memory_env(dev, extra: dict):
+    """A ResourceEnv on `dev` (catalog, device -> host -> disk stores, a
+    DeviceManager made from the conf) under TPC bench conf +
+    test.enabled + `extra`; returns (conf, env)."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.memory import ResourceEnv
+    from spark_rapids_tpu_torch.memory import oocore as OC
+    from spark_rapids_tpu_torch.memory import retry as R
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    conf = C.RapidsConf({**TB.BENCH_CONF, C.TEST_ENABLED.key: True,
+                         C.HOST_SPILL_STORAGE.key: MEM_HOST_SPILL, **extra})
+    env = ResourceEnv.init(conf, spill_dir=str(SPILL_DIR), device=dev)
+    R.reset_oom_injection()
+    OC.reset_run_accounting()
+    return conf, env
+
+
+def memory_report(env) -> dict:
+    """What an environment spilled, by tier, and what it still holds
+    (a finished plan must hold no run and no reservation)."""
+    from spark_rapids_tpu_torch.memory import oocore as OC
+    require(len(env.catalog) == 0,
+            f"{len(env.catalog)} spilled buffers outlived their plan")
+    require(env.device_manager.reserved_bytes == 0,
+            "a reservation outlived its plan")
+    return {"run_bytes": OC.run_bytes_spilled(), "runs": OC.runs_spilled(),
+            "host_bytes": env.host_store.bytes_added,
+            "disk_bytes": env.disk_store.bytes_added,
+            "device_to_host_bytes": env.spill_callback.bytes_spilled}
+
+
+def memory_query(torch, dev, q: int, tables: dict, conf, GW, K) -> tuple:
+    """TPC-H query q as run_query runs it (a new plan, accelerate and
+    collect at 16 partitions), with phase 7's spies: (result, info)."""
+    from collections import Counter
+
+    from spark_rapids_tpu_torch.exec import aggregate as AGG
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.models.tpch_queries import QUERIES
+    from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
+    calls: list = []
+    gcalls: list = []
+    spied: Counter = Counter()
+    AGG.window_group_sums = recording(calls, GW)
+    AGG.grouped_sum = recording_grouped(gcalls, K)
+    GW.window_group_sums.launches = 0
+    K.grouped_sum.launches = 0
+    undo = collect_spy(spied)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        def run_sub(plan):
+            return collect(accelerate(plan, conf, device=dev), conf)
+        plan = accelerate(QUERIES[q](TD.sources(tables, TB.SF10_PARTITIONS),
+                                     run_sub), conf, device=dev)
+        df = collect(plan, conf)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+        AGG.window_group_sums = GW.window_group_sums
+        AGG.grouped_sum = K.grouped_sum
+    return df, {
+        "seconds": time.perf_counter() - t0,
+        "peak": torch.cuda.max_memory_allocated(dev),
+        "runs": spied["executions"], "metrics": tree_metrics(plan),
+        "launches": {"window_group_sums": GW.window_group_sums.launches,
+                     "grouped_sum": K.grouped_sum.launches},
+        "calls": calls, "grouped_calls": gcalls}
+
+
+def same_frame(want, got, rtol: float, label: str) -> float:
+    """`got` equals `want` row for row: every non-float column exact
+    (keys, counts, dates, strings, order), float columns within `rtol`.
+    Returns the max rel err."""
+    require(list(want.columns) == list(got.columns),
+            f"{label}: columns {list(got.columns)}")
+    require(len(want) == len(got), f"{label}: {len(got)} rows, "
+            f"unbudgeted {len(want)}")
+    rel = 0.0
+    for c in want.columns:
+        if want[c].dtype.kind == "f" or str(want[c].dtype).startswith(
+                "Float"):
+            rel = max(rel, _rel(got[c], want[c]))
+        else:
+            require(want[c].astype(object).tolist()
+                    == got[c].astype(object).tolist(),
+                    f"{label}: column {c} differs")
+    require(rel <= rtol, f"{label}: rel err {rel}")
+    return rel
+
+
+def same_batch_bits(want, got, label: str) -> None:
+    """Two batches with the same rows, bit for bit, on the device."""
+    import torch
+    require(want.num_rows == got.num_rows, f"{label}: {got.num_rows} "
+            f"rows, unbudgeted {want.num_rows}")
+    n = want.num_rows
+    for f, a, b in zip(want.schema.fields, want.columns, got.columns):
+        require(torch.equal(a.validity[:n], b.validity[:n]),
+                f"{label}: {f.name} validity differs")
+        if f.dtype.is_string:
+            require(torch.equal(a.lengths[:n], b.lengths[:n]),
+                    f"{label}: {f.name} lengths differ")
+            w = min(a.char_cap, b.char_cap)
+            require(torch.equal(a.data[:n, :w], b.data[:n, :w]),
+                    f"{label}: {f.name} bytes differ")
+        else:
+            require(torch.equal(a.data[:n].view(torch.uint8),
+                                b.data[:n].view(torch.uint8)),
+                    f"{label}: {f.name} bits differ")
+
+
+def same_groups(want, got, rtol: float, label: str) -> float:
+    """Two (key, sum) batches with the same groups: keys and nulls
+    exact, sums within `rtol`, compared on the device in key order.
+    Returns the max rel err."""
+    import torch
+    n = want.num_rows
+    require(n == got.num_rows, f"{label}: {got.num_rows} groups, "
+            f"unbudgeted {n}")
+    kw, kg = want.columns[0].data[:n], got.columns[0].data[:n]
+    ow, og = torch.argsort(kw), torch.argsort(kg)
+    require(torch.equal(kw[ow], kg[og]), f"{label}: keys differ")
+    vw, vg = want.columns[1], got.columns[1]
+    require(torch.equal(vw.validity[:n][ow], vg.validity[:n][og]),
+            f"{label}: nulls differ")
+    sw, sg = vw.data[:n][ow], vg.data[:n][og]
+    rel = float(((sg - sw).abs() / sw.abs().clamp_min(
+        np.finfo(np.float64).tiny)).max().item()) if n else 0.0
+    require(rel <= rtol, f"{label}: rel err {rel}")
+    return rel
+
+
+def _mem_line(name: str, info: dict, base_s: float, base_peak: int,
+              budget: int, report: dict, rel: float,
+              share: int = MEM_BUDGET_SHARE) -> str:
+    m = info["metrics"]
+    return (f"memory {name}: budget {budget} bytes (unbudgeted peak "
+            f"{base_peak} / {share}), peak {info['peak']} "
+            f"bytes ({info['peak'] / max(budget, 1):.2f}x the budget), "
+            f"wall {info['seconds']:.3f} s against {base_s:.3f} s "
+            f"unbudgeted, plan runs {info['runs']}, spilled runs "
+            f"{report['runs']} ({report['run_bytes']} bytes: host tier "
+            f"{report['host_bytes']}, disk tier {report['disk_bytes']}, "
+            f"device store to host {report['device_to_host_bytes']}), "
+            f"spill-run bytes by exec {m['spill_run_bytes_by_exec']}, "
+            f"grace partitions {m['numGracePartitions']:g}, external "
+            f"merge passes {m['numExternalMergePasses']:g}, retries "
+            f"{m['numRetries']:g}, split retries {m['numSplitRetries']:g}, "
+            f"launches {info['launches']}, rel err {rel:.3g}")
+
+
+def memory_phase(torch, dev, tables: dict, unbudgeted: dict, checks: dict,
+                 gold5: dict, GW, K) -> dict:
+    """Phase 12 over phases 7-10's tables.  12a: Q18 and Q9 (their
+    unbudgeted frames and peaks from phases 8-9 in `unbudgeted`, their
+    golden checks in `checks`) and a SortExec over lineitem by
+    (l_shipdate, l_orderkey desc, l_linenumber), each under a budget of
+    a quarter of its unbudgeted peak: results equal to the unbudgeted
+    ones, and the aggregate's spill, the grace-hash join and the
+    external merge each engaged in one of them.  12b: Q5 under seeded
+    OOM injection equal to phase 7's golden, with retries and split
+    retries.  The native runtime must be live."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.exec.basic import LocalBatchSource
+    from spark_rapids_tpu_torch.exec.sort import SortExec, asc, desc
+    from spark_rapids_tpu_torch.exprs.base import col
+    from spark_rapids_tpu_torch.memory import ResourceEnv
+    from spark_rapids_tpu_torch.memory import native
+    from spark_rapids_tpu_torch.plan.nodes import schema_of_df
+    from spark_rapids_tpu_torch.plan.transitions import batch_from_df
+    require(native.implementation() == "native",
+            f"the native host runtime is not live: {native.build_error}")
+    out = {"plans": {}, "calls": {}, "grouped_calls": {}, "launches": {}}
+
+    def keep(name, info):
+        out["launches"][name] = info["launches"]
+        if info["calls"]:
+            out["calls"][name] = info["calls"]
+        if info["grouped_calls"]:
+            out["grouped_calls"][name] = info["grouped_calls"]
+
+    # 12a: Q18 and Q9 under a quarter of their peaks
+    for q in (18, 9):
+        base = unbudgeted[q]
+        budget = int(base["peak"]) // MEM_BUDGET_SHARE
+        conf, env = memory_env(dev, {C.HBM_BUDGET_BYTES.key: budget})
+        try:
+            df, info = memory_query(torch, dev, q, tables, conf, GW, K)
+            report = memory_report(env)
+        finally:
+            ResourceEnv.shutdown()
+        rel = same_frame(base["frame"], df, JOIN_RTOL, f"Q{q} budgeted")
+        checks[q](df)
+        keep(f"q{q}_budget", info)
+        out["plans"][f"q{q}_budget"] = {
+            "budget": budget, "unbudgeted_peak": int(base["peak"]),
+            "unbudgeted_s": base["seconds"], "seconds": info["seconds"],
+            "peak": info["peak"], "runs": info["runs"],
+            "metrics": info["metrics"], "report": report, "rel": rel}
+        print(_mem_line(f"Q{q} {sf_of(tables)}", info, base["seconds"],
+                        int(base["peak"]), budget, report, rel), flush=True)
+        del df
+
+    # 12a: through the exec tree over lineitem in one partition, in core,
+    # then budgeted: a SortExec, and Q17's subquery aggregate
+    # (avg(l_quantity) by l_partkey, whose 1M groups every batch touches)
+    from collections import Counter
+
+    from spark_rapids_tpu_torch.exec.aggregate import HashAggregateExec
+    from spark_rapids_tpu_torch.exprs.aggregates import Average
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+
+    def upload(names, rows):
+        frame = tables["lineitem"][list(names)]
+        schema = schema_of_df(frame)
+        return [batch_from_df(frame.iloc[lo:lo + rows], schema, dev)
+                for lo in range(0, len(frame), rows)]
+    t0 = time.perf_counter()
+    batches = upload(SORT_COLUMNS, SORT_BATCH_ROWS)
+    agg_batches = upload(("l_partkey", "l_quantity"), AGG_BATCH_ROWS)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    print(f"memory lineitem: {len(tables['lineitem'])} rows, "
+          f"{len(SORT_COLUMNS)} columns in {len(batches)} batches for the "
+          f"sort, 2 in {len(agg_batches)} for the aggregate, upload "
+          f"{upload_s:.3f} s", flush=True)
+    exec_plans = {
+        "sort": lambda: SortExec(
+            [asc(col("l_shipdate")), desc(col("l_orderkey")),
+             asc(col("l_linenumber"))],
+            LocalBatchSource([batches], device=dev)),
+        "agg": lambda: HashAggregateExec(
+            [col("l_partkey")], [Average(col("l_quantity")).alias("avg_qty")],
+            LocalBatchSource([agg_batches], device=dev))}
+
+    def exec_run(name, conf, calls, gcalls):
+        from spark_rapids_tpu_torch.exec import aggregate as AGG
+        plan = exec_plans[name]()
+        AGG.window_group_sums = recording(calls, GW)
+        AGG.grouped_sum = recording_grouped(gcalls, K)
+        GW.window_group_sums.launches = 0
+        K.grouped_sum.launches = 0
+        spied: Counter = Counter()
+        undo = collect_spy(spied)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        try:
+            with C.session(conf):
+                got = plan.collect()
+            torch.cuda.synchronize()
+        finally:
+            undo()
+            AGG.window_group_sums = GW.window_group_sums
+            AGG.grouped_sum = K.grouped_sum
+        return got, {"seconds": time.perf_counter() - t0,
+                     "peak": torch.cuda.max_memory_allocated(dev),
+                     "runs": spied["executions"],
+                     "metrics": tree_metrics(plan),
+                     "launches": {
+                         "window_group_sums": GW.window_group_sums.launches,
+                         "grouped_sum": K.grouped_sum.launches},
+                     "calls": calls, "grouped_calls": gcalls}
+
+    for name in ("sort", "agg"):
+        # the unbudgeted run's kernel calls are checked with the
+        # budgeted run's: the recorders keep the widest of both
+        calls, gcalls = [], []
+        want, base = exec_run(name, C.RapidsConf(dict(TB.BENCH_CONF)),
+                              calls, gcalls)
+        require(base["metrics"]["spillRunBytes"] == 0,
+                f"the unbudgeted {name} went external")
+        share = MEM_AGG_BUDGET_SHARE if name == "agg" else MEM_BUDGET_SHARE
+        budget = base["peak"] // share
+        conf, env = memory_env(dev, {C.HBM_BUDGET_BYTES.key: budget})
+        try:
+            got, info = exec_run(name, conf, calls, gcalls)
+            report = memory_report(env)
+        finally:
+            ResourceEnv.shutdown()
+        if name == "sort":
+            # (l_orderkey, l_linenumber) is unique: one total order
+            same_batch_bits(want, got, "lineitem sort budgeted")
+            rel = 0.0
+        else:
+            rel = same_groups(want, got, JOIN_RTOL,
+                              "lineitem aggregate budgeted")
+        keep(f"{name}_budget", info)
+        out["plans"][f"{name}_budget"] = {
+            "budget": budget, "budget_share": share,
+            "unbudgeted_peak": base["peak"],
+            "unbudgeted_s": base["seconds"],
+            "unbudgeted_runs": base["runs"], "seconds": info["seconds"],
+            "peak": info["peak"], "runs": info["runs"],
+            "metrics": info["metrics"], "report": report, "rel": rel}
+        print(_mem_line(f"lineitem {name} {sf_of(tables)}", info,
+                        base["seconds"], base["peak"], budget, report, rel,
+                        share), flush=True)
+        del want, got
+    del batches, agg_batches
+    engaged = {
+        "aggregate spill": any(
+            p["metrics"]["spill_run_bytes_by_exec"].get("HashAggregateExec")
+            for p in out["plans"].values()),
+        "grace-hash join": any(p["metrics"]["numGracePartitions"] > 0
+                               for p in out["plans"].values()),
+        "external merge sort": out["plans"]["sort_budget"]["metrics"][
+            "numExternalMergePasses"] > 0}
+    print(f"memory 12a lanes engaged: {engaged}", flush=True)
+    require(all(engaged.values()), f"12a: a lane never engaged: {engaged}")
+
+    # 12b: Q5 under seeded OOM injection
+    conf, env = memory_env(dev, MEM_INJECT)
+    try:
+        from spark_rapids_tpu_torch.memory import retry as R
+        df, info = memory_query(torch, dev, 5, tables, conf, GW, K)
+        report = memory_report(env)
+        injected = R.injected_oom_count()
+    finally:
+        ResourceEnv.shutdown()
+    rel = check_join_query(5, df, gold5)
+    m = info["metrics"]
+    require(injected > 0 and m["numRetries"] > 0
+            and m["numSplitRetries"] > 0,
+            f"12b: injections {injected}, retries {m['numRetries']}, "
+            f"split retries {m['numSplitRetries']}")
+    keep("q5_inject", info)
+    out["plans"]["q5_inject"] = {
+        "seconds": info["seconds"], "peak": info["peak"],
+        "runs": info["runs"], "metrics": m, "report": report, "rel": rel,
+        "injected": injected}
+    print(f"memory Q5 {sf_of(tables)} under oomRate 0.05, seed 0: "
+          f"{injected} injected failures, retries {m['numRetries']:g}, "
+          f"split retries {m['numSplitRetries']:g}, fallbacks "
+          f"{m['numOomFallbacks']:g}, collect {info['seconds']:.3f} s, "
+          f"plan runs {info['runs']}, against the golden rel err "
+          f"{rel:.3g}, launches {info['launches']}", flush=True)
+    require(sum(v["window_group_sums"] for v in out["launches"].values()) > 0,
+            "window_group_sums never launched in phase 12")
     return out
 
 
@@ -2406,7 +2856,7 @@ def main() -> int:
 
     # 10. the type and expression layer: ETL plans over the same tables
     etl = etl_phase(torch, dev, tables, gold_etl, GW, K)
-    del tables, gold_etl
+    del gold_etl
     # the widest call of each ETL plan's last collect against the twins
     etl_cases: dict = {"window_group_sums": [], "grouped_sum": []}
     for name, (e_gid, e_vals, e_cap) in sorted(etl["calls"].items()):
@@ -2435,6 +2885,26 @@ def main() -> int:
     require(not any(v["q1_fused"] for v in etl["launches"].values()),
             "q1_fused launched in an ETL plan: no call of it is checked")
     lap("10 (ETL expressions X1-X4)")
+
+    # 12. the memory layer over the same tables, before phase 11 frees
+    # them: Q18, Q9, a lineitem sort and Q17's subquery aggregate under a
+    # quarter of their peaks, and Q5 under OOM injection
+    K.q1_fused.launches = 0
+    mem = memory_phase(
+        torch, dev, tables,
+        {q: {"frame": ph["frames"][q],
+             "peak": ph["peak_gb_by_query"][q] * 2**30,
+             "seconds": sum(ph["seconds"][f"q{q}_cold"].values())}
+         for q, ph in ((18, rest), (9, parts))},
+        {18: lambda df: check_rest_query(18, df, gold_rest[18]),
+         9: lambda df: check_part_query(9, df, gold_parts[9])},
+        gold[5], GW, K)
+    del tables
+    require(K.q1_fused.launches == 0,
+            "q1_fused launched in phase 12: no call of it is checked")
+    mem_cases = memory_cases(mem, window_case, grouped_case)
+    lap("12 (memory layer: Q18, Q9, a lineitem sort and aggregate under "
+        "budgets, Q5 under OOM injection)")
 
     # 11. the TPC-DS slice, with phases 1-10's device and host data freed
     for ph in (joins, parts, rest, etl):
@@ -2472,6 +2942,12 @@ def main() -> int:
     for name, cases in etl_cases.items():
         kernels[name]["etl_cases"] = [
             {k: c[k] for k in case_keys if k in c} for c in cases]
+    for name, cases in mem_cases.items():
+        kernels[name]["memory_launches"] = {
+            p: v[name] for p, v in mem["launches"].items() if v[name]}
+        kernels[name]["memory_cases"] = [
+            {k: c[k] for k in case_keys if k in c} for c in cases]
+    kernels["q1_fused"]["memory_launches"] = {}
     for name, key in (("window_group_sums", "window_case"),
                       ("grouped_sum", "grouped_case")):
         kernels[name]["tpcds_cases"] = [
@@ -2484,7 +2960,8 @@ def main() -> int:
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "planner_q1_launches",
             "join_queries_launches", "join_cases", "etl_launches",
-            "etl_cases", "tpcds_launches", "tpcds_cases")
+            "etl_cases", "tpcds_launches", "tpcds_cases", "memory_launches",
+            "memory_cases")
     line = {"kernels": [{k: v[k] for k in keys if k in v}
                         for v in kernels.values()]}
     print(json.dumps(line), flush=True)

@@ -107,6 +107,16 @@ class ColumnarBatch:
             return self._rows.device
         return torch.device("cpu")
 
+    def device_size_bytes(self) -> int:
+        """Bytes the batch's tensors hold at capacity: data, validity,
+        string lengths, 32-bit shadows and the selection mask."""
+        total = 0 if self.sparse is None else self.sparse.numel()
+        for c in self.columns:
+            for t in (c.data, c.validity, c.narrow, c.lengths):
+                if t is not None:
+                    total += t.numel() * t.element_size()
+        return total
+
     def column(self, name_or_idx) -> ColumnVector:
         if isinstance(name_or_idx, str):
             return self.columns[self.schema.index(name_or_idx)]

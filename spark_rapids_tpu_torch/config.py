@@ -138,6 +138,112 @@ PALLAS_Q1_FUSED_ENABLED = conf(
     "plain torch step.")
 
 
+# --- device and memory (memory/*) -------------------------------------------
+CONCURRENT_TPU_TASKS = conf("spark.rapids.sql.concurrentGpuTasks", 1,
+                            "Number of tasks that may hold the accelerator "
+                            "concurrently (GpuSemaphore analog).")
+HBM_ALLOC_FRACTION = conf("spark.rapids.memory.gpu.allocFraction", 0.9,
+                          "Fraction of HBM to dedicate to the arena pool.")
+HBM_RESERVE = conf("spark.rapids.memory.gpu.reserve", 1073741824,
+                   "HBM bytes kept free for XLA scratch/fusion temporaries.")
+HBM_BUDGET_BYTES = conf(
+    "spark.rapids.memory.hbmBudgetBytes", 0,
+    "Hard cap (bytes) on the accounted HBM arena budget, applied AFTER "
+    "the allocFraction/reserve arithmetic: the effective budget is "
+    "min(total*allocFraction - reserve, this).  0 (default) disables "
+    "the cap.  This is the out-of-core lever: capping the budget below "
+    "an operator's working set makes DeviceManager.try_reserve report "
+    "no headroom, which routes sort/join/aggregate through their "
+    "external (spill-backed) algorithms instead of split-retrying to "
+    "the row floor — bounded-HBM execution on data larger than device "
+    "memory.")
+HOST_SPILL_STORAGE = conf("spark.rapids.memory.host.spillStorageSize",
+                          1073741824, "Host memory for spilled device data.")
+PINNED_POOL_SIZE = conf("spark.rapids.memory.pinnedPool.size", 0,
+                        "Pinned host staging pool bytes (0 = disabled).")
+RETRY_MIN_SPLIT_ROWS = conf(
+    "spark.rapids.memory.retry.minSplitRows", 1024,
+    "Floor for OOM split-and-retry: a batch at or below this many rows "
+    "is not subdivided further; reservation failure there takes the "
+    "retry.fallback path instead (memory/retry.py harness; the role of "
+    "the reference's SplitAndRetryOOM minimum split size).")
+RETRY_FALLBACK = conf(
+    "spark.rapids.memory.retry.fallback", "bestEffort",
+    "What happens when a batch at the minimum split size still cannot "
+    "be reserved: bestEffort runs it unreserved (the accounted arena "
+    "is advisory; a true device OOM surfaces as the allocator's own "
+    "error), error fails the query with an actionable message.  Never "
+    "a silent wrong answer.")
+OOM_INJECT_RATE = conf(
+    "spark.rapids.memory.faultInjection.oomRate", 0.0,
+    "TEST ONLY: probability that a device-memory reservation is forced "
+    "to fail, exercising the spill -> retry -> split-and-retry -> "
+    "floor-fallback lattice on CPU CI without a real HBM-sized "
+    "workload (the memory-layer sibling of the shuffle transport "
+    "fault injector).  0 disables injection.")
+OOM_INJECT_SEED = conf(
+    "spark.rapids.memory.faultInjection.seed", 0,
+    "Deterministic seed for OOM fault injection.")
+OOM_INJECT_MAX = conf(
+    "spark.rapids.memory.faultInjection.maxInjections", 1024,
+    "Hard cap on injected reservation failures per injector lifetime, "
+    "guaranteeing forward progress in soak loops even at oomRate=1.0 "
+    "(0 = unlimited).")
+SPILL_CORRUPT_RATE = conf(
+    "spark.rapids.memory.faultInjection.spillCorruptRate", 0.0,
+    "TEST ONLY: probability that a freshly written spill file has one "
+    "payload byte flipped on disk (after the CRC frame was written), "
+    "proving the disk re-read's integrity check surfaces "
+    "SpillCorruptionError instead of deserializing garbage.  Seeded "
+    "by faultInjection.seed.  0 disables.")
+OOCORE_ENABLED = conf(
+    "spark.rapids.memory.oocore.enabled", True,
+    "Degrade gracefully to external algorithms when an operator's "
+    "working set exceeds the HBM budget's headroom: sort spills sorted "
+    "runs and k-way merges them back in budget-sized windows, hash "
+    "join grace-partitions the build AND probe sides by key hash and "
+    "joins partition pairs that fit, and hash aggregate spills partial "
+    "group state and re-merges it.  Runs travel the existing "
+    "device->host->disk spill tiers.  OOM split-and-retry remains the "
+    "inner lattice; out-of-core is the outer ring engaged BEFORE the "
+    "retry.fallback path.  Off: the pre-out-of-core behavior (split "
+    "to minSplitRows, then bestEffort|error).")
+OOCORE_WINDOW_FRACTION = conf(
+    "spark.rapids.memory.oocore.windowFraction", 0.5,
+    "Fraction of the HBM budget one operator may hold resident before "
+    "degrading to its external algorithm — and the size of each merge "
+    "window when it does.  The working-set estimate is real "
+    "accounting (2x device batch bytes, the same estimate the OOM "
+    "harness reserves with) judged against try_reserve headroom, not "
+    "a guess.  Smaller values spill earlier and merge in more passes; "
+    "larger values risk the inner retry lattice engaging first.")
+OOCORE_GRACE_PARTITIONS = conf(
+    "spark.rapids.memory.oocore.gracePartitions", 8,
+    "Fan-out of one grace-hash partitioning pass: build and probe "
+    "sides split into this many key-hash partitions, each joined "
+    "independently (partition pairs are key-disjoint).  A partition "
+    "whose build side still exceeds the window re-partitions "
+    "recursively with a depth-salted hash, up to "
+    "oocore.maxRecursionDepth.")
+OOCORE_MAX_RECURSION = conf(
+    "spark.rapids.memory.oocore.maxRecursionDepth", 4,
+    "Bound on grace-hash re-partitioning recursion (and on external "
+    "sort/aggregate re-spill rounds).  A partition that cannot be "
+    "made to fit within this depth — pathological key skew, e.g. one "
+    "key carrying the whole build side — fails with a descriptive "
+    "error naming the skewed partition and the knobs, never a hang "
+    "and never partial data.")
+OOCORE_RUN_REPLICAS = conf(
+    "spark.rapids.memory.oocore.runReplicas", 1,
+    "Copies written per spilled run.  At 2+, a SpillCorruption on "
+    "re-read (disk rot, faultInjection.spillCorruptRate) quarantines "
+    "the corrupt buffer and recovers from a replica instead of "
+    "failing the query (numSpillCorruptionsRecovered counts these); "
+    "at 1 recovery needs a recompute closure or the corruption "
+    "surfaces as the descriptive SpillCorruption error.  Replicas "
+    "cost spill-tier capacity, not HBM.")
+
+
 def op_enable_key(kind: str, name: str) -> str:
     """Per-operator enable key ("expression" or "exec" kind)."""
     return f"spark.rapids.sql.{kind}.{name}"
@@ -168,6 +274,12 @@ class RapidsConf:
     def __getitem__(self, entry: ConfEntry) -> Any:
         return self.get(entry.key, entry.default)
 
+    def set(self, key: str, value: Any) -> "RapidsConf":
+        """A copy with `key` set to `value`."""
+        s = dict(self._settings)
+        s[key] = value
+        return RapidsConf(s)
+
 
 _active = threading.local()
 
@@ -178,6 +290,10 @@ def get_active_conf() -> RapidsConf:
         c = RapidsConf()
         _active.conf = c
     return c
+
+
+def set_active_conf(conf_: RapidsConf) -> None:
+    _active.conf = conf_
 
 
 @contextmanager

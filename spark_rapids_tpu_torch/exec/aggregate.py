@@ -27,13 +27,18 @@ re-runs the query, so results are exact or the lane deopts.
 A fused `pre_stage` (plan/fusion.py ComposedStage) evaluates a
 Project/Filter chain inside every update lane before grouping: batches
 arrive in the raw child schema, and group and input expressions bind
-against the stage's output schema.  Not ported: out-of-core spill and
-OOM split-retry.
+against the stage's output schema.
+
+Every grouping, merge and evaluation goes through the OOM retry harness
+(`TpuExec.oom_retry_batches`), and partial state that outgrows the device
+window spills to the host and disk tiers and re-merges
+(memory/oocore.py), as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import logging
 from typing import Iterator, Optional, Sequence
 
 import torch
@@ -53,12 +58,17 @@ from spark_rapids_tpu_torch.exec.base import (SchemaOnlyExec, TpuExec,
 from spark_rapids_tpu_torch.exprs.aggregates import (AggAlias, AggContext,
                                                      run_agg_phase)
 from spark_rapids_tpu_torch.exprs.base import Expression, output_name
+from spark_rapids_tpu_torch.memory import oocore as OC
+from spark_rapids_tpu_torch.memory import retry as R
 from spark_rapids_tpu_torch.ops.grouped_window import window_group_sums
 from spark_rapids_tpu_torch.ops.kernels import grouped_sum
 from spark_rapids_tpu_torch.ops.sort_encode import (
     HASH_GROUP_MIN_WORDS, hash_sort_bounds, masked_positions,
     sort_with_bounds, wide_key_set)
 from spark_rapids_tpu_torch.utils import checks as CK
+from spark_rapids_tpu_torch.utils import metrics as M
+
+log = logging.getLogger(__name__)
 
 _I64_MAX = torch.iinfo(torch.int64).max
 _F32 = torch.float32
@@ -788,19 +798,78 @@ class HashAggregateExec(UnaryExecBase):
 
     # -- execution ----------------------------------------------------------
     def process_partition(self, batches) -> Iterator[ColumnarBatch]:
+        """Group every batch into partials (each through the OOM retry
+        harness: a split piece's groups just add a partial), merge the
+        partials, and evaluate.  Once the accounted estimate of the
+        buffered partials says they cannot fit the device window
+        (memory/oocore.py `should_go_external`), the partial state spills
+        through the host→disk tiers in merged blocks and re-merges in
+        window-sized groups (partial aggregation state is key-idempotent,
+        so spilled blocks re-merge in any grouping)."""
         if not self.group_exprs:
             yield from self._reduction_path(batches)
             return
-        partials = [self._groupby_one(b) for b in batches
-                    if b.maybe_nonempty()]
-        if not partials:
-            return
-        merged = partials[0] if len(partials) == 1 else \
-            self._merge_partials(partials)
-        out = merged if self.mode == AggMode.PARTIAL else \
-            self._evaluate_one(merged)
+        conf = C.get_active_conf()
+        partials: list[ColumnarBatch] = []
+        pending_bytes = 0
+        runs: list = []
+        external = False
+        run_target = max(1, OC.window_bytes(conf) // OC.MERGE_FAN_IN)
+
+        def flush_state():
+            nonlocal partials, pending_bytes
+            if not partials:
+                return
+            merged = partials[0] if len(partials) == 1 else \
+                self._merge_partials(partials)
+            runs.append(OC.spill_run(merged.dense(), label=self.name(),
+                                     metrics=self.metrics, conf=conf))
+            partials = []
+            pending_bytes = 0
+
+        try:
+            for batch in batches:
+                if not batch.maybe_nonempty():
+                    continue
+                with self.metrics.timed(M.TOTAL_TIME):
+                    pieces = list(self.oom_retry_batches(
+                        batch, self._groupby_one,
+                        label=f"{self.name()}.groupBatch"))
+                partials.extend(pieces)
+                pending_bytes += sum(R.estimate_batch_bytes(p)
+                                     for p in pieces)
+                if not external and OC.should_go_external(pending_bytes,
+                                                          conf):
+                    external = True
+                if external and pending_bytes > run_target:
+                    flush_state()
+            if not partials and not runs:
+                return
+            if runs:
+                flush_state()
+                merged = OC.merge_spilled(
+                    runs, lambda bs: bs[0] if len(bs) == 1 else
+                    self._merge_partials(bs), label=self.name(),
+                    what="the spilled aggregation state",
+                    metrics=self.metrics, conf=conf)
+            else:
+                merged = partials[0] if len(partials) == 1 else \
+                    self._merge_partials(partials)
+        finally:
+            for r in runs:
+                r.free()
+        if self.mode == AggMode.PARTIAL:
+            out = merged
+        else:
+            with self.metrics.timed(M.TOTAL_TIME):
+                # one merged group batch: nothing to subdivide, so
+                # pressure spills and retries in place
+                (out,) = tuple(self.oom_retry_batches(
+                    merged, self._evaluate_one, split=False,
+                    label=f"{self.name()}.evaluate"))
         if out.num_rows_known:
             out = out.with_capacity(bucket_capacity(out.num_rows))
+        self.update_output_metrics(out)
         yield out
 
     def _groupby_one(self, batch: ColumnarBatch) -> ColumnarBatch:
@@ -829,9 +898,35 @@ class HashAggregateExec(UnaryExecBase):
         return self._merge_exec
 
     def _merge_partials(self, partials) -> ColumnarBatch:
+        """Concatenated partials merged by the internal FINAL exec, under
+        the OOM harness: on reservation failure the concatenation splits
+        and each half merges alone; a key may then sit in several
+        outputs, so they merge again (each round shrinks toward the
+        group count, and the row floor bounds the recursion)."""
         inter_schema = self._partial_schema()
         merged = concat_batches(partials, sparse_ok=True)
         merge_exec = self._get_merge_exec(inter_schema)
+        outs = list(self.oom_retry_batches(
+            merged, lambda b: self._merge_one(merge_exec, b),
+            label=f"{self.name()}.mergePartials"))
+        if len(outs) == 1:
+            return outs[0]
+        if sum(o.num_rows for o in outs) >= merged.num_rows:
+            # no progress: every half still held (nearly) every key, so
+            # merging the halves again would loop at the same row count
+            # under a sustained reservation failure; merge the whole
+            # state once, unreserved, as the split floor does
+            log.warning(
+                "%s.mergePartials: split-retry not converging (%d rows "
+                "-> %d across %d outputs); merging unreserved",
+                self.name(), merged.num_rows,
+                sum(o.num_rows for o in outs), len(outs))
+            return self._merge_one(merge_exec,
+                                   concat_batches(outs, sparse_ok=True))
+        return self._merge_partials(outs)
+
+    def _merge_one(self, merge_exec, merged: ColumnarBatch
+                   ) -> ColumnarBatch:
         wcap = self._kernel_compact_cap(merged)
         cols, n, coll, excess, cert = merge_exec._groupby_sorted(
             merged, "merge", wcap)
@@ -840,7 +935,7 @@ class HashAggregateExec(UnaryExecBase):
         # exec; its recovery also disables the merge exec's banded lane
         checks = self._register_excess_check(excess, wcap, checks)
         checks = self._register_banded_check(cert, checks)
-        return ColumnarBatch(inter_schema, cols, n, checks)
+        return ColumnarBatch(self._partial_schema(), cols, n, checks)
 
     def _partial_schema(self) -> T.Schema:
         if self.mode == AggMode.FINAL:
@@ -858,15 +953,25 @@ class HashAggregateExec(UnaryExecBase):
         is still one row (COUNT = 0, SUM = null)."""
         inter_schema = self._partial_schema()
         phase = "merge" if self.mode == AggMode.FINAL else "update"
-        partials = [self._reduce_one(b, phase, inter_schema)
-                    for b in batches if b.maybe_nonempty()]
+        partials = []
+        for b in batches:
+            if not b.maybe_nonempty():
+                continue
+            with self.metrics.timed(M.TOTAL_TIME):
+                # whole-batch reductions are row-local too: split halves
+                # just add one-row partials to the merge below
+                partials.extend(self.oom_retry_batches(
+                    b, lambda p: self._reduce_one(p, phase, inter_schema),
+                    label=f"{self.name()}.reduce"))
         if not partials:
             partials = [self._empty_partial(inter_schema)]
         # always merge, even one partial: it normalizes the empty-input
         # partial's invalid count into a valid 0
         merged = self._merge_reduction(partials, inter_schema)
-        yield (merged if self.mode == AggMode.PARTIAL
+        out = (merged if self.mode == AggMode.PARTIAL
                else self._evaluate_one(merged))
+        self.update_output_metrics(out)
+        yield out
 
     def _reduce_one(self, batch: ColumnarBatch, phase: str,
                     inter_schema: T.Schema) -> ColumnarBatch:

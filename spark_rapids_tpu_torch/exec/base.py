@@ -3,7 +3,9 @@
 A `TpuExec` produces an iterator of ColumnarBatch; Python orchestrates
 batch flow while the per-batch work runs as torch ops and CUDA kernels on
 the batch's device.  PyTorch runs eagerly, so the reference's compile
-cache has no counterpart here.
+cache has no counterpart here.  Each exec carries its `metrics`
+(utils/metrics.py) and routes its materializations through the OOM
+retry harness with `oom_retry_batches` (memory/retry.py).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch,
 from spark_rapids_tpu_torch.columnar.vector import ColumnVector
 from spark_rapids_tpu_torch.exprs.base import EvalContext, Expression
 from spark_rapids_tpu_torch.utils import checks as CK
+from spark_rapids_tpu_torch.utils import metrics as M
 
 
 # -- coalesce goals ----------------------------------------------------------
@@ -75,6 +78,7 @@ class TpuExec:
 
     def __init__(self, *children: "TpuExec"):
         self._children = list(children)
+        self.metrics = M.MetricSet()
         self.exec_id = next(_EXEC_IDS)
 
     @property
@@ -176,6 +180,39 @@ class TpuExec:
 
     def to_pandas(self):
         return self.collect().to_pandas()
+
+    def update_output_metrics(self, batch: ColumnarBatch) -> None:
+        """Charge one output batch; a lazy row count queues (no sync)."""
+        self.metrics.add(M.NUM_OUTPUT_ROWS, batch._rows)
+        self.metrics.add(M.NUM_OUTPUT_BATCHES, 1)
+
+    def oom_retry_batches(self, batch: ColumnarBatch, body,
+                          split: bool = True, out_bytes_fn=None,
+                          label: Optional[str] = None):
+        """Reservation-aware batch processing: route one batch's
+        materialization through the OOM retry harness (memory/retry.py)
+        — reserve device memory for the output, spill under pressure
+        with the semaphore yielded, split the input in half and retry on
+        reservation failure, and past the row floor degrade via the
+        conf'd fallback.  Yields one `body(piece)` result per (possibly
+        split) piece in row order, charging this exec's numRetries /
+        numSplitRetries / spillBytes / retryBlockTime metrics.
+
+        `split=False` is for single-batch contracts that cannot
+        subdivide their input (window frames, RequireSingleBatch
+        consumers): pressure there spills + retries in place and the
+        floor fallback handles the rest."""
+        from spark_rapids_tpu_torch.memory import retry as R
+        label = label or self.name()
+        if split:
+            yield from R.with_split_retry(
+                batch, body, metrics=self.metrics,
+                out_bytes_fn=out_bytes_fn, label=label)
+        else:
+            nbytes = (out_bytes_fn or R.estimate_batch_bytes)(batch)
+            yield R.with_retry(lambda: body(batch), out_bytes=nbytes,
+                               metrics=self.metrics, label=label,
+                               device=batch.device)
 
     def name(self) -> str:
         return type(self).__name__

@@ -55,9 +55,11 @@ class ProjectExec(UnaryExecBase):
             ctx = make_eval_context(batch.columns, batch.capacity,
                                     batch.num_rows_i32, batch.sparse)
             out_cols = [e.eval(ctx) for e in self._bound]
-            yield ColumnarBatch(self._schema, out_cols, batch._rows,
+            out = ColumnarBatch(self._schema, out_cols, batch._rows,
                                 batch.checks + _register_ansi(ctx),
                                 batch.sparse)
+            self.update_output_metrics(out)
+            yield out
 
 
 class FilterExec(UnaryExecBase):
@@ -83,10 +85,12 @@ class FilterExec(UnaryExecBase):
                                     batch.num_rows_i32, batch.sparse)
             pred = self._bound.eval(ctx)
             keep = pred.validity & pred.data.to(torch.bool) & ctx.row_mask
-            yield ColumnarBatch(self._schema, batch.columns,
+            out = ColumnarBatch(self._schema, batch.columns,
                                 keep.sum().to(torch.int32),
                                 batch.checks + _register_ansi(ctx),
                                 sparse=keep)
+            self.update_output_metrics(out)
+            yield out
 
 
 class LocalBatchSource(TpuExec):

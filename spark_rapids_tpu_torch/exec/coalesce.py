@@ -18,6 +18,7 @@ from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
 from spark_rapids_tpu_torch.exec.base import (CoalesceGoal,
                                               RequireSingleBatch, TargetSize,
                                               TpuExec, UnaryExecBase)
+from spark_rapids_tpu_torch.utils import metrics as M
 
 #: a lazy batch (row count still on the device) within this multiple of
 #: the row cap passes through whole: its memory is already allocated, and
@@ -109,5 +110,13 @@ class CoalesceBatchesExec(UnaryExecBase):
         return f"CoalesceBatchesExec({self.goal})"
 
     def process_partition(self, batches):
-        return coalesce_iterator(batches, self.goal, self.output_schema(),
-                                 self.device(), max_rows=self._max_rows)
+        def counted(it):
+            for b in it:
+                self.metrics.add(M.NUM_INPUT_BATCHES, 1)
+                self.metrics.add(M.NUM_INPUT_ROWS, b._rows)
+                yield b
+        for out in coalesce_iterator(counted(batches), self.goal,
+                                     self.output_schema(), self.device(),
+                                     max_rows=self._max_rows):
+            self.update_output_metrics(out)
+            yield out

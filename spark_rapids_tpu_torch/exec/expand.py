@@ -88,7 +88,9 @@ class ExpandExec(UnaryExecBase):
 
     def process_partition(self, batches) -> Iterator[ColumnarBatch]:
         for batch in batches:
-            yield self.expand_batch(batch.dense())
+            out = self.expand_batch(batch.dense())
+            self.update_output_metrics(out)
+            yield out
 
 
 class GenerateExec(UnaryExecBase):

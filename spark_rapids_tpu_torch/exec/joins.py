@@ -22,9 +22,19 @@ key - kmin holding build row + 1), and each probe batch is a lookup
 into it.  Its entry tests are the reference's, word for word, so both
 packages take the same lane on the same data.
 
+Grace-hash lane (out of core): when memory/oocore.py says the build side
+cannot fit the device window, both sides are hash-partitioned by their
+keys (murmur3 with a salt per recursion depth, over keys promoted to one
+type per side pair, so a key lands in the same partition on both sides
+whatever the batch), every slice spills to the host and disk tiers, and
+each partition pair joins on the sort-merge lane; a pair whose build
+side still does not fit re-partitions, up to oocore.maxRecursionDepth.
+
+Every probe batch and the build-side concat go through the OOM retry
+harness (`TpuExec.oom_retry_batches`, memory/retry.py).
+
 Join types: inner, left/right/full outer, left semi, left anti.  A
-residual condition filters an inner join's pairs.  Not ported: the
-grace-hash out-of-core lane (it needs memory/oocore.py's device budget),
+residual condition filters an inner join's pairs.  Not ported:
 BroadcastHashJoinExec, NestedLoopJoinExec and CartesianProductExec.
 """
 from __future__ import annotations
@@ -49,10 +59,14 @@ from spark_rapids_tpu_torch.exec.base import (RequireSingleBatch,
                                               make_eval_context)
 from spark_rapids_tpu_torch.exprs.base import (BoundReference, Expression,
                                                Literal, promote)
+from spark_rapids_tpu_torch.memory import oocore as OC
+from spark_rapids_tpu_torch.memory import retry as R
+from spark_rapids_tpu_torch.ops.murmur3 import murmur3_row_hash
 from spark_rapids_tpu_torch.ops.sort_encode import (encode_key_bits,
                                                     masked_positions,
                                                     packed_lexsort,
                                                     segment_boundaries)
+from spark_rapids_tpu_torch.utils import metrics as M
 
 
 class JoinType(enum.Enum):
@@ -336,12 +350,18 @@ class HashJoinExec(TpuExec):
         for pb in probe_batches:
             if not pb.maybe_nonempty():
                 continue
-            out = probe_one(pb)
-            if out.maybe_nonempty():
-                yield out
+            # probe rows are independent given the whole build side
+            # (FULL_OUTER's matched-build flags OR across pieces), so a
+            # probe batch splits and retries freely
+            for out in self.oom_retry_batches(
+                    pb, probe_one, label=f"{self.name()}.probe"):
+                if out.maybe_nonempty():
+                    self.update_output_metrics(out)
+                    yield out
         if full:
             un = self._unmatched_build(build, bmatched_total)
             if un is not None:
+                self.update_output_metrics(un)
                 yield un
 
     def _apply_condition(self, batch: ColumnarBatch) -> ColumnarBatch:
@@ -484,31 +504,54 @@ class HashJoinExec(TpuExec):
         kmin, g = tab[0], tab[1]
         i32 = torch.iinfo(torch.int32)
         narrow_ok = i32.min <= kmin and kmin + g <= i32.max
+
+        def probe_one(pb: ColumnarBatch) -> ColumnarBatch:
+            dense_lane()
+            return self._dense_probe(build, pb, tab, narrow_ok)
+
         for it in self._probe.execute_partitions():
             for pb in it:
                 if not pb.maybe_nonempty():
                     continue
-                dense_lane()
-                out = self._dense_probe(build, pb, tab, narrow_ok)
-                if out.maybe_nonempty():
-                    yield out
+                for out in self.oom_retry_batches(
+                        pb, probe_one, label=f"{self.name()}.denseProbe"):
+                    if out.maybe_nonempty():
+                        self.update_output_metrics(out)
+                        yield out
 
     # -- execution --------------------------------------------------------
-    def _build_batch(self) -> ColumnarBatch:
-        batches = [b.dense() for it in self._build.execute_partitions()
-                   for b in it if b.maybe_nonempty()]
+    def _collect_build_batches(self) -> list[ColumnarBatch]:
+        return [b.dense() for it in self._build.execute_partitions()
+                for b in it if b.maybe_nonempty()]
+
+    def _concat_build(self, batches: list[ColumnarBatch]) -> ColumnarBatch:
+        """The build side as one batch.  The concat is the join's known
+        OOM hotspot and the build side is needed whole, so pressure
+        there spills and retries in place — no split."""
         if not batches:
             return empty_batch(self._build.output_schema(),
                                self._build.device())
-        return concat_batches(batches)
+        if len(batches) == 1:
+            return batches[0]
+        nbytes = 2 * sum(b.device_size_bytes() for b in batches)
+        return R.with_retry(lambda: concat_batches(batches),
+                            out_bytes=nbytes, metrics=self.metrics,
+                            label=f"{self.name()}.buildSide",
+                            device=self._build.device())
 
     def execute_columnar(self) -> Iterator[ColumnarBatch]:
-        # The reference's grace-hash lane is not here: it spills both
-        # sides by key hash when memory/oocore.py's should_go_external
-        # says the build side overflows the device budget, which needs a
-        # DeviceManager (not ported); without one the reference never
-        # takes it either.
-        build = self._build_batch()
+        batches = self._collect_build_batches()
+        conf = C.get_active_conf()
+        est = 2 * sum(b.device_size_bytes() for b in batches)
+        if OC.should_go_external(est, conf):
+            self.lane = "grace-hash"
+            probe_src = (pb for it in self._probe.execute_partitions()
+                         for pb in it if pb.maybe_nonempty())
+            yield from self._grace_join(_drain(batches), probe_src, 0,
+                                        conf)
+            return
+        build = self._concat_build(batches)
+        del batches
         if self._dense_qual:
             tab = self._try_dense_table(build)
             if tab is not None:
@@ -519,3 +562,126 @@ class HashJoinExec(TpuExec):
         yield from self._join_stream(
             build, (pb for it in self._probe.execute_partitions()
                     for pb in it))
+
+    # -- the grace-hash out-of-core lane ----------------------------------
+    #: base seed of the grace partition hash (the reference's) —
+    #: deliberately not Spark's 42: an upstream hash exchange on the same
+    #: keys already bucketed rows by murmur3@42 pmod N, and the same seed
+    #: would put every row of a shuffle partition in one grace partition
+    _GRACE_SALT_BASE = 104729
+
+    def _grace_key_types(self) -> list[T.DataType]:
+        """Per key pair the one type both sides hash in, so equal keys
+        of an int32 and an int64 column meet in one partition."""
+        out = []
+        for bk, pk in zip(self._build_keys, self._probe_keys):
+            bt = bk.data_type(self._build.output_schema())
+            pt = pk.data_type(self._probe.output_schema())
+            out.append(bt if bt == pt else T.common_type(bt, pt))
+        return out
+
+    def _grace_partition_side(self, batches, bound_keys, nparts: int,
+                              depth: int, conf) -> list[list]:
+        """Hash-partition one side by its key columns and spill every
+        non-empty slice as an out-of-core run.  The salt varies per
+        depth, so keys that collided at depth d scatter at d+1."""
+        from spark_rapids_tpu_torch.shuffle.partitioning import _split
+        types = self._grace_key_types()
+        salt = self._GRACE_SALT_BASE + depth
+        parts: list[list] = [[] for _ in range(nparts)]
+        try:
+            for batch in batches:
+                ctx = make_eval_context(batch.columns, batch.capacity,
+                                        batch.num_rows_i32, batch.sparse)
+                keys = [promote(e.eval(ctx), dt)
+                        for e, dt in zip(bound_keys, types)]
+                h = murmur3_row_hash(keys, seed=salt).to(torch.int64)
+                pids = torch.remainder(h, nparts)
+                for p, sl in enumerate(_split(batch, pids, nparts)):
+                    if sl is not None:
+                        parts[p].append(OC.spill_run(
+                            sl, label=self.name(), metrics=self.metrics,
+                            conf=conf))
+        except BaseException:
+            _free_all(parts)
+            raise
+        return parts
+
+    def _read_runs(self, runs) -> Iterator[ColumnarBatch]:
+        for r in runs:
+            b = r.read(self.metrics)
+            r.free()
+            yield b
+
+    def _grace_join(self, build_src, probe_src, depth: int,
+                    conf) -> Iterator[ColumnarBatch]:
+        """Grace-hash join: partition BOTH sides by key hash into
+        spilled runs, join each partition pair that fits the device
+        window on the sort-merge lane, and recurse (new salt) on pairs
+        whose build side still does not fit.  Bounded by
+        `oocore.maxRecursionDepth` — irreducible key skew past it is a
+        descriptive error, never a hang and never partial data."""
+        jt = self.join_type
+        nparts = max(2, int(conf[C.OOCORE_GRACE_PARTITIONS]))
+        max_depth = max(1, int(conf[C.OOCORE_MAX_RECURSION]))
+        window = OC.window_bytes(conf)
+        self.metrics.add(M.NUM_GRACE_PARTITIONS, nparts)
+        build_parts = self._grace_partition_side(
+            build_src, self._build_keys, nparts, depth, conf)
+        try:
+            probe_parts = self._grace_partition_side(
+                probe_src, self._probe_keys, nparts, depth, conf)
+        except BaseException:
+            _free_all(build_parts)
+            raise
+        try:
+            for p in range(nparts):
+                bruns, pruns = build_parts[p], probe_parts[p]
+                if not bruns and not pruns:
+                    continue
+                if not pruns and jt != JoinType.FULL_OUTER:
+                    # build rows with no probe rows only matter to
+                    # FULL_OUTER's unmatched-build emission
+                    continue
+                if not bruns and jt in (JoinType.INNER,
+                                        JoinType.LEFT_SEMI):
+                    continue
+                best = 2 * sum(r.meta.size_bytes for r in bruns)
+                if bruns and best > window:
+                    if depth + 1 >= max_depth:
+                        raise R.TpuOutOfCoreError(
+                            f"{self.name()}: grace-hash build partition "
+                            f"{p} is still ~{best} bytes (window "
+                            f"{window}) at recursion depth {depth + 1} "
+                            f"with spark.rapids.memory.oocore."
+                            f"maxRecursionDepth={max_depth} — the join "
+                            f"key is too skewed to partition further "
+                            f"(one hot key larger than the window); "
+                            f"raise the device memory budget, "
+                            f"oocore.windowFraction, or "
+                            f"maxRecursionDepth")
+                    yield from self._grace_join(
+                        self._read_runs(bruns), self._read_runs(pruns),
+                        depth + 1, conf)
+                    continue
+                build = self._concat_build(
+                    [b for b in self._read_runs(bruns)
+                     if b.maybe_nonempty()])
+                yield from self._join_stream(build, self._read_runs(pruns))
+        finally:
+            _free_all(build_parts)
+            _free_all(probe_parts)
+
+
+def _drain(batches: list) -> Iterator[ColumnarBatch]:
+    """The batches in order, each dropped from `batches` as it is
+    handed out, so a spilled one no longer holds device memory."""
+    batches.reverse()
+    while batches:
+        yield batches.pop()
+
+
+def _free_all(parts: list[list]) -> None:
+    for runs in parts:
+        for r in runs:
+            r.free()

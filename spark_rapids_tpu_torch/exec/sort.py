@@ -5,7 +5,9 @@ A global sort is one output partition: every child batch, partition by
 partition, is concatenated into one, which is sorted by its encoded keys
 and gathered.  Over a range exchange the partitions arrive in key order,
 so the result is totally ordered.  A local sort sorts each partition on
-its own.
+its own.  Each sort goes through the OOM retry harness, and one whose
+working set outgrows the device window goes external: sorted runs spill
+to the host and disk tiers and merge back (memory/oocore.py).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Iterator, Optional, Sequence
 
 import torch
 
+from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch,
                                                    concat_batches)
@@ -85,10 +88,79 @@ class SortExec(UnaryExecBase):
         return [self.process_partition(chain())]
 
     def process_partition(self, batches) -> Iterator[ColumnarBatch]:
-        batches = list(batches)
-        if not batches:
-            return
-        yield self._sort_one(concat_batches(batches, sparse_ok=True))
+        """Sort a partition's batches as one.  While the buffered working
+        set fits the device window, they are concatenated and sorted in
+        one pass; once the accounted estimate says they cannot fit
+        (memory/oocore.py `should_go_external`), the sort goes external:
+        sorted runs spill through the host→disk tiers and merge back in
+        window-sized groups, instead of split-retrying one giant batch
+        down to the row floor."""
+        from spark_rapids_tpu_torch.memory import oocore as OC
+        from spark_rapids_tpu_torch.memory import retry as R
+        conf = C.get_active_conf()
+        pending: list[ColumnarBatch] = []
+        pending_bytes = 0
+        runs: list = []
+        external = False
+        # runs flush at window/fan-in so a merge group of MERGE_FAN_IN
+        # runs fits back inside the window
+        run_target = max(1, OC.window_bytes(conf) // OC.MERGE_FAN_IN)
+
+        def flush_run():
+            nonlocal pending, pending_bytes
+            if not pending:
+                return
+            merged = concat_batches([p.dense() for p in pending])
+            runs.append(OC.spill_run(self._sort_with_retry(merged),
+                                     label=self.name(),
+                                     metrics=self.metrics, conf=conf))
+            pending = []
+            pending_bytes = 0
+
+        try:
+            for batch in batches:
+                pending.append(batch)
+                pending_bytes += R.estimate_batch_bytes(batch)
+                if not external and OC.should_go_external(pending_bytes,
+                                                          conf):
+                    external = True
+                if external and pending_bytes > run_target:
+                    flush_run()
+            if not external:
+                # the working set fit: one concat and one sort
+                if not pending:
+                    return
+                out = self._sort_with_retry(
+                    concat_batches(pending, sparse_ok=True))
+            else:
+                flush_run()
+                out = OC.merge_spilled(
+                    runs, lambda bs: self._sort_with_retry(
+                        concat_batches([b.dense() for b in bs])),
+                    label=self.name(), what="the external sort",
+                    metrics=self.metrics, conf=conf)
+        finally:
+            for r in runs:
+                r.free()
+        self.update_output_metrics(out)
+        yield out
+
+    def _sort_with_retry(self, batch: ColumnarBatch) -> ColumnarBatch:
+        """Materialization point routed through the OOM harness: under
+        reservation failure the input halves, each half sorts alone,
+        and the sorted halves merge through ONE final no-split sort of
+        their concatenation.  Key values are bit-exact against the
+        unsplit sort; only the order within equal keys can differ
+        (Spark does not promise sort stability)."""
+        pieces = list(self.oom_retry_batches(
+            batch, self._sort_one, label=f"{self.name()}.sortBatch"))
+        if len(pieces) == 1:
+            return pieces[0]
+        merged = concat_batches([p.dense() for p in pieces])
+        (out,) = tuple(self.oom_retry_batches(
+            merged, self._sort_one, split=False,
+            label=f"{self.name()}.mergeRuns"))
+        return out
 
     def _sort_one(self, batch: ColumnarBatch) -> ColumnarBatch:
         cap = batch.capacity

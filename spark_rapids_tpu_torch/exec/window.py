@@ -421,7 +421,13 @@ class WindowExec(UnaryExecBase):
         from spark_rapids_tpu_torch.exec.coalesce import coalesce_iterator
         for batch in coalesce_iterator(batches, RequireSingleBatch(),
                                        self._child_schema, self.device()):
-            yield self.window_batch(batch.dense())
+            # frames read the WHOLE partition group, and a row split
+            # would cut one mid-frame: pressure takes the no-split lane
+            (out,) = tuple(self.oom_retry_batches(
+                batch.dense(), self.window_batch, split=False,
+                label=self.name()))
+            self.update_output_metrics(out)
+            yield out
 
 
 # ---------------------------------------------------------------------------

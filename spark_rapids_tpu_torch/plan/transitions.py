@@ -24,6 +24,7 @@ from spark_rapids_tpu_torch.columnar.vector import (ColumnVector, _upload,
 from spark_rapids_tpu_torch.exec.base import (CoalesceGoal, TargetSize,
                                               TpuExec, max_goal)
 from spark_rapids_tpu_torch.exec.coalesce import CoalesceBatchesExec
+from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
 from spark_rapids_tpu_torch.plan.cpu_eval import nullable_dtype
 from spark_rapids_tpu_torch.plan.nodes import (CpuNode, CpuSource,
                                                normalize_df)
@@ -133,8 +134,13 @@ class RowToColumnarExec(TpuExec):
         def convert(it):
             for df in it:
                 for lo in range(0, len(df), max_rows):
-                    yield batch_from_df(df.iloc[lo:lo + max_rows],
-                                        self._schema, self._device)
+                    # the device admission boundary: a task takes its
+                    # permit before its first upload (no-op outside one)
+                    TpuSemaphore.get().acquire_if_necessary()
+                    b = batch_from_df(df.iloc[lo:lo + max_rows],
+                                      self._schema, self._device)
+                    self.update_output_metrics(b)
+                    yield b
         return [convert(it) for it in self.cpu_child.execute()]
 
 
@@ -156,8 +162,13 @@ class ColumnarToRowExec(CpuNode):
         return f"{self.name()}\n{self.tpu_child.tree_string(1)}"
 
     def execute(self):
-        return [(df_from_batch(b) for b in it)
-                for it in self.tpu_child.execute_partitions()]
+        def convert(it):
+            for batch in it:
+                df = df_from_batch(batch)
+                # the device exit boundary releases the task's permit
+                TpuSemaphore.get().release_if_necessary()
+                yield df
+        return [convert(it) for it in self.tpu_child.execute_partitions()]
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,106 @@
+"""Operator metrics (port of spark_rapids_tpu/utils/metrics.py: the metric
+names and `MetricSet`, surfaced by `TpuExec.metrics`).
+
+The names are the reference's, so one report reads both packages.  Values
+may be device scalars (a lazy row count): they queue, and a read resolves
+every queued one in one stacked readback per dtype, so charging a metric
+never waits for the device.
+"""
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+from contextlib import contextmanager
+
+import torch
+
+NUM_OUTPUT_ROWS = "numOutputRows"
+NUM_OUTPUT_BATCHES = "numOutputBatches"
+NUM_INPUT_ROWS = "numInputRows"
+NUM_INPUT_BATCHES = "numInputBatches"
+TOTAL_TIME = "totalTime"
+# OOM retry harness (memory/retry.py charges these to the exec whose
+# materialization hit pressure)
+NUM_RETRIES = "numRetries"
+NUM_SPLIT_RETRIES = "numSplitRetries"
+NUM_OOM_FALLBACKS = "numOomFallbacks"
+SPILL_BYTES = "spillBytes"
+RETRY_BLOCK_TIME = "retryBlockTime"
+# out-of-core lane (memory/oocore.py): spillRunBytes is the serialized
+# bytes an exec pushed through the spill tiers as sorted-run / grace
+# partition / partial-agg state, numExternalMergePasses counts windowed
+# merge/re-merge rounds, numGracePartitions the hash-partition fan-outs
+# (summed across recursion depths), numSpillCorruptionsRecovered the
+# corrupt spill re-reads that recovered from a replica or recompute
+SPILL_RUN_BYTES = "spillRunBytes"
+NUM_EXTERNAL_MERGE_PASSES = "numExternalMergePasses"
+NUM_GRACE_PARTITIONS = "numGracePartitions"
+NUM_SPILL_CORRUPTIONS_RECOVERED = "numSpillCorruptionsRecovered"
+# the reference's other names (the pipeline's, the watchdog's, the
+# shuffle's, ...) come with the layers that charge them
+
+
+class MetricSet:
+    """Counters that accept LAZY (device-scalar) values: adding a row
+    count still being computed must not wait for the device, so device
+    values queue and resolve only when a metric is read."""
+
+    def __init__(self):
+        self._values = defaultdict(float)
+        #: queued (name, value, op) updates; op is "add" or "max"
+        self._pending: list = []
+
+    def add(self, name: str, value) -> None:
+        if isinstance(value, (int, float)):
+            self._values[name] += value
+        else:
+            self._pending.append((name, value, "add"))
+
+    def set_max(self, name: str, value) -> None:
+        """Raise `name` to at least `value`.  Queues like `add`, so a
+        peak tracker on the hot path never waits for the device."""
+        self._pending.append((name, value, "max"))
+
+    def _resolve(self) -> None:
+        if not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        # ONE stacked readback per (dtype, device) group for the whole
+        # queue: a read per value would cost a device round trip each
+        resolved: list = [None] * len(pending)
+        groups: dict = {}
+        for i, (_, v, _) in enumerate(pending):
+            if isinstance(v, (int, float)):
+                resolved[i] = float(v)
+                continue
+            t = torch.as_tensor(v).reshape(())
+            groups.setdefault((t.dtype, t.device), []).append((i, t))
+        for items in groups.values():
+            vals = torch.stack([t for _, t in items]).cpu().tolist()
+            for (i, _), val in zip(items, vals):
+                resolved[i] = float(val)
+        # FIFO order, so interleaved add/max see what eager resolves would
+        for (name, _, op), val in zip(pending, resolved):
+            if op == "max":
+                self._values[name] = max(self._values[name], val)
+            else:
+                self._values[name] += val
+
+    def value(self, name: str) -> float:
+        self._resolve()
+        return self._values[name]
+
+    @contextmanager
+    def timed(self, name: str = TOTAL_TIME):
+        t0 = time.perf_counter_ns()
+        try:
+            yield
+        finally:
+            self.add(name, time.perf_counter_ns() - t0)
+
+    def as_dict(self) -> dict:
+        self._resolve()
+        return dict(self._values)
+
+    def __repr__(self):
+        return f"MetricSet({self.as_dict()})"

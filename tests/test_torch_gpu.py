@@ -437,3 +437,106 @@ def test_etl_plans_match_the_cpu_engine(cuda_device, plan):
     if floats:
         compare_frames(want[floats], got[floats], f"{plan} on the card",
                        rtol=1e-9, atol=0)
+
+
+# -- the memory layer on the card --------------------------------------------
+def _memory_batch(dev):
+    """Strings (empty, long and null), nulls, and both 32-bit shadows."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    rng = np.random.default_rng(21)
+    n = 5000
+    words = np.array(["", "a", "x" * 70, "naïve", "tpc-h"], dtype=object)
+    strs = words[rng.integers(0, len(words), n)]
+    strs[rng.random(n) < 0.1] = None
+    return ColumnarBatch.from_numpy(
+        {"i": rng.integers(-2**31, 2**31 - 1, n).astype(np.int64),
+         "f": rng.standard_normal(n) * 1e6, "s": strs},
+        validity={"i": rng.random(n) > 0.1, "f": rng.random(n) > 0.1},
+        device=dev)
+
+
+def _same_bits(a, b):
+    assert a.num_rows == b.num_rows
+    n = a.num_rows
+    for ca, cb in zip(a.columns, b.columns):
+        assert ca.device == cb.device
+        assert torch.equal(ca.validity[:n], cb.validity[:n])
+        if ca.dtype.is_string:
+            assert torch.equal(ca.lengths[:n], cb.lengths[:n])
+            w = int(ca.lengths[:n].max())
+            assert torch.equal(ca.data[:n, :w], cb.data[:n, :w])
+        else:
+            assert torch.equal(ca.data[:n].view(torch.uint8),
+                               cb.data[:n].view(torch.uint8))
+        assert (ca.narrow is None) == (cb.narrow is None)
+        if ca.narrow is not None:
+            assert torch.equal(ca.narrow[:n].view(torch.uint8),
+                               cb.narrow[:n].view(torch.uint8))
+
+
+@pytest.mark.gpu
+def test_spill_chain_round_trip_on_the_card(cuda_device, tmp_path):
+    """A CUDA batch with strings, nulls and f32/int32 shadows goes
+    device -> host -> disk and back to the device with the same bits."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.memory import BufferId, ResourceEnv
+    batch = _memory_batch(cuda_device)
+    C.set_active_conf(C.RapidsConf(
+        {"spark.rapids.memory.host.spillStorageSize": 1 << 24}))
+    env = ResourceEnv.init(spill_dir=str(tmp_path), device=cuda_device)
+    try:
+        bid = BufferId(env.catalog.next_table_id())
+        env.device_store.add_batch(bid, batch)
+        assert env.device_store.synchronous_spill(0) > 0
+        with env.catalog.acquired(bid) as buf:
+            assert buf.tier.name == "HOST"
+        assert env.host_store.synchronous_spill(0) > 0
+        with env.catalog.acquired(bid) as buf:
+            assert buf.tier.name == "DISK"
+            back = buf.get_columnar_batch()
+        assert back.device == batch.device
+        _same_bits(batch, back)
+    finally:
+        ResourceEnv.shutdown()
+        C.set_active_conf(C.RapidsConf())
+
+
+@pytest.mark.gpu
+def test_split_retry_under_injection_on_the_card(cuda_device):
+    """with_split_retry over CUDA tensors under injection gives the
+    uninjected result: a sort of each piece, merged, equals the whole
+    sort."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.memory import retry as R
+    from spark_rapids_tpu_torch.utils import metrics as M
+    batch = _memory_batch(cuda_device)
+
+    def body(b):
+        return b.columns[0].data[:b.num_rows].clone()
+
+    want = torch.sort(body(batch)).values
+    keys = {"spark.rapids.memory.faultInjection.oomRate": 1.0,
+            "spark.rapids.memory.faultInjection.seed": 3,
+            "spark.rapids.memory.faultInjection.maxInjections": 6,
+            "spark.rapids.memory.retry.minSplitRows": 256}
+    ms = M.MetricSet()
+    R.reset_oom_injection()
+    with C.session(C.RapidsConf(keys)):
+        pieces = list(R.with_split_retry(batch, body, metrics=ms,
+                                         label="t"))
+    assert R.injected_oom_count() == 6
+    assert ms.value(M.NUM_SPLIT_RETRIES) + ms.value(M.NUM_RETRIES) > 0
+    assert len(pieces) > 1
+    assert all(p.device == batch.device for p in pieces)
+    assert torch.equal(torch.sort(torch.cat(pieces)).values, want)
+
+
+@pytest.mark.gpu
+def test_device_manager_reads_the_card(cuda_device):
+    """DeviceManager on a card reads its total from the CUDA driver and
+    its resident bytes from the caching allocator."""
+    from spark_rapids_tpu_torch.memory import DeviceManager
+    dm = DeviceManager(device=cuda_device)
+    assert dm.hbm_total == torch.cuda.mem_get_info(cuda_device)[1]
+    assert dm.resident_bytes() == torch.cuda.memory_allocated(cuda_device)
+    assert dm.budget == int(dm.hbm_total * 0.9) - (1 << 30)

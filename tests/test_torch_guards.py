@@ -8,7 +8,10 @@ import numpy as np
 import pytest
 import torch
 
+from spark_rapids_tpu_torch import memory as M
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.columnar.serde import (deserialize_batch,
+                                                   serialize_batch)
 from spark_rapids_tpu_torch.columnar.vector import ColumnVector
 from spark_rapids_tpu_torch.exec.basic import LocalBatchSource
 from spark_rapids_tpu_torch.models import tpch
@@ -56,6 +59,14 @@ _ENTRY_POINTS = {
     "build_q1_fused_kernel": lambda: tpch.build_q1_fused_kernel(1024, 256),
     "build_q1_kernel": lambda: tpch.build_q1_kernel(1024),
     "random_batch": lambda: fuzzer.random_batch(np.random.default_rng(0)),
+    "DeviceManager": lambda: M.DeviceManager(hbm_total=1 << 30),
+    "DeviceMemoryStore": lambda: M.DeviceMemoryStore(),
+    "HostMemoryStore": lambda: M.HostMemoryStore(1 << 10),
+    "DiskStore": lambda: M.DiskStore(),
+    "ResourceEnv": lambda: M.ResourceEnv(hbm_total=1 << 30),
+    "deserialize_batch": lambda: deserialize_batch(serialize_batch(
+        ColumnarBatch.from_numpy({"a": np.arange(4)}, device="cpu")),
+        "cuda"),
 }
 
 
@@ -92,3 +103,21 @@ def test_wrappers_refuse_malformed_inputs():
     with pytest.raises(ValueError, match="multiple of batch_rows"):
         K.q1_fused(*([i32] * 2 + [torch.ones(64)] * 4 + [i32]), 1,
                    capacity=64, cutoff=0, batch_rows=48)
+
+
+def test_memory_layer_takes_its_device(tmp_path):
+    """The memory layer's objects live on the device they are given; the
+    process singletons refuse to be made without one."""
+    env = M.ResourceEnv.init(hbm_total=1 << 30, spill_dir=str(tmp_path),
+                             device="cpu")
+    try:
+        for obj in (env, env.device_manager, env.device_store,
+                    env.host_store, env.disk_store):
+            assert obj.device == torch.device("cpu")
+    finally:
+        M.ResourceEnv.shutdown()
+    with pytest.raises(ValueError, match="no device"):
+        M.DeviceManager.get()
+    with pytest.raises(ValueError, match="no device"):
+        M.ResourceEnv.get()
+    assert M.DeviceManager.peek() is None and M.ResourceEnv.peek() is None
