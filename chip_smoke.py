@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """GPU smoke run of spark_rapids_tpu_torch: all 22 TPC-H queries, the
-ETL plans of the type and expression layer and the 18 TPC-DS queries
-with a window, a ROLLUP or a UNION ALL at scale factor 10 (59,986,052
-lineitem rows in phases 4-6, TPC-H spec 4.2.5; 28,800,991 store_sales
-rows in phase 11, TPC-DS Table 3-2), and the memory layer's out-of-core
-lanes and OOM retry lattice (phase 12), on one NVIDIA card.
+ETL plans of the type and expression layer, the 18 TPC-DS queries with
+a window, a ROLLUP or a UNION ALL (phase 11), the memory layer's
+out-of-core lanes and OOM retry lattice (phase 12), and the rest of the
+workloads (phase 13): the other 85 TPC-DS queries, TPCx-BB's 28 without
+a UDF and Mortgage's ETL, on one NVIDIA card (59,986,052 lineitem rows,
+scale factor 10, in phases 4-6, TPC-H spec 4.2.5; 50,000 TPC-DS
+store_sales rows in 11b and 13b, where SF1 has 2,880,404, Table 3-2).
 
     python3 chip_smoke.py [--seed N]
 
@@ -43,7 +45,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
      collects; accelerate (with the upload) and collect are timed apart,
      cold and hot;
   7. run TPC-H Q3, Q4 and Q5 (joins: HashJoinExec, SortedTopNExec) the
-     same way over the eight TPC-H tables at SF5 (see the cuts below),
+     same way over the eight TPC-H tables at SF1 (see the cuts below),
      linked by dbgen's
      keys (tpch_bench.sf10_tables), 16 partitions: the exec trees must
      be the planner's, every join's lane and its probe batches are
@@ -57,8 +59,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      each query's collect are held
      against the twin as in phase 3 (rtol 1e-4, exact on measures of
      integers whose sums f32 holds exactly) and timed (`device_ms`
-     from the profiler, or where it records no device activity from
-     CUDA events queued behind a sleep kernel);
+     from CUDA events queued behind a sleep kernel, as in every later
+     phase: the profiler records no device activity there);
   8. run TPC-H Q7, Q8, Q9 and Q10 (Year, CASE WHEN, Contains, Divide,
      part and partsupp, Q10's seven group keys) as phase 7 runs Q3-Q5,
      against float64 goldens (keys, years, names, counts and order
@@ -97,49 +99,70 @@ Phases, each of which raises on failure (exit code 1, no result line):
      and a hot collect timed apart, plan runs, peak device memory and
      the kernels' launches per plan printed, and the widest call of each
      kernel in each plan's hot collect held against its twin;
- 11. run the 18 TPC-DS queries of models/tpcds_queries.py (windows,
-     ROLLUPs through ExpandExec, UNION ALL) as a user submits them,
-     under the TPC bench conf with test.enabled, so that no plan has a
-     CPU node, after freeing phases 1-10's data: 11a over the
-     generator's tables at 100,000 store_sales rows, 16 partitions, each
-     result held against the CPU engine's (keys, strings, ranks, row
-     numbers, counts and the sort keys' order exact; sums and averages
-     rtol 1e-3: the banded lane adds in f32); 11b over
-     tpcds_bench.sf10_tables(seed, DS_SCALE) (7,200,248 store_sales
-     rows, a quarter of SF10's, the generator's own ratios for the
-     rest), 16 partitions, one new plan per query: accelerate and
-     collect timed apart, plan runs, peak device memory, rows, lane
-     decisions and the kernels' launches printed; the widest input batch of every WindowExec and ExpandExec
-     downloaded and the exec's output held against CpuWindow's pandas
-     evaluation / CpuExpand over the same rows (exact, window sums of
-     floats within n*eps*sum|x| of their input), and the widest call of
-     each kernel in each query against its twin;
- 12. (run after phase 10, over its tables, before phase 11 frees them)
-     the memory layer: the native host runtime must be live; 12a runs
-     Q18 and Q9 as phases 8-9 do, a SortExec over lineitem (30M rows x
-     13 columns, by l_shipdate, l_orderkey desc, l_linenumber) and Q17's
-     subquery aggregate (avg(l_quantity) by l_partkey over batches of
-     2^20 rows) through the exec tree, each under
-     spark.rapids.memory.hbmBudgetBytes = a quarter of its unbudgeted
-     peak max_memory_allocated (Q18's and Q9's from phases 8-9, the exec
-     trees' from an in-core run first; the aggregate's an eighth, as at
-     a quarter its partial state never outgrows the budget, see
-     MEM_AGG_BUDGET_SHARE): each result equal to its
-     unbudgeted one (keys, counts, strings and order exact, the sort bit
-     for bit, sums rtol 1e-3), the aggregate's spill, the grace-hash join
-     and the external merge sort each engaged in one of them, no run and
-     no reservation left behind, spill bytes by tier, plan runs, wall
-     time and peak against the budget printed; 12b runs Q5 under
-     spark.rapids.memory.faultInjection.oomRate=0.05, .seed=0 against
-     phase 7's golden with retries and split retries > 0; the widest
-     call of each kernel in each plan is held against its twin;
- 13. print the kernels line and, last, the device line.
-Cuts, to keep the script within 950 s of its 1,200 s limit once phase
-11 came: phase 9 runs one new plan per query, as phases 7 and 8 do
-(its second, hot plan went); phases 7-10 run over TPC-H at scale factor
-JOIN_SF = 5 (they ran at 10 before); phase 11b at a quarter of SF10's
-store_sales rows (at SF10 it took ~900 s alone on an H100;
-`scripts/torch_tpcds_phase.py --scale 28800991` runs it there).
+ 11. run the 18 TPC-DS queries of DS_SLICE (windows, ROLLUPs through
+     ExpandExec, UNION ALL) as a user submits them, under the TPC bench
+     conf with test.enabled, so that no plan has a CPU node, after
+     freeing phases 1-10's data: 11a, their check against the CPU engine
+     (keys, strings, ranks, row numbers, counts and the sort keys' order
+     exact; sums and averages rtol 1e-3: the banded lane adds in f32),
+     runs in 13a; 11b runs them over the tables 13b runs over
+     (workload_tables(seed, WL_SCALE): 50,000 store_sales rows, the
+     generator's own ratios for the rest), 16
+     partitions, one new plan per query: accelerate and collect timed
+     apart, plan runs, peak device memory, rows, lane decisions and the
+     kernels' launches printed; the widest input batch of every
+     WindowExec and ExpandExec downloaded and the exec's output held
+     against CpuWindow's pandas evaluation / CpuExpand over the same
+     rows (exact, window sums of floats within n*eps*sum|x| of their
+     input), the widest call of each kernel in each query against its
+     twin, and device memory back to its value before each query, as in
+     13b;
+ 13. the rest of the workloads, as a user submits them under the TPC
+     bench conf with test.enabled (no plan has a CPU node): 13a runs all
+     103 TPC-DS queries (the 85 without a window or an expand, and 11a's
+     18) and TPCx-BB's 28 queries without a UDF over
+     workload_tables(3, 20,000) (the reference fixture's seed and scale,
+     where every query keeps support; its TPC-DS tables are
+     tpcds_bench.sf10_tables(3, 20,000)'s), and Mortgage's etl_plan and
+     summary_plan over 1,000 loans x 24 months, 16 partitions, each
+     result held against the CPU engine's, which CPU_WORKERS processes
+     compute while the card runs (no result empty but q91's, as the
+     reference fixture allows; q9's five scalar subqueries each a
+     collect of its own on the card, timed apart); 13b runs the 85
+     TPC-DS queries and TPCx-BB's 28 over workload_tables(seed,
+     WL_SCALE) and Mortgage over 1,000,000 loans x 24 months (24M
+     performance rows), one new plan each, as 11b runs the 18 (q9's
+     subquery collects counted and checked with its plan);
+     throughout: accelerate and collect apart, plan runs, peak device
+     memory, rows, aggregate and join lanes and the kernels' launches
+     printed, every float of a result finite, the widest call of each
+     kernel in each query held against its twin (device time from CUDA
+     events), and torch.cuda.memory_allocated() printed before and
+     after each query, where it must come back to its value before once
+     the plan is dropped (but for the growth of the kernel wrappers' own
+     state, which lives as long as the process: window_group_sums' tile
+     flags, grouped_sum's scratch and row counts); window_group_sums
+     and grouped_sum must each launch in phase 13;
+ 14. print the kernels line and, last, the device line.
+Cuts, to keep the script within 950 s of its 1,200 s limit: phase 9
+runs one new plan per query, as phases 7 and 8 do (its second, hot plan
+went when phase 9 came); phases 7-10 and 12 run over TPC-H at scale
+factor JOIN_SF = 1 (10 before phase 11 came, 5 before 13b ran the 85);
+11a's check of the 18 runs in 13a at 20,000 store_sales rows (100,000
+before phase 13 came); 11b and 13b run at WL_SCALE = 50,000
+store_sales rows, not at SF1 (11b ran at a quarter of SF10 before phase
+13 came).  Why not SF1: there q24, q24b and q72 run out of the card's
+memory in a join of the reference's plan (q72 completes at 300,000
+rows, not at 400,000); and on an H100 the card's time per query is
+nearly flat in the scale, so the 85 cost their count more than their
+size: with them and TPCx-BB at 288,040 rows in 13b and phases 7-10 at
+SF5, the script took 1,191.1 s of phase laps (13a 290.6 s, 11b 102.7
+s, 13b 439.9 s, phases 7-10 and 12 310.1 s), and with phases 7-10 at
+SF1 and 11b and 13b at 100,000 rows 973.5 s (13a 316.2 s, 11b 91.1 s,
+13b 400.5 s, phases 7-10 and 12 119.9 s).  13b is the lap that set
+WL_SCALE.  `scripts/torch_tpcds_phase.py --queries rest --scale
+2880404` and `scripts/torch_workloads_phase.py --scale 2880404` run
+them at SF1, `--queries all --scale 28800991` at SF10 (PERF.md).
 Every phase prints its wall time.  Without a CUDA device, or without
 the package beside it, it exits non-zero before printing any result.
 """
@@ -151,7 +174,7 @@ import json
 import sys
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 
@@ -207,11 +230,10 @@ def event_ms(torch, fn, reps: int) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
-def device_ms(torch, fn, kernel: str, reps: int, strict: bool = True):
+def device_ms(torch, fn, kernel: str, reps: int) -> float:
     """Mean device time of one launch of the CUDA kernel whose name
-    contains `kernel`, from torch.profiler over `reps` calls of fn().
-    Where the profiler sees no such launch, raise if `strict`, else
-    print what it saw and return None (not measured)."""
+    contains `kernel`, from torch.profiler over `reps` calls of fn();
+    raises where the profiler sees no such launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -223,13 +245,6 @@ def device_ms(torch, fn, kernel: str, reps: int, strict: bool = True):
     events = list(prof.events())
     times = [e.time_range.elapsed_us() for e in events
              if e.device_type == DeviceType.CUDA and kernel in e.name]
-    if not times and not strict:
-        names = sorted({e.name[:60] for e in events})[:8]
-        print(f"device_ms of {kernel}: not measured, the profiler saw "
-              f"{len(events)} events, "
-              f"{sum(e.device_type == DeviceType.CUDA for e in events)} "
-              f"on the device ({names})", flush=True)
-        return None
     require(bool(times), f"the profiler saw no {kernel} launch")
     return sum(times) / len(times) / 1e3
 
@@ -1685,16 +1700,18 @@ MEM_HOST_SPILL = 16 << 30
 MEM_INJECT = {"spark.rapids.memory.faultInjection.oomRate": 0.05,
               "spark.rapids.memory.faultInjection.seed": 0}
 #: the lineitem columns of 12a's SortExec (all but the three comment-like
-#: strings), uploaded in batches of SORT_BATCH_ROWS
+#: strings), uploaded in batches of SORT_BATCH_ROWS (6 at SF1; 1 << 22,
+#: 8 batches, at SF5)
 SORT_COLUMNS = ("l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
                 "l_quantity", "l_extendedprice", "l_discount", "l_tax",
                 "l_returnflag", "l_linestatus", "l_shipdate",
                 "l_commitdate", "l_receiptdate")
-SORT_BATCH_ROWS = 1 << 22
+SORT_BATCH_ROWS = 1 << 20
 #: 12a's aggregate reads (l_partkey, l_quantity) in batches of this many
-#: rows: each touches most of the parts, so its partial state grows
-#: with the batch count, as a scan's does
-AGG_BATCH_ROWS = 1 << 20
+#: rows (23 at SF1; 1 << 20, 29 batches, at SF5): each touches most of
+#: the parts, so its partial state grows with the batch count, as a
+#: scan's does
+AGG_BATCH_ROWS = 1 << 18
 #: the disk tier's directory (git-ignored), emptied when a phase-12
 #: environment closes
 SPILL_DIR = Path(__file__).resolve().parent / ".spill"
@@ -1709,7 +1726,7 @@ def memory_cases(mem: dict, window_case, grouped_case) -> dict:
     must have its call checked."""
     cases: dict = {"window_group_sums": [], "grouped_sum": []}
     for name, (gid, vals, cap) in sorted(mem.pop("calls").items()):
-        case = window_case(gid, vals, cap, 10, strict=False)
+        case = window_case(gid, vals, cap)
         case.update(plan=name, launches=mem["launches"][name][
             "window_group_sums"], shape=f"{name} widest call: capacity "
             f"{gid.numel()}, out_cap {cap}, M={len(vals)}")
@@ -1717,7 +1734,7 @@ def memory_cases(mem: dict, window_case, grouped_case) -> dict:
         cases["window_group_sums"].append(case)
     for name, (keys, vals, rows, groups) in sorted(
             mem.pop("grouped_calls").items()):
-        case = grouped_case(keys, vals, rows, groups, None, 10, strict=False)
+        case = grouped_case(keys, vals, rows, groups, None)
         case.update(plan=name, launches=mem["launches"][name][
             "grouped_sum"], shape=f"{name} widest call: capacity "
             f"{keys.numel()}, G={groups}, M={len(vals)}, tier "
@@ -2097,19 +2114,37 @@ def memory_phase(torch, dev, tables: dict, unbudgeted: dict, checks: dict,
     return out
 
 
-#: TPC-H scale factor of phases 7-10's tables: cut from 10 when phase 11
-#: came, to keep the script within 950 s of its 1,200 s limit
-JOIN_SF = 5.0
-#: phase 11a's tables: store_sales rows
-DS_CHECK_SCALE = 100_000
-#: phase 11b's store_sales rows: a quarter of SF10's 28,800,991 (TPC-DS
-#: Table 3-2).  At SF10 phase 11b alone took ~900 s on an H100 (q67
-#: 213 s and 76.7 GiB, q49 133 s), past the script's limit
-DS_SCALE = 7_200_248
+#: TPC-H scale factor of phases 7-10's and 12's tables: cut from 10 when
+#: phase 11 came and from 5 when 13b ran the 85, to keep the script
+#: within 950 s of its 1,200 s limit
+JOIN_SF = 1.0
 #: sums and averages of phase 11a's card results against the CPU
 #: engine: the banded lane adds in f32
 DS_RTOL = 1e-3
+#: phase 13a's TPC-DS and TPCx-BB tables: store_sales rows and seed (the
+#: reference fixture's, tests/test_workloads.py, where every query keeps
+#: support; at seed 0 q31's result is empty), and its Mortgage loans
+WL_CHECK_SCALE = 20_000
+WL_CHECK_SEED = 3
+WL_CHECK_LOANS = 1_000
+#: phases 11b's and 13b's store_sales rows (SF1 has 2,880,404, TPC-DS
+#: Table 3-2), and 13b's Mortgage loans (see the cuts above)
+WL_SCALE = 50_000
+MORTGAGE_LOANS = 1_000_000
+#: months of performance records per loan in phase 13
+MORTGAGE_MONTHS = 24
 EPS64 = float(np.finfo(np.float64).eps)
+#: phase 11's TPC-DS queries: the 18 with a window, a ROLLUP or a UNION
+#: ALL (phase 13 runs the other 85)
+DS_SLICE = ("q5", "q14", "q18", "q22", "q27", "q36", "q44", "q47", "q49",
+            "q51", "q53", "q57", "q67", "q70", "q77", "q80", "q86", "q89")
+
+
+def query_order(name: str) -> tuple:
+    """Sort key of a query name: its number, then its suffix (q14 before
+    q14b before q15)."""
+    digits = "".join(c for c in name if c.isdigit())
+    return int(digits), name
 
 
 def _ds_norm(df):
@@ -2168,12 +2203,15 @@ def _ds_same(want, got, rtol: float, label: str) -> float:
 
 
 def ds_order_columns(plan) -> list:
-    """The output columns a TPC-DS plan's final sort orders by."""
+    """The output columns a plan's final sort orders by ([] where no
+    sort orders the result: a global aggregate, a row of scalars)."""
     from spark_rapids_tpu_torch.exprs.base import AttributeReference
     from spark_rapids_tpu_torch.plan.nodes import CpuSort
     out = set(plan.output_schema().names)
     node = plan
     while not isinstance(node, CpuSort):
+        if not node.children:
+            return []
         node = node.children[0]
     return [o.expr.name for o in node.order
             if isinstance(o.expr, AttributeReference) and o.expr.name in out]
@@ -2268,39 +2306,174 @@ def check_exec_batch(ex, batch, W) -> dict:
             "cpu_s": t2 - t1, "worst_sum_share_of_bound": worst}
 
 
-def ds_check_phase(torch, dev, seed: int) -> dict:
-    """Phase 11a: the 18 queries over the generator's tables at
-    DS_CHECK_SCALE, 16 partitions, on the card against the CPU engine."""
+class Workload(NamedTuple):
+    """A suite of the port's models: its name, its queries (name ->
+    fn(t, run) -> CpuNode) and its sources(tables, num_partitions)."""
+    name: str
+    queries: dict
+    sources: Callable
+
+
+def workload(name: str) -> Workload:
+    """"tpcds" (103 queries), "tpcxbb" (28) or "mortgage" (etl_plan and
+    summary_plan)."""
+    if name == "tpcds":
+        from spark_rapids_tpu_torch.models import tpcds_data as DD
+        from spark_rapids_tpu_torch.models.tpcds_queries import QUERIES
+
+        def sources(tables: dict, n: int) -> dict:
+            return DD.sources({k: v for k, v in tables.items()
+                               if k in DD.SCHEMAS}, n)
+        return Workload(name, QUERIES, sources)
+    if name == "tpcxbb":
+        from spark_rapids_tpu_torch.models import tpcxbb as X
+        return Workload(name, X.QUERIES, X.sources)
+    from spark_rapids_tpu_torch.models import mortgage as M
+    return Workload(name, {
+        "etl_plan": lambda t, run: M.etl_plan(t),
+        "summary_plan": lambda t, run: M.summary_plan(t)}, M.sources)
+
+
+def workload_tables(seed: int, scale: int) -> dict:
+    """tpcxbb.gen_tables at `scale` store_sales rows from `seed`: the
+    TPC-DS tables of tpcds_bench.sf10_tables(seed, scale), then a
+    clickstream of 3x scale rows and the product reviews."""
+    from spark_rapids_tpu_torch.models import tpcxbb as X
+    return X.gen_tables(np.random.default_rng(seed), scale)
+
+
+def mortgage_tables(seed: int, loans: int, months: int) -> dict:
+    from spark_rapids_tpu_torch.models import mortgage as M
+    return M.gen_tables(np.random.default_rng(seed), loans=loans,
+                        months=months)
+
+
+def make_tables(spec: tuple) -> dict:
+    """("workload", seed, scale): workload_tables(seed, scale);
+    ("mortgage", seed, loans, months): mortgage_tables(...)."""
+    kind, *args = spec
+    return workload_tables(*args) if kind == "workload" \
+        else mortgage_tables(*args)
+
+
+def card_run(torch, dev, conf, laps: list):
+    """The `run` a user's query calls: collect(accelerate(plan)) on the
+    card, each call's wall time (to the card's last kernel) in `laps`."""
+    from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
+
+    def run(plan):
+        t0 = time.perf_counter()
+        df = collect(accelerate(plan, conf, device=dev), conf)
+        torch.cuda.synchronize(dev)
+        laps.append(time.perf_counter() - t0)
+        return df
+    return run
+
+
+#: processes that compute check_queries' CPU-engine results while the
+#: card runs the same queries (the CPU engine took a fifth of 13a's
+#: time, q72 alone ~40 s)
+CPU_WORKERS = 2
+#: a CPU worker process's tables, made once by cpu_worker_init
+_WORKER_TABLES: dict = {}
+
+
+def cpu_worker_init(spec: tuple) -> None:
+    import torch
+    torch.set_num_threads(2)
+    _WORKER_TABLES.update(make_tables(spec))
+
+
+def cpu_engine_result(wl_name: str, q: str) -> tuple:
+    """In a CPU worker: query q of workload `wl_name` over the worker's
+    tables on the port's CPU engine, 16 partitions: (result, the
+    columns its final sort orders by, seconds)."""
+    from spark_rapids_tpu_torch.models import tpcds_bench as DB
+    wl = workload(wl_name)
+    t0 = time.perf_counter()
+    plan = wl.queries[q](wl.sources(_WORKER_TABLES, DB.SF10_PARTITIONS),
+                         lambda p: p.collect())
+    df = plan.collect()
+    return df, ds_order_columns(plan), time.perf_counter() - t0
+
+
+def check_queries(torch, dev, wl: Workload, spec: tuple, queries,
+                  label: str) -> dict:
+    """Each query of `queries` over make_tables(spec) as a user submits
+    it on the card, 16 partitions, under the TPC bench conf with
+    test.enabled (a CPU node fails the plan), against the CPU engine's
+    result (check_ds_query), which CPU_WORKERS processes compute
+    meanwhile; no result may be empty but q91's (the reference fixture
+    allows it).  Each scalar subquery that a query collects through
+    `run` (q9's five) is a collect of its own on the card, timed apart."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     from spark_rapids_tpu_torch import config as C
     from spark_rapids_tpu_torch.models import tpcds_bench as DB
-    from spark_rapids_tpu_torch.models import tpcds_data as DD
-    from spark_rapids_tpu_torch.models.tpcds_queries import QUERIES
-    tables = DB.sf10_tables(seed, DS_CHECK_SCALE)
     n = DB.SF10_PARTITIONS
     conf = C.RapidsConf({**DB.BENCH_CONF, C.TEST_ENABLED.key: True})
-    out = {"rel": 0.0, "seconds": {}}
-    for q in sorted(QUERIES, key=lambda s: int(s[1:])):
-        t0 = time.perf_counter()
-        cpu_plan = QUERIES[q](DD.sources(tables, n),
-                              lambda p: p.collect())
-        want = cpu_plan.collect()
-        t1 = time.perf_counter()
-        got = DB.run_query(q, tables, device=dev, conf=conf,
-                           num_partitions=n)
-        t2 = time.perf_counter()
-        require(len(want) > 0, f"{q}: the CPU engine's result is empty")
-        rel = check_ds_query(q, want, got, ds_order_columns(cpu_plan))
-        out["rel"] = max(out["rel"], rel)
-        out["seconds"][q] = {"cpu": t1 - t0, "card": t2 - t1}
-        print(f"tpcds {q} at scale {DS_CHECK_SCALE}: {len(got)} rows equal "
-              f"to the CPU engine's (CPU {t1 - t0:.2f} s, card "
-              f"{t2 - t1:.2f} s), max rel err {rel:.3g}", flush=True)
+    tables = make_tables(spec)
+    out = {"rel": 0.0, "seconds": {}, "subqueries": {}}
+    with ProcessPoolExecutor(
+            CPU_WORKERS, multiprocessing.get_context("spawn"),
+            initializer=cpu_worker_init, initargs=(spec,)) as pool:
+        cpu = {q: pool.submit(cpu_engine_result, wl.name, q)
+               for q in queries}
+        for q in queries:
+            t0 = time.perf_counter()
+            laps: list = []
+            run = card_run(torch, dev, conf, laps)
+            got = run(wl.queries[q](wl.sources(tables, n), run))
+            subqueries = laps[:-1]
+            card_s = time.perf_counter() - t0
+            want, order_cols, cpu_s = cpu[q].result()
+            require(len(want) > 0 or (wl.name, q) == ("tpcds", "q91"),
+                    f"{wl.name} {q}: the CPU engine's result is empty")
+            rel = check_ds_query(f"{wl.name} {q}", want, got, order_cols)
+            out["rel"] = max(out["rel"], rel)
+            out["seconds"][q] = {"cpu": cpu_s, "card": card_s}
+            subs = ""
+            if subqueries:
+                out["subqueries"][q] = subqueries
+                subs = (f"; {len(subqueries)} scalar subqueries, each a "
+                        f"collect on the card: " + ", ".join(
+                            f"{s:.3f}" for s in subqueries) + " s")
+            print(f"{wl.name} {q} at {label}: {len(got)} rows equal to the "
+                  f"CPU engine's (CPU {cpu_s:.2f} s, card {card_s:.2f} s), "
+                  f"max rel err {rel:.3g}{subs}", flush=True)
     return out
 
 
-def ds_query(q: str, tables: dict, torch, dev, GW, K, cases) -> dict:
-    """Phase 11b's run of query q (see ds_phase); every device tensor it
-    made is dropped when it returns."""
+def kernel_state_bytes(GW, K) -> int:
+    """Device bytes of the kernel wrappers' state that lives as long as
+    the process, as the caching allocator counts them (blocks of 512
+    bytes): window_group_sums' tile flags and scratch and grouped_sum's
+    ticket and tier-A scratch (each grown to the widest launch, never
+    freed), and grouped_sum's int32 row counts (one per device, stream
+    and row count, at most 256, then cleared)."""
+    tensors = [t for state in GW._TILE_STATE.values() for t in state[:2]]
+    tensors += [t for state in K._GS_DEVICE.values() for t in state[2:]]
+    tensors += list(K._ROW_COUNTS.values())
+    return sum(-(-t.numel() * t.element_size() // 512) * 512
+               for t in tensors)
+
+
+def ds_query(q: str, tables: dict, torch, dev, GW, K, cases,
+             wl: Optional[Workload] = None) -> dict:
+    """The run of query q of `wl` (TPC-DS by default) over `tables` at
+    16 partitions, one new plan, under the TPC bench conf with
+    test.enabled (the result in out["frame"]): accelerate (with the upload and any scalar subquery's
+    collect) and collect timed apart, plan runs, peak device memory,
+    rows, aggregate and join lanes, the kernels' launches; every float
+    of the result finite; the widest input batch of every WindowExec and
+    ExpandExec held against its CPU node (the 18 of phase 11 must have
+    one), and the widest call of each kernel against its twin, the
+    subquery collects' calls and launches with the plan's.  Every device
+    tensor the query made is dropped when it returns:
+    torch.cuda.memory_allocated() must come back to its value before
+    the query, but for the growth of the kernel wrappers' own state
+    (kernel_state_bytes)."""
     from collections import Counter
 
     from spark_rapids_tpu_torch import config as C
@@ -2308,33 +2481,39 @@ def ds_query(q: str, tables: dict, torch, dev, GW, K, cases) -> dict:
     from spark_rapids_tpu_torch.exec import expand as EX
     from spark_rapids_tpu_torch.exec import window as W
     from spark_rapids_tpu_torch.models import tpcds_bench as DB
-    from spark_rapids_tpu_torch.models import tpcds_data as DD
-    from spark_rapids_tpu_torch.models.tpcds_queries import QUERIES
     from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
+    wl = wl or workload("tpcds")
+    label = f"{wl.name} {q}"
     grouped_case, window_case = cases
     conf = C.RapidsConf({**DB.BENCH_CONF, C.TEST_ENABLED.key: True})
-
-    def run(plan):
-        return collect(accelerate(plan, conf, device=dev), conf)
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    state0 = kernel_state_bytes(GW, K)
+    before = torch.cuda.memory_allocated(dev)
+    laps: list = []
+    run = card_run(torch, dev, conf, laps)
     calls: list = []
     gcalls: list = []
     widest: dict = {}
     lanes: Counter = Counter()
     spied: Counter = Counter()
     torch.cuda.reset_peak_memory_stats(dev)
-    ts = time.perf_counter()
-    plan = accelerate(QUERIES[q](DD.sources(tables, DB.SF10_PARTITIONS),
-                                 run), conf, device=dev)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
+    # counted and recorded from the query function on, so that a scalar
+    # subquery's collect (q9's five, in accelerate) is counted and checked
     GW.window_group_sums.launches = 0
     K.grouped_sum.launches = 0
     K.q1_fused.launches = 0
     AGG.window_group_sums = recording(calls, GW)
     AGG.grouped_sum = recording_grouped(gcalls, K)
-    undo = [lane_spy(AGG, lanes), collect_spy(spied),
-            widest_inputs(widest, EX, W)]
+    undo: list = []
     try:
+        ts = time.perf_counter()
+        plan = accelerate(wl.queries[q](
+            wl.sources(tables, DB.SF10_PARTITIONS), run), conf, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        undo = [lane_spy(AGG, lanes), collect_spy(spied),
+                widest_inputs(widest, EX, W)]
         df = collect(plan, conf)
     finally:
         for u in undo:
@@ -2347,84 +2526,193 @@ def ds_query(q: str, tables: dict, torch, dev, GW, K, cases) -> dict:
                 "grouped_sum": K.grouped_sum.launches,
                 "q1_fused": K.q1_fused.launches}
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    names = [type(e).__name__ for e in walk(plan)]
-    del plan
-    require(any(x in names for x in ("WindowExec", "ExpandExec")),
-            f"{q}: no WindowExec or ExpandExec in {names}")
-    require(widest, f"{q}: no ExpandExec or WindowExec ran")
+    execs = list(walk(plan))
+    names = [type(e).__name__ for e in execs]
+    join_lanes = Counter(getattr(e, "lane", None) for e in execs
+                         if type(e).__name__ == "HashJoinExec")
+    del plan, execs
+    if wl.name == "tpcds" and q in DS_SLICE:
+        require(any(x in names for x in ("WindowExec", "ExpandExec")),
+                f"{q}: no WindowExec or ExpandExec in {names}")
+        require(widest, f"{q}: no ExpandExec or WindowExec ran")
     floats = [c for c in df.columns
               if str(df[c].dtype).lower().startswith("float")]
     require(all(np.isfinite(df[c].dropna().to_numpy(np.float64)).all()
-                for c in floats), f"{q}: a non-finite value")
+                for c in floats), f"{label}: a non-finite value")
     require(launches["q1_fused"] == 0,
-            f"{q}: q1_fused launched: no call of it is checked")
+            f"{label}: q1_fused launched: no call of it is checked")
     agg_lanes = {f"{m}={d}": c for (m, d), c in sorted(lanes.items())}
-    print(f"tpcds {q} ({len(tables['store_sales'])} store_sales rows): "
-          f"accelerate {t1 - ts:.3f} s (with the "
-          f"upload), collect {t2 - t1:.3f} s (plan runs "
+    subs = (f" and {len(laps)} scalar subqueries' collects, "
+            + ", ".join(f"{s:.3f}" for s in laps) + " s") if laps else ""
+    fact = "store_sales" if "store_sales" in tables else "perf"
+    print(f"{label} ({len(tables[fact])} {fact} rows): accelerate {t1 - ts:.3f} s (with "
+          f"the upload{subs}), collect {t2 - t1:.3f} s (plan runs "
           f"{spied['executions']}), {len(df)} rows, peak device memory "
           f"{peak:.2f} GiB, launches {launches}, aggregate lanes "
-          f"{agg_lanes}", flush=True)
-    out = {"launches": launches, "peak_gb": peak, "rows": len(df),
-           "seconds": {"accelerate": t1 - ts, "collect": t2 - t1},
-           "plan_runs": spied["executions"], "execs": []}
-    for ex, batch in widest.values():
-        res = check_exec_batch(ex, batch, W)
-        out["execs"].append(res)
-        print(f"tpcds {q} {res['exec']}: widest input {res['rows']} rows "
+          f"{agg_lanes}, join lanes {dict(join_lanes)}", flush=True)
+    out = {"frame": df, "launches": launches, "peak_gb": peak,
+           "rows": len(df),
+           "seconds": {"accelerate": t1 - ts, "collect": t2 - t1,
+                       "subqueries": laps},
+           "plan_runs": spied["executions"], "join_lanes": dict(join_lanes)}
+    # a comprehension, so no loop variable keeps an exec (and through its
+    # children the plan's uploaded tables) alive until the memory check
+    out["execs"] = [check_exec_batch(ex, batch, W)
+                    for ex, batch in widest.values()]
+    widest.clear()
+    for res in out["execs"]:
+        print(f"{label} {res['exec']}: widest input {res['rows']} rows "
               f"-> {res['out_rows']}, equal to the CPU node (worst window "
               f"sum at {res['worst_sum_share_of_bound']:.3g} of its bound; "
               f"download {res['download_s']:.2f} s, CPU {res['cpu_s']:.2f} "
               f"s)", flush=True)
     require(bool(calls) == bool(launches["window_group_sums"]),
-            f"{q}: window_group_sums launched but no call recorded")
+            f"{label}: window_group_sums launched but no call recorded")
     require(bool(gcalls) == bool(launches["grouped_sum"]),
-            f"{q}: grouped_sum launched but no call recorded")
+            f"{label}: grouped_sum launched but no call recorded")
     if calls:
         gid, vals, cap = calls
-        case = window_case(gid, vals, cap, 10, strict=False)
+        case = window_case(gid, vals, cap)
         case.update(query=q, launches=launches["window_group_sums"],
-                    shape=f"{q} widest call: capacity {gid.numel()}, "
+                    shape=f"{label} widest call: capacity {gid.numel()}, "
                     f"out_cap {cap}, M={len(vals)}")
         print(kernel_text("window_group_sums", case), flush=True)
         out["window_case"] = case
+        del gid, vals
     if gcalls:
         keys, vals, rows, groups = gcalls
-        case = grouped_case(keys, vals, rows, groups, None, 10,
-                            strict=False)
+        case = grouped_case(keys, vals, rows, groups, None)
         case.update(query=q, launches=launches["grouped_sum"],
-                    shape=f"{q} widest call: capacity {keys.numel()}, "
+                    shape=f"{label} widest call: capacity {keys.numel()}, "
                     f"G={groups}, M={len(vals)}, tier {case['tier']}")
         print(kernel_text("grouped_sum", case), flush=True)
         out["grouped_case"] = case
+        del keys, vals
+    del calls, gcalls
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    after = torch.cuda.memory_allocated(dev)
+    grown = kernel_state_bytes(GW, K) - state0
+    out["memory_allocated"] = {"before": before, "after": after,
+                               "kernel_state_growth": grown}
+    print(f"{label}: memory_allocated {before} bytes before, {after} "
+          f"after the plan was dropped (the kernel wrappers' own state "
+          f"grew {grown})", flush=True)
+    require(after - before == grown,
+            f"{label}: {after - before - grown} bytes of device memory "
+            f"kept after its plan was dropped")
+    return out
+
+
+def run_queries(torch, dev, wl: Workload, tables: dict, queries, GW, K,
+                cases, failed: Optional[list] = None) -> dict:
+    """ds_query for each query of `queries` in turn, the caching
+    allocator emptied after each.  With a `failed` list, a query that
+    raises is named there with its error (its traceback printed) and the
+    next one runs; without one, the first error ends the run."""
+    import traceback
+    out = {}
+    for q in queries:
+        try:
+            out[q] = ds_query(q, tables, torch, dev, GW, K, cases, wl)
+            del out[q]["frame"]
+        except Exception as e:  # noqa: BLE001 -- named in `failed`
+            if failed is None:
+                raise
+            traceback.print_exc()
+            failed.append(f"{wl.name} {q}: {type(e).__name__}: {e}")
+            print(f"{wl.name} {q} FAILED: {type(e).__name__}: {e}",
+                  flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
 def ds_phase(torch, dev, seed: int, GW, K, scale: Optional[int] = None,
-             queries: Optional[list] = None) -> dict:
-    """Phase 11b: the 18 queries (or `queries`) over
-    `tpcds_bench.sf10_tables(seed, scale)` (SF10's 28,800,991
-    store_sales rows by default), 16 partitions, one new plan each,
-    under the TPC bench conf with test.enabled.  Per query: accelerate
-    and collect timed apart, plan runs, peak device memory, rows, lane
-    decisions, the kernels' launches; the widest input batch of every
-    WindowExec and ExpandExec held against its CPU node
-    (check_exec_batch), and the widest call of each kernel against its
-    twin."""
+             queries: Optional[list] = None,
+             failed: Optional[list] = None,
+             tables: Optional[dict] = None) -> dict:
+    """Phase 11b: the 18 queries of DS_SLICE (or `queries`, in
+    query_order) over `tables`, or else `tpcds_bench.sf10_tables(seed,
+    scale)` (SF10's 28,800,991 store_sales rows by default), 16
+    partitions, one new plan each, with ds_query's measures and
+    checks."""
     from spark_rapids_tpu_torch.models import tpcds_bench as DB
-    from spark_rapids_tpu_torch.models.tpcds_queries import QUERIES
     cases = kernel_cases(torch, dev, GW, K)
-    scale = scale or DB.SF10_STORE_SALES
-    t0 = time.perf_counter()
-    tables = DB.sf10_tables(seed, scale)
-    print("tpcds data: " + ", ".join(f"{k} {len(v)}" for k, v in
-                                     tables.items())
-          + f" rows, {time.perf_counter() - t0:.1f} s", flush=True)
+    if tables is None:
+        t0 = time.perf_counter()
+        tables = DB.sf10_tables(seed, scale or DB.SF10_STORE_SALES)
+        print("tpcds data: " + ", ".join(f"{k} {len(v)}" for k, v in
+                                         tables.items())
+              + f" rows, {time.perf_counter() - t0:.1f} s", flush=True)
+    return run_queries(torch, dev, workload("tpcds"), tables,
+                       sorted(queries or DS_SLICE, key=query_order), GW, K,
+                       cases, failed)
+
+
+def ds_rest() -> list:
+    """The 85 TPC-DS queries of phase 13: all but DS_SLICE."""
+    from spark_rapids_tpu_torch.models.tpcds_queries import QUERIES
+    return sorted(set(QUERIES) - set(DS_SLICE), key=query_order)
+
+
+def workloads_check_phase(torch, dev, seed: int) -> dict:
+    """Phase 13a: all 103 TPC-DS queries (phase 11's 18 with them) and
+    the 28 TPCx-BB queries over workload_tables(WL_CHECK_SEED,
+    WL_CHECK_SCALE), Mortgage's two plans over WL_CHECK_LOANS x
+    MORTGAGE_MONTHS from `seed`, on the card against the CPU engine
+    (check_queries)."""
+    from spark_rapids_tpu_torch.models import tpcxbb as X
+    spec = ("workload", WL_CHECK_SEED, WL_CHECK_SCALE)
+    label = f"{WL_CHECK_SCALE} store_sales rows"
+    out = {"tpcds": check_queries(
+        torch, dev, workload("tpcds"), spec,
+        sorted(DS_SLICE + tuple(ds_rest()), key=query_order), label)}
+    require(len(out["tpcds"]["subqueries"].get("q9", ())) == 5,
+            "q9's five scalar subqueries did not each collect on the card")
+    out["tpcxbb"] = check_queries(torch, dev, workload("tpcxbb"), spec,
+                                  sorted(X.QUERIES), label)
+    out["mortgage"] = check_queries(
+        torch, dev, workload("mortgage"),
+        ("mortgage", seed, WL_CHECK_LOANS, MORTGAGE_MONTHS),
+        ("etl_plan", "summary_plan"),
+        f"{WL_CHECK_LOANS} loans x {MORTGAGE_MONTHS} months")
+    return out
+
+
+def workloads_scale_phase(torch, dev, seed: int, GW, K, scale: int,
+                          loans: int, xbb_queries=None,
+                          mortgage: bool = True,
+                          failed: Optional[list] = None,
+                          tables: Optional[dict] = None) -> dict:
+    """Phase 13b: the 28 TPCx-BB queries (or `xbb_queries`) over
+    `tables`, or else workload_tables(seed, scale), then Mortgage's two
+    plans over `loans` x MORTGAGE_MONTHS, one new plan each, with
+    ds_query's measures and checks (the 85 TPC-DS queries run by
+    ds_phase before it)."""
+    from spark_rapids_tpu_torch.models import tpcxbb as X
+    cases = kernel_cases(torch, dev, GW, K)
+    xbb_queries = sorted(X.QUERIES) if xbb_queries is None else xbb_queries
     out = {}
-    for q in queries or sorted(QUERIES, key=lambda s: int(s[1:])):
-        out[q] = ds_query(q, tables, torch, dev, GW, K, cases)
-        gc.collect()
-        torch.cuda.empty_cache()
+    if xbb_queries:
+        if tables is None:
+            t0 = time.perf_counter()
+            tables = workload_tables(seed, scale)
+            print("workload data: " + ", ".join(
+                f"{k} {len(v)}" for k, v in tables.items())
+                + f" rows, {time.perf_counter() - t0:.1f} s", flush=True)
+        out["tpcxbb"] = run_queries(torch, dev, workload("tpcxbb"), tables,
+                                    xbb_queries, GW, K, cases, failed)
+        del tables
+    if mortgage:
+        t0 = time.perf_counter()
+        mtg = mortgage_tables(seed, loans, MORTGAGE_MONTHS)
+        print(f"mortgage data: perf {len(mtg['perf'])}, acq "
+              f"{len(mtg['acq'])} rows, {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        out["mortgage"] = run_queries(
+            torch, dev, workload("mortgage"), mtg,
+            ("etl_plan", "summary_plan"), GW, K, cases, failed)
     return out
 
 
@@ -2432,8 +2720,12 @@ def kernel_cases(torch, dev, GW, K):
     """(grouped_case, window_case): a kernel's call on `dev` held
     against its plain twin, its second call's bits, and its times (the
     wrapper, the kernel alone, the twin and the library call), for
-    phases 3 and 7-11."""
-    def grouped_case(keys, vals, nrows, n_groups, tier, reps, strict=True):
+    phases 3 and 7-13.  The kernel alone: from torch.profiler with
+    `profile` (phase 3's shapes), else from CUDA events queued behind a
+    sleep kernel (every main-path call; the profiler records no device
+    activity after phase 7)."""
+    def grouped_case(keys, vals, nrows, n_groups, tier, reps=10,
+                     profile=False):
         def call():
             return K.grouped_sum(keys, vals, nrows, n_groups=n_groups,
                                  capacity=keys.numel())
@@ -2470,7 +2762,8 @@ def kernel_cases(torch, dev, GW, K):
                 0, seg, lib_vals)
             torch.bincount(seg, minlength=n_groups + 1)
 
-        prof_ms = device_ms(torch, call, "grouped_sum", reps, strict)
+        prof_ms = device_ms(torch, call, "grouped_sum", reps) \
+            if profile else None
         ev_ms = event_ms(torch, call, reps)
         return {
             "max_abs_err": err, "max_rel_err": rel, "rtol": 1e-4,
@@ -2484,7 +2777,7 @@ def kernel_cases(torch, dev, GW, K):
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cuda_ms(torch, library, reps)}
 
-    def window_case(gid, vals, out_cap, reps, strict=True):
+    def window_case(gid, vals, out_cap, reps=10, profile=False):
         def call():
             return GW.window_group_sums(gid, vals, out_cap=out_cap,
                                         capacity=gid.numel())
@@ -2512,12 +2805,12 @@ def kernel_cases(torch, dev, GW, K):
         seg = torch.where((gid >= 0) & (gid < out_cap), gid,
                           out_cap).to(torch.int64)
         lib_vals = torch.stack(vals, 1)
-        prof_ms = device_ms(torch, call, "window_group_sums", reps, strict)
+        prof_ms = device_ms(torch, call, "window_group_sums", reps) \
+            if profile else None
         ev_ms = event_ms(torch, call, reps)
         return {
             "max_abs_err": err, "max_rel_err": rel, "rtol": 1e-4,
             "ms": cuda_ms(torch, call, reps),
-            # the profiler's, or where it records nothing the events'
             "device_ms": ev_ms if prof_ms is None else prof_ms,
             "device_ms_by": "events" if prof_ms is None else "profiler",
             "event_ms": ev_ms,
@@ -2629,7 +2922,7 @@ def main() -> int:
     q1_vals = []
     for v in val_cols:
         q1_vals += [torch.where(keep0, v, 0.0), flag]
-    gs = grouped_case(slot, q1_vals, TB.BATCH_CAP, 26, "A", 20)
+    gs = grouped_case(slot, q1_vals, TB.BATCH_CAP, 26, "A", 20, True)
     gs.update(name="grouped_sum", route="cuda",
               source="spark_rapids_tpu_torch/csrc/grouped_sum.cu",
               replaces="spark_rapids_tpu/ops/pallas_kernels.py:291",
@@ -2638,11 +2931,12 @@ def main() -> int:
     g_rng = torch.Generator(device=dev).manual_seed(args.seed)
     wide_keys = torch.randint(0, 32769, (TB.BATCH_CAP,), generator=g_rng,
                               device=dev, dtype=torch.int32)
-    gs_wide = grouped_case(wide_keys, q1_vals, TB.BATCH_CAP, 32769, "C", 5)
+    gs_wide = grouped_case(wide_keys, q1_vals, TB.BATCH_CAP, 32769, "C", 5,
+                           True)
     gs_wide["shape"] = "2^23 rows, G=32769, M=14"
     # a table past the lane-private tier: one table per warp
     mid_keys = torch.remainder(wide_keys, 300)
-    gs_mid = grouped_case(mid_keys, q1_vals, TB.BATCH_CAP, 300, "B", 10)
+    gs_mid = grouped_case(mid_keys, q1_vals, TB.BATCH_CAP, 300, "B", 10, True)
     gs_mid["shape"] = "2^23 rows, G=300, M=14"
 
     # Q1's merge shape: 8 partials x 6 groups sorted into a 16384-row
@@ -2654,7 +2948,7 @@ def main() -> int:
     mvals = [torch.where(row_live, torch.rand(merge_cap, generator=g_rng,
                                               device=dev) * 1e6, 0.0)
              for _ in range(17)]
-    wg = window_case(gid, mvals, merge_cap, 50)
+    wg = window_case(gid, mvals, merge_cap, 50, True)
     wg.update(name="window_group_sums", route="cuda",
               source="spark_rapids_tpu_torch/csrc/window_group_sums.cu",
               replaces="spark_rapids_tpu/ops/grouped_window.py:72",
@@ -2665,7 +2959,7 @@ def main() -> int:
         torch.int32)
     big_vals = [torch.rand(1 << 22, generator=g_rng, device=dev)
                 for _ in range(17)]
-    wg_big = window_case(big_gid, big_vals, 1 << 20, 10)
+    wg_big = window_case(big_gid, big_vals, 1 << 20, 10, True)
     wg_big["shape"] = "2^22 rows, ~10^6 groups, M=17"
     # planner Q1's partial aggregate: one partition of 3,749,129 live rows
     # at capacity 2^22 in 4 runs that cross ~900 tiles each; small
@@ -2677,7 +2971,7 @@ def main() -> int:
     run_vals = [torch.where(iota < part_rows, torch.randint(
         0, 16, (1 << 22,), generator=g_rng, device=dev), 0).float()
         for _ in range(17)]
-    wg_runs = window_case(run_gid, run_vals, 1 << 14, 10)
+    wg_runs = window_case(run_gid, run_vals, 1 << 14, 10, True)
     require(wg_runs["max_abs_err"] == 0.0,
             "window_group_sums at planner Q1's shape is not exact")
     wg_runs["shape"] = "2^22 rows (3,749,129 live), 4 runs, out_cap 2^14, M=17"
@@ -2801,7 +3095,7 @@ def main() -> int:
             require(q in phase["calls"],
                     f"q{q}: no window_group_sums call on the card to check")
             j_gid, j_vals, j_cap = phase["calls"].pop(q)
-            case = window_case(j_gid, j_vals, j_cap, 10, strict=False)
+            case = window_case(j_gid, j_vals, j_cap)
             live = int((j_gid[1:] != j_gid[:-1]).sum().item()) + 1
             case.update(query=q, launches=phase["window_group_sums"][
                 f"q{q}"], shape=f"Q{q} widest call: capacity "
@@ -2840,8 +3134,7 @@ def main() -> int:
     for q, (g_keys, g_vals, g_rows, g_groups) in sorted(
             {**joins["grouped_calls"], **parts["grouped_calls"],
              **rest["grouped_calls"]}.items()):
-        case = grouped_case(g_keys, g_vals, g_rows, g_groups, None, 10,
-                            strict=False)
+        case = grouped_case(g_keys, g_vals, g_rows, g_groups, None)
         case.update(query=q, launches=by_query[f"q{q}"],
                     shape=f"Q{q} widest call: capacity {g_keys.numel()}, "
                     f"G={g_groups}, M={len(g_vals)}, tier {case['tier']}")
@@ -2860,7 +3153,7 @@ def main() -> int:
     # the widest call of each ETL plan's last collect against the twins
     etl_cases: dict = {"window_group_sums": [], "grouped_sum": []}
     for name, (e_gid, e_vals, e_cap) in sorted(etl["calls"].items()):
-        case = window_case(e_gid, e_vals, e_cap, 10, strict=False)
+        case = window_case(e_gid, e_vals, e_cap)
         case.update(plan=name, launches=etl["launches"][name][
             "window_group_sums"], shape=f"{name} widest call: capacity "
             f"{e_gid.numel()}, out_cap {e_cap}, M={len(e_vals)}")
@@ -2868,8 +3161,7 @@ def main() -> int:
         etl_cases["window_group_sums"].append(case)
     for name, (e_keys, e_vals, e_rows, e_groups) in sorted(
             etl["grouped_calls"].items()):
-        case = grouped_case(e_keys, e_vals, e_rows, e_groups, None, 10,
-                            strict=False)
+        case = grouped_case(e_keys, e_vals, e_rows, e_groups, None)
         case.update(plan=name, launches=etl["launches"][name][
             "grouped_sum"], shape=f"{name} widest call: capacity "
             f"{e_keys.numel()}, G={e_groups}, M={len(e_vals)}, tier "
@@ -2906,17 +3198,39 @@ def main() -> int:
     lap("12 (memory layer: Q18, Q9, a lineitem sort and aggregate under "
         "budgets, Q5 under OOM injection)")
 
-    # 11. the TPC-DS slice, with phases 1-10's device and host data freed
+    # 11 and 13: TPC-DS, TPCx-BB and Mortgage, with phases 1-10's device
+    # and host data freed.  13a holds all 103 TPC-DS queries (11a's 18
+    # with them) against the CPU engine; 11b and 13b share one set of
+    # tables at WL_SCALE
     for ph in (joins, parts, rest, etl):
         ph.pop("calls", None)
         ph.pop("grouped_calls", None)
     del gold, gold_parts, gold_rest, green
     gc.collect()
     torch.cuda.empty_cache()
-    ds_check = ds_check_phase(torch, dev, args.seed)
-    lap("11a (TPC-DS 18 queries at scale 100,000 against the CPU engine)")
-    ds = ds_phase(torch, dev, args.seed, GW, K, DS_SCALE)
-    lap(f"11b (TPC-DS 18 queries at {DS_SCALE} store_sales rows)")
+    workloads_check_phase(torch, dev, args.seed)
+    lap(f"13a (TPC-DS 103 with 11a's 18, TPCx-BB 28 at {WL_CHECK_SCALE} "
+        f"store_sales rows and Mortgage at {WL_CHECK_LOANS} loans against "
+        f"the CPU engine)")
+    t0 = time.perf_counter()
+    tables = workload_tables(args.seed, WL_SCALE)
+    print("workload data: " + ", ".join(f"{k} {len(v)}" for k, v in
+                                        tables.items())
+          + f" rows, {time.perf_counter() - t0:.1f} s", flush=True)
+    ds = ds_phase(torch, dev, args.seed, GW, K, tables=tables)
+    lap(f"11b (TPC-DS 18 queries at {WL_SCALE} store_sales rows)")
+    ds_more = ds_phase(torch, dev, args.seed, GW, K, queries=ds_rest(),
+                       tables=tables)
+    wl = workloads_scale_phase(torch, dev, args.seed, GW, K, WL_SCALE,
+                               MORTGAGE_LOANS, tables=tables)
+    del tables
+    wl["tpcds"] = ds_more
+    for name in ("window_group_sums", "grouped_sum"):
+        require(any(v["launches"][name] for suite in wl.values()
+                    for v in suite.values()),
+                f"{name} never launched in phase 13")
+    lap(f"13b (TPC-DS 85 and TPCx-BB 28 at {WL_SCALE} store_sales rows, "
+        f"Mortgage at {MORTGAGE_LOANS} loans x {MORTGAGE_MONTHS} months)")
 
     kernels["q1_fused"]["launches"] = step_launches
     kernels["grouped_sum"]["launches"] = engine_launches["grouped_sum"]
@@ -2931,7 +3245,12 @@ def main() -> int:
         kernels[name]["etl_launches"] = {
             p: v[name] for p, v in etl["launches"].items() if v[name]}
         kernels[name]["tpcds_launches"] = {
-            q: v["launches"][name] for q, v in ds.items()}
+            q: v["launches"][name] for q, v in sorted(
+                {**ds, **wl["tpcds"]}.items(),
+                key=lambda kv: query_order(kv[0]))}
+        for suite in ("tpcxbb", "mortgage"):
+            kernels[name][f"{suite}_launches"] = {
+                q: v["launches"][name] for q, v in wl[suite].items()}
     case_keys = ("query", "plan", "shape", "launches", "max_abs_err",
                  "max_rel_err", "ms", "device_ms", "device_ms_by",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2953,6 +3272,11 @@ def main() -> int:
         kernels[name]["tpcds_cases"] = [
             {k: v[key][k] for k in case_keys if k in v[key]}
             for v in ds.values() if key in v]
+        kernels[name]["workload_cases"] = [
+            {"suite": suite, **{k: v[key][k] for k in case_keys
+                                if k in v[key]}}
+            for suite in ("tpcds", "tpcxbb", "mortgage")
+            for v in wl[suite].values() if key in v]
     print(f"like over {like['rows']} rows: {like['ms']:.4f} ms "
           f"(Contains {like['contains_ms']:.4f} ms), same rows as "
           f"Contains and the p_name green mask", flush=True)
@@ -2961,7 +3285,8 @@ def main() -> int:
             "bound_by", "library_ms", "planner_q1_launches",
             "join_queries_launches", "join_cases", "etl_launches",
             "etl_cases", "tpcds_launches", "tpcds_cases", "memory_launches",
-            "memory_cases")
+            "memory_cases", "tpcxbb_launches", "mortgage_launches",
+            "workload_cases")
     line = {"kernels": [{k: v[k] for k in keys if k in v}
                         for v in kernels.values()]}
     print(json.dumps(line), flush=True)

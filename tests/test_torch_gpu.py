@@ -178,6 +178,38 @@ def test_planner_queries_match_the_cpu_engine(cuda_device, query):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("query", ["q9", "q72", "q95"])
+def test_tpcds_queries_match_the_cpu_engine(cuda_device, query):
+    """Three TPC-DS queries of the 85 at the reference fixture's 20,000
+    store_sales rows (seed 3) through accelerate + collect on the card,
+    wholly there (spark.rapids.sql.test.enabled), against the CPU engine
+    (keys and counts exact, floats rtol 1e-3: the banded lane adds in
+    f32): q9, whose five scalar subqueries each collect on the card
+    through `run`; q72, which joins catalog_sales with inventory on the
+    item alone (8.5M pairs); q95, web_sales' self-join on the order."""
+    from parity import compare_frames
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.models import tpcds_bench as DB
+    from spark_rapids_tpu_torch.models import tpcds_data as DD
+    from spark_rapids_tpu_torch.models.tpcds_queries import QUERIES
+    from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
+    tables = DD.gen_tables(np.random.default_rng(3), 20_000)
+    conf = C.RapidsConf({**DB.BENCH_CONF, C.TEST_ENABLED.key: True})
+    collects = []
+
+    def run(plan):
+        collects.append(plan)
+        return collect(accelerate(plan, conf, cuda_device), conf)
+    got = run(QUERIES[query](DD.sources(tables, 2), run))
+    want = QUERIES[query](DD.sources(tables, 2),
+                          lambda plan: plan.collect()).collect()
+    assert len(want) > 0
+    compare_frames(want, got, f"{query} on the card", rtol=1e-3)
+    assert len(collects) == (6 if query == "q9" else 1)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("join_type", ["INNER", "LEFT_OUTER", "RIGHT_OUTER",
                                        "FULL_OUTER", "LEFT_SEMI",
                                        "LEFT_ANTI"])

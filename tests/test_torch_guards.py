@@ -14,14 +14,15 @@ from spark_rapids_tpu_torch.columnar.serde import (deserialize_batch,
                                                    serialize_batch)
 from spark_rapids_tpu_torch.columnar.vector import ColumnVector
 from spark_rapids_tpu_torch.exec.basic import LocalBatchSource
-from spark_rapids_tpu_torch.models import tpch
+from spark_rapids_tpu_torch.models import (mortgage, tpcds_bench, tpcds_data,
+                                           tpch, tpcxbb)
 from spark_rapids_tpu_torch.ops import grouped_window as GW
 from spark_rapids_tpu_torch.ops import kernels as K
 from spark_rapids_tpu_torch.utils import fuzzer
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "spark_rapids_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*torch*.py"))
 
 
 def _imported_modules(path: Path) -> list:
@@ -67,6 +68,13 @@ _ENTRY_POINTS = {
     "deserialize_batch": lambda: deserialize_batch(serialize_batch(
         ColumnarBatch.from_numpy({"a": np.arange(4)}, device="cpu")),
         "cuda"),
+    "tpcds_bench.run_query": lambda: tpcds_bench.run_query(
+        "q3", tpcds_data.gen_tables(np.random.default_rng(0), 2000)),
+    "tpcxbb.run_query": lambda: tpcxbb.run_query(
+        "q01", tpcxbb.gen_tables(np.random.default_rng(0), 2000)),
+    "mortgage.run_plan": lambda: mortgage.run_plan(
+        mortgage.etl_plan, mortgage.gen_tables(np.random.default_rng(0),
+                                               20, 2)),
 }
 
 

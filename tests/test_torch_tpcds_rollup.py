@@ -6,10 +6,11 @@ fixtures and checks of test_torch_tpcds.py (a file of its own so that
 xdist can run it on another worker).  q86 and q5 also go against the
 reference's accelerated path."""
 import pytest
-from test_torch_tpcds import check_query, ref_tables, tables
+from test_torch_tpcds import (check_query, one_torch_thread, ref_tables,
+                              tables)
 
 #: the shared fixtures, named so that pytest finds them in this module
-FIXTURES = (tables, ref_tables)
+FIXTURES = (tables, ref_tables, one_torch_thread)
 
 ROLLUP_QUERIES = ["q5", "q14", "q18", "q22", "q27", "q77", "q80", "q86"]
 
