@@ -65,7 +65,7 @@ def main() -> int:
         {18: lambda df: CS.check_rest_query(18, df, gold_rest[18]),
          9: lambda df: CS.check_part_query(9, df, gold_parts[9])},
         gold[5], GW, K)
-    CS.memory_cases(mem, window_case, grouped_case)
+    CS.plan_cases("12", mem["runs"], window_case, grouped_case)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 

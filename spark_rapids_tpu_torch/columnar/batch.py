@@ -20,8 +20,9 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.vector import (
-    MIN_CAPACITY, MIN_CHAR_CAP, ColumnVector, _pad_chars, bucket_capacity,
-    resolve_device)
+    MIN_CAPACITY, MIN_CHAR_CAP, ColumnVector, _pad_chars, _upload,
+    bucket_capacity, resolve_device, strings_from_offsets,
+    strings_to_offsets)
 
 
 class ColumnarBatch:
@@ -148,6 +149,67 @@ class ColumnarBatch:
             fields.append(T.Field(name, c.dtype))
         return ColumnarBatch(schema or T.Schema(tuple(fields)), cols, n)
 
+    @staticmethod
+    def from_arrow(table, device="cuda",
+                   schema: Optional[T.Schema] = None) -> "ColumnarBatch":
+        """Arrow table or record batch -> device batch (the scan's
+        upload).  Values come from the Arrow buffers without Python
+        objects: strings from their offsets and bytes (a dictionary
+        column uploads its dictionary once and gathers it by the
+        indices), null rows zero-filled.  With `schema`, each column
+        takes the schema's type, which must share its storage (int32
+        days as DATE32, as an engine frame holds them)."""
+        dev = resolve_device(device)
+        n = table.num_rows
+        cap = bucket_capacity(n)
+        cols, fields = [], []
+        for i, (name, col) in enumerate(zip(table.schema.names,
+                                            table.columns)):
+            if hasattr(col, "combine_chunks"):
+                col = col.combine_chunks()
+            vec = _vector_from_arrow(col, cap, dev)
+            if schema is not None and schema.fields[i].dtype != vec.dtype:
+                want = schema.fields[i].dtype
+                if want.is_string or vec.dtype.is_string or \
+                        want.storage_dtype != vec.dtype.storage_dtype:
+                    raise TypeError(f"column {name}: {vec.dtype} is not "
+                                    f"stored as {want}")
+                vec.dtype = want
+            cols.append(vec)
+            fields.append(T.Field(name, vec.dtype))
+        return ColumnarBatch(schema or T.Schema(tuple(fields)), cols, n)
+
+    def to_arrow(self):
+        """Device batch -> pyarrow Table (what the writers encode).
+        Strings go down as their live bytes and lengths and become a
+        StringArray from those buffers."""
+        import pyarrow as pa
+        if self.sparse is not None:
+            return self.dense().to_arrow()
+        self.verify_checks()
+        n = self.num_rows
+        arrays = []
+        for f, c in zip(self.schema.fields, self.columns):
+            if f.dtype.is_string:
+                offsets, chars, valid = strings_to_offsets(c, n)
+                large = offsets[-1] >= 2**31
+                cls = pa.LargeStringArray if large else pa.StringArray
+                arrays.append(cls.from_buffers(
+                    n, pa.py_buffer(offsets if large
+                                    else offsets.astype(np.int32)),
+                    pa.py_buffer(chars), _validity_buffer(valid),
+                    int(n - valid.sum())))
+                continue
+            vals, valid = c.to_numpy(n)
+            mask = None if valid.all() else ~valid
+            if f.dtype.id == T.TypeId.TIMESTAMP_US:
+                arrays.append(pa.array(vals, pa.int64(), mask=mask).cast(
+                    T.to_arrow(f.dtype)))
+            else:
+                arrays.append(pa.array(vals, T.to_arrow(f.dtype),
+                                       mask=mask))
+        return pa.table(arrays, names=list(self.schema.names))
+
     # -- host conversion ----------------------------------------------------
     def to_pandas(self):
         import pandas as pd
@@ -180,6 +242,14 @@ class ColumnarBatch:
         return ColumnarBatch(
             self.schema, [c.gather(indices, index_valid)
                           for c in self.columns], new_num_rows, self.checks)
+
+    def select(self, names) -> "ColumnarBatch":
+        """The named columns, in that order."""
+        names = list(names)
+        return ColumnarBatch(
+            T.Schema(tuple(self.schema.field(n) for n in names)),
+            [self.column(n) for n in names], self._rows, self.checks,
+            self.sparse)
 
     def slice(self, start: int, length: int) -> "ColumnarBatch":
         """Rows [start, start + length) as a tightly bucketed batch."""
@@ -217,6 +287,50 @@ class ColumnarBatch:
         return ColumnarBatch(
             self.schema, [c.with_capacity(capacity) for c in self.columns],
             rows, self.checks)
+
+
+def _validity_buffer(valid: np.ndarray):
+    """Arrow's validity bitmap of a bool mask (None when all valid)."""
+    import pyarrow as pa
+    if valid.all():
+        return None
+    return pa.py_buffer(np.packbits(valid, bitorder="little"))
+
+
+def _vector_from_arrow(col, cap: int, dev) -> ColumnVector:
+    """One Arrow array as a device column of capacity `cap`."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    n = len(col)
+    valid = (np.ones(n, bool) if col.null_count == 0
+             else ~col.is_null().to_numpy(zero_copy_only=False))
+    if pa.types.is_dictionary(col.type):
+        # encode the dictionary once, gather its rows by the indices
+        dvec = _vector_from_arrow(col.dictionary,
+                                  bucket_capacity(len(col.dictionary)), dev)
+        idx = _upload(pc.fill_null(col.indices, 0).to_numpy(
+            zero_copy_only=False).astype(np.int64), cap, dev)
+        out = dvec.gather(idx, _upload(valid, cap, dev))
+        if dvec.dtype.is_string:
+            out.lengths = torch.where(out.validity, out.lengths, 0)
+        return out
+    dt = T.from_arrow(col.type)
+    if dt.is_string:
+        bufs = col.buffers()
+        odt = np.int64 if pa.types.is_large_string(col.type) else np.int32
+        offsets = np.frombuffer(bufs[1], odt)[col.offset:col.offset + n + 1]
+        chars = (np.frombuffer(bufs[2], np.uint8) if bufs[2] is not None
+                 else np.zeros(0, np.uint8))
+        return strings_from_offsets(offsets, chars, valid, cap, dev)
+    if dt.id == T.TypeId.DATE32:
+        col = col.cast(pa.int32())
+    elif dt.id == T.TypeId.TIMESTAMP_US:
+        col = col.cast(pa.timestamp("us", tz=col.type.tz)).cast(pa.int64())
+    if col.null_count:
+        col = pc.fill_null(col, False if dt.id == T.TypeId.BOOL else 0)
+    vals = col.to_numpy(zero_copy_only=False).astype(dt.storage_dtype,
+                                                      copy=False)
+    return ColumnVector.from_numpy(vals, dt, valid, cap, device=dev)
 
 
 def empty_batch(schema: T.Schema, device) -> ColumnarBatch:

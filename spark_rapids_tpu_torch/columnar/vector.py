@@ -147,6 +147,34 @@ class ColumnVector:
             narrow = _f32_shadow(data)
         return ColumnVector(dtype, data, valid_t, narrow)
 
+    @staticmethod
+    def from_scalar(value, dtype: T.DataType, capacity: int, num_rows: int,
+                    device="cuda") -> "ColumnVector":
+        """`value` (None for null) broadcast over the first num_rows
+        rows of a column (partition values, missing columns)."""
+        dev = resolve_device(device)
+        rows = torch.arange(capacity, device=dev) < num_rows
+        if value is None:
+            validity = torch.zeros(capacity, dtype=torch.bool, device=dev)
+            if dtype.is_string:
+                return ColumnVector(
+                    dtype, torch.zeros((capacity, MIN_CHAR_CAP),
+                                       dtype=torch.uint8, device=dev),
+                    validity, lengths=torch.zeros(
+                        capacity, dtype=torch.int32, device=dev))
+            return ColumnVector(dtype, torch.zeros(
+                capacity, dtype=dtype.torch_dtype, device=dev), validity)
+        if dtype.is_string:
+            raw = np.frombuffer(str(value).encode("utf-8"), np.uint8)
+            row = np.zeros(bucket_char_cap(len(raw)), np.uint8)
+            row[:len(raw)] = raw
+            data = torch.from_numpy(row).to(dev).expand(
+                capacity, len(row)).contiguous()
+            return ColumnVector(dtype, data, rows, lengths=torch.where(
+                rows, len(raw), 0).to(torch.int32))
+        return ColumnVector(dtype, torch.full(
+            (capacity,), value, dtype=dtype.torch_dtype, device=dev), rows)
+
     def to_numpy(self, num_rows: int) -> tuple[np.ndarray, np.ndarray]:
         """(values, validity) trimmed to num_rows; strings decode to an
         object array of str (None for nulls)."""
@@ -284,6 +312,57 @@ def strings_to_bytes(values, valid) -> tuple[np.ndarray, np.ndarray]:
                 uniques, np.ones(len(uniques), bool)))
             return data[codes], lens[codes]
     return _bytes_matrix(_encode_rows(values, valid))
+
+
+#: elements of one row block's index matrix in `strings_from_offsets`
+_OFFSETS_BLOCK = 1 << 25
+
+
+def strings_from_offsets(offsets: np.ndarray, chars: np.ndarray,
+                         valid: np.ndarray, capacity: int,
+                         dev) -> ColumnVector:
+    """A string column on `dev` from Arrow's layout: row i is
+    chars[offsets[i]:offsets[i + 1]] (null rows read as empty).  Only
+    the offsets and the character bytes cross to the device; the
+    uint8[capacity, char_cap] matrix is gathered there, a block of rows
+    at a time."""
+    n = len(valid)
+    starts = offsets[:n].astype(np.int64)
+    lens = np.where(valid, offsets[1:n + 1] - offsets[:n], 0).astype(
+        np.int32)
+    cc = bucket_char_cap(int(lens.max()) if n else 0)
+    data = torch.zeros((capacity, cc), dtype=torch.uint8, device=dev)
+    lens_t = _upload(lens, capacity, dev)
+    if n and lens.any():
+        lo, hi = int(starts[valid].min()), int((starts + lens).max())
+        chars_t = _upload(chars[lo:hi], hi - lo, dev)
+        starts_t = _upload(starts - lo, n, dev)
+        col = torch.arange(cc, device=dev)
+        step = max(1, _OFFSETS_BLOCK // cc)
+        for r in range(0, n, step):
+            s, ln = starts_t[r:min(n, r + step)], lens_t[r:min(n, r + step)]
+            inside = col[None, :] < ln[:, None]
+            idx = torch.where(inside, s[:, None] + col[None, :], 0)
+            data[r:r + len(s)] = torch.where(inside, chars_t[idx], 0)
+    return ColumnVector(T.STRING, data, _upload(valid, capacity, dev),
+                        lengths=lens_t)
+
+
+def strings_to_offsets(c: ColumnVector, num_rows: int
+                       ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(int64 offsets[n + 1], uint8 chars, validity) of the first
+    num_rows rows of a string column: Arrow's layout, the inverse of
+    `strings_from_offsets`.  The characters are packed on the device,
+    so only live bytes come back to the host."""
+    valid_t = c.validity[:num_rows]
+    lens_t = torch.where(valid_t, c.lengths[:num_rows], 0)
+    inside = torch.arange(c.char_cap, device=c.device)[None, :] < \
+        lens_t[:, None]
+    chars = torch.masked_select(c.data[:num_rows], inside).cpu().numpy()
+    lens = lens_t.cpu().numpy().astype(np.int64)
+    offsets = np.zeros(num_rows + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    return offsets, chars, valid_t.cpu().numpy()
 
 
 #: how many column validities fit one packed int32 bitmask

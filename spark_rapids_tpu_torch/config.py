@@ -53,6 +53,21 @@ PRUNE_COLUMNS = conf("spark.rapids.tpu.columnPruning.enabled", True,
                      "for Spark).")
 BATCH_SIZE_BYTES = conf("spark.rapids.sql.batchSizeBytes", 2147483136,
                         "Target device batch size in bytes for coalescing.")
+MAX_READER_BATCH_ROWS = conf("spark.rapids.sql.reader.batchSizeRows",
+                             2147483647, "Max rows per scan batch.")
+MAX_READER_BATCH_BYTES = conf("spark.rapids.sql.reader.batchSizeBytes",
+                              2147483136, "Soft max bytes per scan batch.")
+REPLACE_SORT_MERGE_JOIN = conf(
+    "spark.rapids.sql.replaceSortMergeJoin.enabled", True,
+    "Replace SortMergeJoin with a GPU shuffled hash join.")
+SPARK_VERSION = conf("spark.rapids.tpu.sparkVersion", "3.0.1",
+                     "Spark version the session emulates; selects the "
+                     "shim set.")
+ALLOW_UNKNOWN_SPARK_VERSION = conf(
+    "spark.rapids.tpu.allowUnknownSparkVersion", False,
+    "When no shim matches the Spark version exactly, fall back to the "
+    "nearest same-minor shim with a warning instead of failing "
+    "(default: fail).")
 FUSION_ENABLED = conf(
     "spark.rapids.sql.fusion.enabled", True,
     "Collapse Project/Filter chains between pipeline breaks into one "
@@ -137,6 +152,36 @@ PALLAS_Q1_FUSED_ENABLED = conf(
     "(models.tpch.build_q1_fused_kernel); off, each batch runs the "
     "plain torch step.")
 
+
+# --- I/O formats (the format enables and Spark's spark.sql.files.* split
+# planning keys) --------------------------------------------------------------
+PARQUET_ENABLED = conf("spark.rapids.sql.format.parquet.enabled", True,
+                       "Enable parquet scan/write acceleration.")
+PARQUET_READ_ENABLED = conf("spark.rapids.sql.format.parquet.read.enabled",
+                            True, "Enable accelerated parquet reads.")
+PARQUET_WRITE_ENABLED = conf("spark.rapids.sql.format.parquet.write.enabled",
+                             True, "Enable accelerated parquet writes.")
+ORC_ENABLED = conf("spark.rapids.sql.format.orc.enabled", True,
+                   "Enable ORC scan/write acceleration.")
+ORC_READ_ENABLED = conf("spark.rapids.sql.format.orc.read.enabled", True,
+                        "Enable accelerated ORC reads.")
+ORC_WRITE_ENABLED = conf("spark.rapids.sql.format.orc.write.enabled", True,
+                         "Enable accelerated ORC writes.")
+CSV_ENABLED = conf("spark.rapids.sql.format.csv.enabled", True,
+                   "Enable CSV scan acceleration (reads only).")
+CSV_READ_ENABLED = conf("spark.rapids.sql.format.csv.read.enabled", True,
+                        "Enable accelerated CSV reads.")
+MULTITHREAD_READ_NUM_THREADS = conf(
+    "spark.rapids.sql.format.parquet.multiThreadedRead.numThreads", 20,
+    "Host file-buffering threads per executor (small-file optimization).")
+MAX_PARTITION_BYTES = conf("spark.sql.files.maxPartitionBytes", 134217728,
+                           "Max bytes packed into one scan partition.")
+FILE_OPEN_COST = conf("spark.sql.files.openCostInBytes", 4194304,
+                      "Estimated cost in bytes of opening a file when "
+                      "packing splits into scan partitions.")
+MIN_PARTITION_NUM = conf("spark.sql.files.minPartitionNum", 8,
+                         "Suggested minimum scan partition count (Spark "
+                         "defaults this to the cluster parallelism).")
 
 # --- device and memory (memory/*) -------------------------------------------
 CONCURRENT_TPU_TASKS = conf("spark.rapids.sql.concurrentGpuTasks", 1,

@@ -1,5 +1,5 @@
-"""Limit operators (port of spark_rapids_tpu/exec/limit.py: LocalLimitExec
-and GlobalLimitExec)."""
+"""Limit operators (port of spark_rapids_tpu/exec/limit.py: LocalLimitExec,
+GlobalLimitExec and CollectLimitExec)."""
 from __future__ import annotations
 
 from typing import Iterator
@@ -61,3 +61,8 @@ class GlobalLimitExec(UnaryExecBase):
     def execute_partitions(self):
         return [_limited((b for part in self.child.execute_partitions()
                           for b in part), self.n)]
+
+
+def CollectLimitExec(n: int, child: TpuExec) -> GlobalLimitExec:
+    """Spark's CollectLimitExec: a limit collected into one partition."""
+    return GlobalLimitExec(n, child)

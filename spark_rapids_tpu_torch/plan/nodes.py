@@ -1,6 +1,7 @@
 """Device-neutral physical plan nodes with real CPU (pandas) execution
 (port of spark_rapids_tpu/plan/nodes.py: source, project, filter, limit,
-sort, aggregate and hash join).
+sort, aggregate, sort aggregate, hash and sort-merge join, cached
+columnar data and the user's repartition).
 
 These play the role of Spark's own row-based operators: the input of the
 plan rewrite (`plan/overrides.py`), and the engine a node runs on when it
@@ -11,6 +12,7 @@ partitions of row chunks.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime as _dt
 from typing import Iterator, Optional, Sequence
 
@@ -416,6 +418,28 @@ class CpuAggregate(CpuNode):
                 and self._schema.field(a.name).dtype.is_floating]
 
 
+class CpuSortAggregate(CpuAggregate):
+    """Spark's SortAggregateExec, planned for aggregates hash aggregation
+    cannot buffer.  Its CPU evaluation is the grouped one with the groups
+    in key order; on the GPU it becomes the same HashAggregateExec as a
+    hash aggregate, which promises no output order (a consumer that
+    needs sorted groups keeps its own sort)."""
+
+    def describe(self):
+        return (f"CpuSortAggregate(keys={len(self.group_exprs)}, "
+                f"aggs={[a.name for a in self.aggregates]})")
+
+    def execute(self):
+        parts = super().execute()
+        key_names = [output_name(e, i)
+                     for i, e in enumerate(self.group_exprs)]
+        if not key_names:
+            return parts
+        out = pd.concat(list(parts[0]), ignore_index=True)
+        return [iter([out.sort_values(key_names, ignore_index=True,
+                                      kind="stable")])]
+
+
 def _keep_nan(values: pd.Series, missing) -> pd.Series:
     """A nullable float column of `values` that is null exactly where
     `missing` says and keeps NaN elsewhere (pandas would read a float
@@ -556,6 +580,105 @@ class CpuHashJoin(CpuNode):
         both = T.Schema(tuple(ls.fields) + tuple(rs.fields))
         m = cpu_eval(self.condition, comb, both)
         return m.astype("boolean").fillna(False).astype(bool).to_numpy()
+
+
+class CpuSortMergeJoin(CpuHashJoin):
+    """Spark's SortMergeJoinExec.  The CPU engine evaluates it as a hash
+    join (same rows; merge order is no part of the result); the planner
+    replaces it with a shuffled HashJoinExec and drops the input sorts
+    that only fed the merge, under
+    spark.rapids.sql.replaceSortMergeJoin.enabled."""
+
+    def describe(self):
+        return f"CpuSortMergeJoin({self.join_type.value})"
+
+
+class CpuCachedColumnar(CpuNode):
+    """Host-columnar cached data (Spark's InMemoryTableScan): partitions
+    of pyarrow tables.  On the GPU it becomes HostColumnarToDeviceExec,
+    which uploads the column buffers with no pivot through rows."""
+
+    def __init__(self, partitions, schema: T.Schema):
+        super().__init__()
+        self.partitions = list(partitions)  # list[pyarrow.Table]
+        self._schema = schema
+
+    @staticmethod
+    def from_pandas(df, num_partitions: int = 1) -> "CpuCachedColumnar":
+        import pyarrow as pa
+        src = CpuSource.from_pandas(df, num_partitions=num_partitions)
+        tables = [pa.Table.from_pandas(p, preserve_index=False)
+                  for p in src.partitions]
+        return CpuCachedColumnar(tables, src.output_schema())
+
+    def output_schema(self):
+        return self._schema
+
+    def output_partition_count(self) -> int:
+        return max(1, len(self.partitions))
+
+    def describe(self):
+        return f"CpuCachedColumnar({len(self.partitions)} partitions)"
+
+    def execute(self):
+        def run(table):
+            yield normalize_df(table.to_pandas(), self._schema)
+        return [run(t) for t in self.partitions]
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitioningSpec:
+    """Device-neutral partitioning; the planner turns it into a GPU
+    partitioner."""
+    kind: str  # hash | range | roundrobin | single
+    num_partitions: int
+    exprs: tuple = ()
+    order: tuple = ()
+
+
+class CpuShuffleExchange(CpuNode):
+    """The user's repartition(): an exchange written into the plan (the
+    planner's own exchanges are built as GPU execs directly), so it
+    keeps its partition count."""
+    user_specified = True
+
+    def __init__(self, spec: PartitioningSpec, child: CpuNode):
+        super().__init__(child)
+        self.spec = spec
+        self._schema = child.output_schema()
+
+    def output_schema(self):
+        return self._schema
+
+    def output_partition_count(self) -> int:
+        return self.spec.num_partitions
+
+    def describe(self):
+        return (f"CpuShuffleExchange({self.spec.kind}, "
+                f"{self.spec.num_partitions})")
+
+    def execute(self):
+        cs = self._schema
+        parts = [df for it in self.child.execute() for df in it]
+        df = (pd.concat(parts, ignore_index=True) if parts
+              else empty_df(cs))
+        n = self.spec.num_partitions
+        if self.spec.kind == "single" or n == 1:
+            return [iter([df])]
+        if self.spec.kind == "hash":
+            keys = pd.DataFrame({
+                f"k{i}": cpu_eval(e, df, cs)
+                for i, e in enumerate(self.spec.exprs)})
+            codes = pd.util.hash_pandas_object(keys, index=False)
+            pid = (codes % n).to_numpy().astype(int)
+        elif self.spec.kind == "roundrobin":
+            pid = np.arange(len(df)) % n
+        else:  # range
+            df = CpuSort(list(self.spec.order), CpuSource([df], cs)
+                         ).collect()
+            pid = np.arange(len(df)) * n // max(1, len(df))
+        return [iter([df[pid == p].reset_index(drop=True)])
+                for p in range(n)]
 
 
 class CpuRange(CpuNode):

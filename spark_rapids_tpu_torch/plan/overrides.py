@@ -15,12 +15,14 @@ partition), and a global limit over a global sort a top-N.
 
 Only rules for what the port has are registered: any other node or
 expression is tagged "will not work" with its reason and stays on the
-CPU engine (plan/nodes.py).
+CPU engine (plan/nodes.py).  `ExecutionPlanCapture` names the last
+plan's fallbacks for tests.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import weakref
 from typing import Callable, Optional, Sequence
 
 from spark_rapids_tpu_torch import config as C
@@ -35,9 +37,9 @@ from spark_rapids_tpu_torch.exprs.base import Alias, Expression, col
 from spark_rapids_tpu_torch.plan import nodes as N
 from spark_rapids_tpu_torch.plan.meta import PlanMeta, wrap_plan
 from spark_rapids_tpu_torch.shuffle.exchange import ShuffleExchangeExec
-from spark_rapids_tpu_torch.shuffle.partitioning import (HashPartitioning,
-                                                         RangePartitioning,
-                                                         SinglePartitioning)
+from spark_rapids_tpu_torch.shuffle.partitioning import (
+    HashPartitioning, RangePartitioning, RoundRobinPartitioning,
+    SinglePartitioning)
 
 log = logging.getLogger("spark_rapids_tpu_torch.plan")
 
@@ -363,6 +365,12 @@ def _conv_project(meta, kids) -> TpuExec:
 
 
 def _conv_filter(meta, kids) -> TpuExec:
+    # a filter over a file scan is pushed into it for row-group pruning
+    # (Spark's pushed filters); the FilterExec stays, for exactness
+    from spark_rapids_tpu_torch.io.exec import TpuFileSourceScanExec
+    if isinstance(kids[0], TpuFileSourceScanExec) and \
+            kids[0].pushed_filter is None:
+        kids[0].pushed_filter = meta.node.condition
     return B.FilterExec(meta.node.condition, kids[0])
 
 
@@ -461,6 +469,62 @@ def _tag_join(meta) -> None:
             "residual join condition only supported for inner joins")
 
 
+def _strip_smj_sort(kid: TpuExec, keys) -> TpuExec:
+    """Drop a per-partition SortExec that is exactly the ordering a
+    sort-merge join requires (its keys, ascending, in key order, default
+    null ordering): it existed only to feed the merge being replaced.
+    Any other sort, such as a user's descending sortWithinPartitions,
+    stays."""
+    from spark_rapids_tpu_torch.exprs.base import fingerprint
+    if not isinstance(kid, SortExec) or kid.global_sort:
+        return kid
+    if len(kid.order) != len(keys):
+        return kid
+    for o, k in zip(kid.order, keys):
+        if (not o.ascending or not o.resolved_nulls_first or
+                fingerprint(o.expr) != fingerprint(k)):
+            return kid
+    return kid.child
+
+
+def _conv_sort_merge_join(meta, kids) -> TpuExec:
+    node: N.CpuSortMergeJoin = meta.node
+    return _conv_hash_join(meta, [_strip_smj_sort(kids[0], node.left_keys),
+                                  _strip_smj_sort(kids[1], node.right_keys)])
+
+
+def _tag_sort_merge_join(meta) -> None:
+    _tag_join(meta)
+    if not meta.conf[C.REPLACE_SORT_MERGE_JOIN]:
+        meta.will_not_work_on_gpu(
+            "replacing SortMergeJoin disabled by "
+            f"{C.REPLACE_SORT_MERGE_JOIN.key}")
+
+
+_PART_OF_SPEC = {
+    "hash": lambda s: HashPartitioning(list(s.exprs), s.num_partitions),
+    "roundrobin": lambda s: RoundRobinPartitioning(s.num_partitions),
+    "single": lambda s: SinglePartitioning(),
+    "range": lambda s: RangePartitioning(list(s.order), s.num_partitions),
+}
+
+
+def _conv_shuffle(meta, kids) -> TpuExec:
+    from spark_rapids_tpu_torch.shims import current_shims
+    node: N.CpuShuffleExchange = meta.node
+    # a user's repartition keeps its partition count under 3.1's
+    # ShuffleExchangeLike contract (the constructor drifts by version)
+    return current_shims(meta.conf).make_shuffle_exchange(
+        _PART_OF_SPEC[node.spec.kind](node.spec), kids[0],
+        can_change_num_partitions=not node.user_specified)
+
+
+def _conv_cached_columnar(meta, kids) -> TpuExec:
+    from spark_rapids_tpu_torch.plan.transitions import \
+        HostColumnarToDeviceExec
+    return HostColumnarToDeviceExec(meta.node, meta.device)
+
+
 register_exec(N.CpuSource, "in-memory source", _conv_source)
 register_exec(N.CpuRange, "range generation", _conv_range)
 register_exec(N.CpuUnion, "union all", _conv_union)
@@ -482,11 +546,31 @@ register_exec(
     exprs_of=lambda n: list(n.group_exprs) + [
         a.func.child for a in n.aggregates if a.func.child is not None],
     tag_extra=_tag_aggregate)
+# a sort aggregate converts to the same hash aggregate (the GPU version
+# always aggregates by hash)
+register_exec(
+    N.CpuSortAggregate, "sort aggregation (replaced with hash agg)",
+    _conv_aggregate,
+    exprs_of=lambda n: list(n.group_exprs) + [
+        a.func.child for a in n.aggregates if a.func.child is not None],
+    tag_extra=_tag_aggregate)
 register_exec(
     N.CpuHashJoin, "hash join", _conv_hash_join,
     exprs_of=lambda n: list(n.left_keys) + list(n.right_keys) +
     ([n.condition] if n.condition is not None else []),
     tag_extra=_tag_join)
+register_exec(
+    N.CpuSortMergeJoin, "sort-merge join (replaced with hash join)",
+    _conv_sort_merge_join,
+    exprs_of=lambda n: list(n.left_keys) + list(n.right_keys) +
+    ([n.condition] if n.condition is not None else []),
+    tag_extra=_tag_sort_merge_join)
+register_exec(N.CpuShuffleExchange, "shuffle exchange", _conv_shuffle,
+              exprs_of=lambda n: list(n.spec.exprs) +
+              [o.expr for o in n.spec.order])
+register_exec(
+    N.CpuCachedColumnar, "host-columnar cache upload (HostColumnarToGpu)",
+    _conv_cached_columnar)
 
 
 def _register_window_rule() -> None:
@@ -501,6 +585,107 @@ def _register_window_rule() -> None:
 
 
 _register_window_rule()
+
+
+# --- I/O: the format enables, the CSV option guards and the rebase modes ---
+_FORMAT_ENABLES = {
+    "parquet": (C.PARQUET_ENABLED, C.PARQUET_READ_ENABLED,
+                C.PARQUET_WRITE_ENABLED),
+    "orc": (C.ORC_ENABLED, C.ORC_READ_ENABLED, C.ORC_WRITE_ENABLED),
+    "csv": (C.CSV_ENABLED, C.CSV_READ_ENABLED, None),
+}
+
+
+def _tag_rebase(meta, write: bool) -> None:
+    """LEGACY hybrid-calendar rebase runs on the CPU engine, which
+    rebases; an unknown mode stays there too.  The key is
+    version-variant, so it comes from the shims."""
+    from spark_rapids_tpu_torch.io import rebase as RB
+    from spark_rapids_tpu_torch.shims import current_shims
+    shims = current_shims(meta.conf)
+    if write:
+        key = shims.parquet_rebase_write_key()
+        mode = shims.parquet_rebase_write_mode(meta.conf)
+    else:
+        key = shims.parquet_rebase_read_key()
+        mode = shims.parquet_rebase_read_mode(meta.conf)
+    side = "write" if write else "read"
+    if mode == "LEGACY":
+        meta.will_not_work_on_gpu(
+            f"legacy datetime rebase requested via {key}")
+    elif mode not in RB.READ_MODES:
+        meta.will_not_work_on_gpu(
+            f"{mode} is not a supported {side} rebase mode")
+
+
+def _tag_file_scan(meta) -> None:
+    node = meta.node
+    fmt = node.scan.file_format
+    fmt_conf, read_conf, _ = _FORMAT_ENABLES[fmt]
+    if not meta.conf[fmt_conf]:
+        meta.will_not_work_on_gpu(
+            f"{fmt} acceleration disabled by {fmt_conf.key}")
+    elif not meta.conf[read_conf]:
+        meta.will_not_work_on_gpu(
+            f"{fmt} reads disabled by {read_conf.key}")
+    if fmt == "csv":
+        for reason in node.scan.reader.options.tag_unsupported():
+            meta.will_not_work_on_gpu(f"CSV: {reason}")
+    if fmt == "parquet":
+        _tag_rebase(meta, write=False)
+
+
+def _conv_file_scan(meta, kids) -> TpuExec:
+    from spark_rapids_tpu_torch.io.exec import TpuFileSourceScanExec
+    return TpuFileSourceScanExec(meta.node.scan, meta.node.pushed_filter,
+                                 meta.conf, meta.device)
+
+
+def _tag_write_files(meta) -> None:
+    node = meta.node
+    if node.file_format not in ("parquet", "orc"):
+        meta.will_not_work_on_gpu(
+            f"{node.file_format} writes have no GPU implementation")
+        return
+    fmt_conf, _, write_conf = _FORMAT_ENABLES[node.file_format]
+    if not meta.conf[fmt_conf]:
+        meta.will_not_work_on_gpu(
+            f"{node.file_format} acceleration disabled by {fmt_conf.key}")
+    elif not meta.conf[write_conf]:
+        meta.will_not_work_on_gpu(
+            f"{node.file_format} writes disabled by {write_conf.key}")
+    if node.file_format == "parquet":
+        _tag_rebase(meta, write=True)
+
+
+def _conv_write_files(meta, kids) -> TpuExec:
+    import copy
+
+    from spark_rapids_tpu_torch.io.exec import TpuWriteFilesExec
+    from spark_rapids_tpu_torch.io.parquet import ParquetWriterOptions
+    from spark_rapids_tpu_torch.shims import current_shims
+    node = meta.node
+    if node.file_format == "parquet":
+        # the session's rebase mode is frozen into the writer options, so
+        # execution does not depend on the conf active when it runs
+        opts = node.options or ParquetWriterOptions()
+        if opts.rebase_mode is None:
+            node = copy.copy(node)
+            node.options = dataclasses.replace(
+                opts, rebase_mode=current_shims(
+                    meta.conf).parquet_rebase_write_mode(meta.conf))
+    return TpuWriteFilesExec(node, kids[0])
+
+
+def _register_io_rules() -> None:
+    from spark_rapids_tpu_torch.io.exec import CpuFileScan, CpuWriteFiles
+    register_exec(CpuFileScan, "columnar file scan", _conv_file_scan,
+                  tag_extra=_tag_file_scan)
+    register_exec(CpuWriteFiles, "columnar file write", _conv_write_files,
+                  tag_extra=_tag_write_files)
+
+
+_register_io_rules()
 
 
 # ---------------------------------------------------------------------------
@@ -547,6 +732,7 @@ def accelerate(cpu_plan: N.CpuNode, conf: Optional[C.RapidsConf] = None,
         assert_is_on_tpu(plan, allowed)
     plan._session_conf = conf
     plan._meta = meta
+    ExecutionPlanCapture.capture(plan)
     return plan
 
 
@@ -586,3 +772,50 @@ def _collect_inner(plan):
     from spark_rapids_tpu_torch.exec.base import new_execution
     new_execution()
     return plan.collect()
+
+
+# ---------------------------------------------------------------------------
+class _Capture(type):
+    @property
+    def last_plan(cls):
+        """The plan the latest accelerate() returned, while something
+        else holds it (None once it is dropped)."""
+        return None if cls._last is None else cls._last()
+
+
+class ExecutionPlanCapture(metaclass=_Capture):
+    """The most recent accelerated plan, so tests can assert its shape
+    and fallbacks.  It holds the plan weakly: a dropped plan frees its
+    device batches at once."""
+
+    _last: Optional[weakref.ref] = None
+
+    @classmethod
+    def capture(cls, plan) -> None:
+        cls._last = weakref.ref(plan)
+
+    @classmethod
+    def assert_did_fall_back(cls, op_name: str) -> None:
+        plan = cls.last_plan
+        if plan is None:
+            raise AssertionError("no plan captured")
+        if not _find_cpu_node(plan, op_name):
+            raise AssertionError(
+                f"expected {op_name} to fall back to the CPU:\n{plan}")
+
+
+def _children_through_transitions(plan) -> list:
+    from spark_rapids_tpu_torch.plan.transitions import (ColumnarToRowExec,
+                                                         RowToColumnarExec)
+    if isinstance(plan, RowToColumnarExec):
+        return [plan.cpu_child]
+    if isinstance(plan, ColumnarToRowExec):
+        return [plan.tpu_child]
+    return list(plan.children)
+
+
+def _find_cpu_node(plan, name: str) -> bool:
+    if not isinstance(plan, TpuExec) and plan.name() == name:
+        return True
+    return any(_find_cpu_node(c, name)
+               for c in _children_through_transitions(plan))

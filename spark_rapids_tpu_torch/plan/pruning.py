@@ -1,5 +1,5 @@
 """Column pruning (port of spark_rapids_tpu/plan/pruning.py `prune_columns`
-for the nodes the port has).
+for the nodes the port has, file scans among them).
 
 Top-down required-column analysis, bottom-up rebuild: source leaves
 narrow to the columns referenced above them, so an in-memory source
@@ -123,6 +123,16 @@ def _prune(node: N.CpuNode, required: Optional[set], prune_columns,
             keep = [schema.fields[0].name]
         return N.CpuSource([p[keep] for p in node.partitions],
                            T.Schema(tuple(schema.field(k) for k in keep)))
+    if type(node).__name__ == "CpuFileScan":
+        schema = node.output_schema()
+        if not build or required is None \
+                or required >= set(schema.names) \
+                or node.scan.file_format == "csv":
+            return node  # csv readers key off the full file column list
+        keep = set(required) or {schema.fields[0].name}
+        out = type(node)(node.scan.pruned(keep))
+        out.pushed_filter = node.pushed_filter
+        return out
     if isinstance(node, N.CpuProject):
         return N.CpuProject(node.exprs, prune_columns(
             node.child, expr_refs(node.exprs)))
@@ -132,8 +142,9 @@ def _prune(node: N.CpuNode, required: Optional[set], prune_columns,
         return N.CpuFilter(node.condition, prune_columns(node.child, need))
     if isinstance(node, N.CpuAggregate):
         need = expr_refs(node.group_exprs) | expr_refs(node.aggregates)
-        return N.CpuAggregate(node.group_exprs, node.aggregates,
-                              prune_columns(node.child, need))
+        # type(node): a CpuSortAggregate stays one
+        return type(node)(node.group_exprs, node.aggregates,
+                          prune_columns(node.child, need))
     if isinstance(node, N.CpuSort):
         need = None if required is None else \
             required | expr_refs(node.order)
@@ -155,12 +166,12 @@ def _prune(node: N.CpuNode, required: Optional[set], prune_columns,
         if node.join_type in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI):
             # the right side exists only for the match: keys + condition
             rreq = expr_refs(node.right_keys) | (cond & rnames)
-        return N.CpuHashJoin(node.join_type, node.left_keys,
-                             node.right_keys,
-                             prune_columns(node.children[0], lreq),
-                             prune_columns(node.children[1], rreq),
-                             condition=node.condition,
-                             broadcast=node.broadcast)
+        # type(node): a CpuSortMergeJoin keeps its own rule
+        return type(node)(node.join_type, node.left_keys, node.right_keys,
+                          prune_columns(node.children[0], lreq),
+                          prune_columns(node.children[1], rreq),
+                          condition=node.condition,
+                          broadcast=node.broadcast)
     if isinstance(node, N.CpuUnion):
         kids = [prune_columns(c, required) for c in node.children]
         if build:
@@ -177,6 +188,11 @@ def _prune(node: N.CpuNode, required: Optional[set], prune_columns,
                                       k)
                     for k in kids]
         return N.CpuUnion(*kids)
+    if isinstance(node, N.CpuShuffleExchange):
+        need = None if required is None else \
+            required | expr_refs(node.spec)
+        return N.CpuShuffleExchange(node.spec,
+                                    prune_columns(node.child, need))
     if isinstance(node, N.CpuExpand):
         return N.CpuExpand(node.projections, node.names, prune_columns(
             node.child, expr_refs(node.projections)))

@@ -1,10 +1,12 @@
 """Plan transitions (port of spark_rapids_tpu/plan/transitions.py):
-row <-> columnar bridges, coalesce insertion, redundant-transition
-elimination and the test-mode all-on-the-GPU assertion.
+row <-> columnar bridges, the host-columnar upload, coalesce insertion,
+redundant-transition elimination and the test-mode all-on-the-GPU
+assertion.
 
 The CPU side trades in pandas DataFrames with nullable dtypes; the
-device side in ColumnarBatch.  `RowToColumnarExec` uploads and
-`ColumnarToRowExec` downloads.
+device side in ColumnarBatch.  `RowToColumnarExec` uploads,
+`ColumnarToRowExec` downloads, and `HostColumnarToDeviceExec` uploads
+cached Arrow tables column by column.
 """
 from __future__ import annotations
 
@@ -26,8 +28,9 @@ from spark_rapids_tpu_torch.exec.base import (CoalesceGoal, TargetSize,
 from spark_rapids_tpu_torch.exec.coalesce import CoalesceBatchesExec
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
 from spark_rapids_tpu_torch.plan.cpu_eval import nullable_dtype
-from spark_rapids_tpu_torch.plan.nodes import (CpuNode, CpuSource,
-                                               normalize_df)
+from spark_rapids_tpu_torch.plan.nodes import (CpuCachedColumnar, CpuNode,
+                                               CpuSource, normalize_df)
+from spark_rapids_tpu_torch.utils import metrics as M
 
 
 def _string_vector(s: pd.Series, mask: np.ndarray, cap: int,
@@ -142,6 +145,47 @@ class RowToColumnarExec(TpuExec):
                     self.update_output_metrics(b)
                     yield b
         return [convert(it) for it in self.cpu_child.execute()]
+
+
+class HostColumnarToDeviceExec(TpuExec):
+    """Cached host-columnar partitions (Arrow tables) -> device batches
+    through ColumnarBatch.from_arrow, with no pivot through rows; tables
+    larger than spark.rapids.tpu.batchMaxRows upload in slices."""
+
+    def __init__(self, cpu_source: CpuCachedColumnar, device):
+        super().__init__()
+        self.cpu_source = cpu_source
+        self._device = resolve_device(device)
+        self._schema = cpu_source.output_schema()
+
+    def output_schema(self) -> T.Schema:
+        return self._schema
+
+    def device(self) -> torch.device:
+        return self._device
+
+    def output_partition_count(self) -> int:
+        return self.cpu_source.output_partition_count()
+
+    def describe(self):
+        return (f"HostColumnarToDeviceExec("
+                f"{len(self.cpu_source.partitions)} cached partitions)")
+
+    def execute_partitions(self):
+        max_rows = C.get_active_conf()[C.MAX_BATCH_ROWS]
+
+        def convert(table):
+            for off in range(0, table.num_rows, max_rows):
+                # the device admission boundary, as in RowToColumnarExec
+                TpuSemaphore.get().acquire_if_necessary()
+                with self.metrics.timed(M.TOTAL_TIME):
+                    b = ColumnarBatch.from_arrow(
+                        table.slice(off, max_rows), self._device,
+                        self._schema)
+                self.update_output_metrics(b)
+                yield b
+        return [convert(t) for t in self.cpu_source.partitions] or \
+            [iter(())]
 
 
 class ColumnarToRowExec(CpuNode):

@@ -1,5 +1,5 @@
 """Partitioners (port of spark_rapids_tpu/shuffle/partitioning.py: hash,
-single and range partitioning).
+round-robin, single and range partitioning).
 
 Each partitioner computes a target partition id per row on the device,
 then `_split` stably reorders the rows by partition id and cuts one
@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
@@ -83,6 +84,20 @@ class HashPartitioning(TpuPartitioning):
         pids = partition_ids([e.eval(ctx) for e in self.exprs],
                              self.num_partitions)
         return _split(batch, pids, self.num_partitions)
+
+
+@dataclasses.dataclass
+class RoundRobinPartitioning(TpuPartitioning):
+    """Row i of a batch goes to partition (i + start) mod n, the start
+    drawn at random per batch (the user's repartition(n))."""
+    num_partitions: int
+
+    def partition_batch(self, batch):
+        n = self.num_partitions
+        start = np.random.randint(0, n)
+        pids = torch.remainder(
+            torch.arange(batch.capacity, device=batch.device) + start, n)
+        return _split(batch, pids, n)
 
 
 @dataclasses.dataclass

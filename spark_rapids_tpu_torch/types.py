@@ -138,6 +138,40 @@ def from_name(name: str) -> DataType:
         raise TypeError(f"unsupported type name {name!r}") from None
 
 
+def from_arrow(at) -> DataType:
+    """Our type of a pyarrow DataType (scan schema negotiation)."""
+    import pyarrow as pa
+    for pred, dt in ((pa.types.is_boolean, BOOL), (pa.types.is_int8, INT8),
+                     (pa.types.is_int16, INT16), (pa.types.is_int32, INT32),
+                     (pa.types.is_int64, INT64),
+                     (pa.types.is_float32, FLOAT32),
+                     (pa.types.is_float64, FLOAT64),
+                     (pa.types.is_date32, DATE32),
+                     (pa.types.is_timestamp, TIMESTAMP_US),
+                     (pa.types.is_string, STRING),
+                     (pa.types.is_large_string, STRING)):
+        if pred(at):
+            return dt
+    raise TypeError(f"unsupported arrow type {at}")
+
+
+def to_arrow(dt: DataType):
+    """The pyarrow DataType of one of ours (timestamps are UTC)."""
+    import pyarrow as pa
+    return {
+        TypeId.BOOL: pa.bool_(),
+        TypeId.INT8: pa.int8(),
+        TypeId.INT16: pa.int16(),
+        TypeId.INT32: pa.int32(),
+        TypeId.INT64: pa.int64(),
+        TypeId.FLOAT32: pa.float32(),
+        TypeId.FLOAT64: pa.float64(),
+        TypeId.DATE32: pa.date32(),
+        TypeId.TIMESTAMP_US: pa.timestamp("us", tz="UTC"),
+        TypeId.STRING: pa.string(),
+    }[dt.id]
+
+
 def common_type(a: DataType, b: DataType) -> DataType:
     """Numeric promotion following Spark's binary arithmetic widening."""
     if a == b:

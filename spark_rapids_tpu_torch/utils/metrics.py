@@ -36,6 +36,12 @@ SPILL_RUN_BYTES = "spillRunBytes"
 NUM_EXTERNAL_MERGE_PASSES = "numExternalMergePasses"
 NUM_GRACE_PARTITIONS = "numGracePartitions"
 NUM_SPILL_CORRUPTIONS_RECOVERED = "numSpillCorruptionsRecovered"
+# file scans (io/scan.py): host decode time before the upload, the
+# upload's own time (both ns, like totalTime) and the bytes it put on the
+# device
+BUFFER_TIME = "bufferTime"
+DECODE_TIME = "tpuDecodeTime"
+UPLOAD_BYTES = "uploadBytes"
 # the reference's other names (the pipeline's, the watchdog's, the
 # shuffle's, ...) come with the layers that charge them
 

@@ -572,3 +572,94 @@ def test_device_manager_reads_the_card(cuda_device):
     assert dm.hbm_total == torch.cuda.mem_get_info(cuda_device)[1]
     assert dm.resident_bytes() == torch.cuda.memory_allocated(cuda_device)
     assert dm.budget == int(dm.hbm_total * 0.9) - (1 << 30)
+
+
+@pytest.mark.gpu
+def test_parquet_round_trip_on_the_card(cuda_device, tmp_path):
+    """A batch with strings (empty ones too), nulls, dates and floats
+    written as Parquet from CUDA tensors and read back onto the card:
+    every tensor the same bits."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch import io as pio
+    from spark_rapids_tpu_torch.io.writer import write_batches
+    from spark_rapids_tpu_torch.plan.overrides import accelerate
+    rng = np.random.default_rng(5)
+    n = 5000
+    strs = np.array([None if i % 7 == 0 else "" if i % 5 == 0
+                     else "x" * (i % 23) + f"é{i}" for i in range(n)],
+                    dtype=object)
+    schema = T.Schema.of(("i", T.INT64), ("f", T.FLOAT64), ("s", T.STRING),
+                         ("d", T.DATE32), ("b", T.BOOL))
+    f = rng.normal(size=n)
+    f[3] = np.nan
+    batch = ColumnarBatch.from_numpy(
+        {"i": np.arange(n, dtype=np.int64), "f": f, "s": strs,
+         "d": rng.integers(-200000, 20000, n).astype(np.int32),
+         "b": rng.random(n) < 0.5}, schema,
+        {"i": np.arange(n) % 11 != 0, "f": np.arange(n) % 13 != 0,
+         "s": np.array([v is not None for v in strs]),
+         "d": np.ones(n, bool), "b": np.arange(n) % 3 != 0},
+        device=cuda_device)
+    conf = {"spark.sql.legacy.parquet.datetimeRebaseModeInWrite":
+            "CORRECTED",
+            "spark.sql.legacy.parquet.datetimeRebaseModeInRead":
+            "CORRECTED"}
+    with C.session(C.RapidsConf(conf)):
+        stats = write_batches(iter([batch]), str(tmp_path / "o"),
+                              "parquet", schema)
+    assert stats.num_rows == n
+    plan = accelerate(pio.read_parquet(str(tmp_path / "o")),
+                      C.RapidsConf(conf), device=cuda_device)
+    back = plan.collect()
+    assert back.num_rows == n
+    for name in schema.names:
+        a, b = batch.column(name), back.column(name)
+        assert b.device.type == cuda_device.type
+        assert torch.equal(a.validity[:n], b.validity[:n]), name
+        if a.dtype.is_string:
+            assert torch.equal(torch.where(a.validity, a.lengths, 0)[:n],
+                               b.lengths[:n]), name
+            cc = min(a.char_cap, b.char_cap)
+            inside = torch.arange(cc, device=cuda_device)[None, :] < \
+                b.lengths[:n, None]
+            assert torch.equal(torch.where(inside, a.data[:n, :cc], 0),
+                               torch.where(inside, b.data[:n, :cc], 0))
+        else:
+            av = torch.where(a.validity, a.data, torch.zeros_like(a.data))
+            bv = torch.where(b.validity, b.data, torch.zeros_like(b.data))
+            assert torch.equal(av[:n].view(torch.uint8),
+                               bv[:n].view(torch.uint8)), name
+
+
+@pytest.mark.gpu
+def test_q1_over_a_partitioned_parquet_dataset(cuda_device, tmp_path):
+    """TPC-H Q1 over lineitem written by the port's writer on the card,
+    partitioned by l_returnflag and l_linestatus, read back through
+    read_parquet, against the CPU engine over the in-memory frame (keys
+    and counts exact, floats rtol 1e-5), with window_group_sums
+    launched."""
+    from parity import compare_frames
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch import io as pio
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.models.tpch_queries import QUERIES
+    from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
+    tables = TD.gen_tables(np.random.default_rng(11), 3000)
+    conf = C.RapidsConf({**TB.BENCH_CONF,
+                         "spark.rapids.sql.test.enabled": True})
+    out = str(tmp_path / "lineitem")
+    res = collect(accelerate(pio.write(
+        TD.sources(tables, 4)["lineitem"], out, "parquet",
+        ["l_returnflag", "l_linestatus"]), conf, device=cuda_device), conf)
+    assert int(res["num_rows"][0]) == len(tables["lineitem"])
+    before = GW.window_group_sums.launches
+    got = collect(accelerate(QUERIES[1]({"lineitem": pio.read_parquet(out)},
+                                        None), conf, device=cuda_device),
+                  conf)
+    assert GW.window_group_sums.launches > before
+    want = QUERIES[1](TD.sources(tables, 2), None).collect()
+    compare_frames(want, got, "q1 over parquet on the card")

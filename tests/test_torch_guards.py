@@ -25,6 +25,31 @@ PORT_FILES = sorted((ROOT / "spark_rapids_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*torch*.py"))
 
 
+def test_the_import_guard_covers_the_io_layer_and_the_shims():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for layer in ("io", "shims"):
+        files = sorted((ROOT / "spark_rapids_tpu_torch" / layer).glob(
+            "*.py"))
+        assert files and all(str(p.relative_to(ROOT)) in names
+                             for p in files)
+
+
+@pytest.mark.parametrize("layer", ["io", "shims"])
+def test_io_and_shims_import_pyarrow_only_inside_functions(layer):
+    """pyarrow decodes and encodes on the host only where a file is read
+    or written: the rest of the port imports without it."""
+    for path in sorted((ROOT / "spark_rapids_tpu_torch" / layer).glob(
+            "*.py")):
+        tree = ast.parse(path.read_text(), str(path))
+        for node in tree.body:
+            mods = ([a.name for a in node.names]
+                    if isinstance(node, ast.Import) else
+                    [node.module] if isinstance(node, ast.ImportFrom)
+                    else [])
+            assert not any(m and m.split(".")[0] == "pyarrow"
+                           for m in mods), f"{path.name} imports pyarrow"
+
+
 def _imported_modules(path: Path) -> list:
     mods = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -82,6 +107,25 @@ _ENTRY_POINTS = {
 def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card, name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _ENTRY_POINTS[name]()
+
+
+def test_a_file_scan_refuses_to_read_onto_the_cpu(no_card, tmp_path):
+    """read_parquet(...) accelerated for "cuda" raises without a card; it
+    does not read onto the CPU instead."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch import io as pio
+    from spark_rapids_tpu_torch.io.exec import (ScanDescription,
+                                                TpuFileSourceScanExec)
+    from spark_rapids_tpu_torch.plan.overrides import accelerate
+    pq.write_table(pa.table({"a": [1, 2]}), tmp_path / "a.parquet")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        accelerate(pio.read_parquet(str(tmp_path)), device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TpuFileSourceScanExec(ScanDescription(str(tmp_path), "parquet"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ColumnarBatch.from_arrow(pa.table({"a": [1, 2]}))
 
 
 def test_cpu_tensors_launch_no_kernel():
