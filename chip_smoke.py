@@ -4,11 +4,13 @@ ETL plans of the type and expression layer, the 18 TPC-DS queries with
 a window, a ROLLUP or a UNION ALL (phase 11), the memory layer's
 out-of-core lanes and OOM retry lattice (phase 12), the rest of the
 workloads (phase 13): the other 85 TPC-DS queries, TPCx-BB's 28 without
-a UDF and Mortgage's ETL, and the I/O layer with the planner's
-sort-merge join, repartition, cached columnar scan and sort aggregate
-(phase 14), on one NVIDIA card (59,986,052 lineitem rows, scale factor
-10, in phases 4-6 and 14a, TPC-H spec 4.2.5; 50,000 TPC-DS store_sales
-rows in 11b and 13b, where SF1 has 2,880,404, Table 3-2).
+a UDF and Mortgage's ETL, the I/O layer with the planner's sort-merge
+join, repartition, cached columnar scan and sort aggregate (phase 14),
+and the runtime: two concurrent TPC-H streams, admission control, the
+result cache, the watchdog and AQE (phase 15), on one NVIDIA card
+(59,986,052 lineitem rows, scale factor 10, in phases 4-6 and 14a, TPC-H
+spec 4.2.5; 50,000 TPC-DS store_sales rows in 11b and 13b, where SF1 has
+2,880,404, Table 3-2).
 
     python3 chip_smoke.py [--seed N]
 
@@ -111,8 +113,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      exact; sums and averages rtol 1e-3: the banded lane adds in f32),
      runs in 13a; 11b runs them over the tables 13b runs over
      (workload_tables(seed, WL_SCALE): 50,000 store_sales rows, the
-     generator's own ratios for the rest), 16
-     partitions, one new plan per query: accelerate and collect timed
+     generator's own ratios for the rest), 16 partitions, one new
+     plan per query: accelerate and collect timed
      apart, plan runs, peak device memory, rows, lane decisions and the
      kernels' launches printed; the widest input batch of every
      WindowExec and ExpandExec downloaded and the exec's output held
@@ -133,10 +135,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      compute while the card runs (no result empty but q91's, as the
      reference fixture allows; q9's five scalar subqueries each a
      collect of its own on the card, timed apart); 13b runs the 85
-     TPC-DS queries and TPCx-BB's 28 over workload_tables(seed,
-     WL_SCALE) and Mortgage over 1,000,000 loans x 24 months (24M
-     performance rows), one new plan each, as 11b runs the 18 (q9's
-     subquery collects counted and checked with its plan);
+     TPC-DS queries over workload_tables(seed, WL_SCALE) and Mortgage
+     over 1,000,000 loans x 24 months (24M performance rows), one new
+     plan each, as 11b runs the 18 (q9's subquery collects counted and
+     checked with its plan; TPCx-BB's 28 left 13b: see the cuts);
      throughout: accelerate and collect apart, plan runs, peak device
      memory, rows, aggregate and join lanes and the kernels' launches
      printed, every float of a result finite, the widest call of each
@@ -150,7 +152,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
  14. the I/O layer and the planner's missing nodes, under the TPC bench
      conf with test.enabled (no plan has a CPU node but 14c's fallback),
      with files in IO_DIR (git-ignored, emptied at each part's start
-     and end): 14a, right after phase 6 while its SF10 lineitem is
+     and end; 14b's stay for phase 15): 14a, right after phase 6 while its SF10 lineitem is
      held, writes the seven columns Q1 and Q6 read through the port's
      writer (write(CpuSource) -> TpuWriteFilesExec, partitioned by
      l_returnflag and l_linestatus: the dynamic partition writer and
@@ -176,32 +178,80 @@ Phases, each of which raises on failure (exit code 1, no result line):
      groups read against its splits' total, the peak device memory and
      the kernels' launches printed, and the widest call of each kernel
      in each plan held against its twin;
- 15. print the kernels line and, last, the device line.
-Cuts, to keep the script within 950 s of its 1,200 s limit: phase 9
-runs one new plan per query, as phases 7 and 8 do (its second, hot plan
-went when phase 9 came); phases 7-10 and 12 run over TPC-H at scale
-factor JOIN_SF = 1 (10 before phase 11 came, 5 before 13b ran the 85);
-11a's check of the 18 runs in 13a at 20,000 store_sales rows (100,000
-before phase 13 came); 11b and 13b run at WL_SCALE = 50,000
-store_sales rows, not at SF1 (11b ran at a quarter of SF10 before
-phase 13 came).  Why not
-SF1: there q24, q24b and q72 run out of the card's memory in a join of
-the reference's plan (q72 completes at 300,000 rows, not at 400,000);
-and on an H100 the card's time per query is nearly flat in the scale,
-so the 85 cost their count more than their size: with them and
-TPCx-BB at 288,040 rows in 13b and phases 7-10 at SF5, the script took
-1,191.1 s of phase laps (13a 290.6 s, 11b 102.7 s, 13b 439.9 s, phases
-7-10 and 12 310.1 s); with phases 7-10 at SF1 and 11b and 13b at
-100,000 rows 973.5 s (13a 316.2 s, 11b 91.1 s, 13b 400.5 s, phases
-7-10 and 12 119.9 s).  Laps vary by up to a fifth between hosts: with
-phase 14 at 50,000 rows two runs took 1,044.1 and 1,059.3 s (13a 338.7
-and 350.8 s, phase 14 39.2 and 42.6 s), and 853.5 s once the collector
-was frozen at the start and before 13a (13a 293.7 s, 11b 74.4 s, 13b
-271.1 s: the collections before each 11b and 13b query had walked the
-whole heap, ~0.9 s a query).  13b is the lap that set WL_SCALE.  `scripts/torch_tpcds_phase.py
---queries rest --scale 2880404` and `scripts/torch_workloads_phase.py
---scale 2880404` run them at SF1, `--queries all --scale 28800991` at
-SF10 (PERF.md).
+ 15. the runtime (exec/pipeline.py, exec/scheduler.py, utils/watchdog.py,
+     plan/aqe.py), after 14c over phases 7-9's SF1 tables and goldens,
+     under the TPC bench conf with test.enabled and the runtime's
+     defaults (pipeline, scheduler and watchdog on), as every earlier
+     phase now runs (the port prefetches at the file scan alone, so the
+     in-memory phases start no producer): 15a, the TPC-H throughput test
+     (spec 5.3.4): two streams, each on its own thread submitting all 22
+     queries (one new plan each, over 14b's files, so that every scan
+     prefetches) in the power-test order, stream 2 rotated by 11, every
+     result against phases 6-9's goldens and checks (check_tpch;
+     here, cut, the two streams run the two halves of the power order,
+     11 queries each, at once: HALF_STREAMS), each
+     query's accelerate and collect, each stream's wall and the two
+     together against the sum of phases 7-9's single-stream collects
+     (over memory, which upload in accelerate), the scheduler's counters
+     (admitted, queued, most concurrent), the pipeline's (producers, most
+     batches in flight) and the kernels' launches printed, the widest
+     call of each kernel from any thread held against its twin, and
+     torch.cuda.memory_allocated() back to its value before the streams
+     but for the wrappers' own state; 15b, three Q6 at once with
+     queryBudgetBytes at 45% of the DeviceManager's budget under a gate
+     at their root that opens once the scheduler has queued one (two
+     admitted at most, one queued, none rejected, a queue wait above 0,
+     all three equal to the golden), then a Q6 with queueDepth 0 while
+     two Q6 at the same budget are held admitted by the gate
+     (TpuQueryRejected; the two then equal Q6's golden), then Q1 twice
+     over one set of sources with resultCache.enabled (the second a hit,
+     equal to the bit, no launch); 15c, Q1 over the lineitem file with
+     its scan's producer hung (hangSite producer after 1 batch,
+     taskTimeout 5 s, pollInterval 0.5 s) cancelled with a
+     TpuQueryTimeout naming the producer within 15 s, then the same Q1
+     clean and equal to the golden, no producer left and device memory
+     back; 15d, Q3, Q5 and
+     Q10 with spark.sql.adaptive.enabled: each final plan
+     (ExecutionPlanCapture) with ShuffleQueryStageExec nodes and a
+     BroadcastHashJoinExec, one of the three with a coalescing
+     CustomShuffleReaderExec, the stages' batches released, results
+     against the goldens, device memory back; 15e, grouped_sum tiers A
+     and B and window_group_sums at phase 3's shapes, 100 calls each
+     from four threads at once: every result equal to the bit to the
+     call made alone, the counters grown by exactly 4 x 100 x 3;
+ 16. print the kernels line (all three kernels, with their launches in
+     every phase: `launches` the main path's, then per phase and per
+     part of phase 15) and, last, the device line.
+Cuts, to keep the script within 950 s of its 1,200 s limit, in this
+order: (1) TPCx-BB's 28 left 13b (13a still checks them at 20,000 rows;
+`scripts/torch_workloads_phase.py` runs them at any scale); (2) 15a's
+two streams run the two halves of the power order, 11 queries each
+(`scripts/torch_runtime_phase.py` runs two streams of the 22, and three
+at SF10).  When phase 15 came, the runtime's prefetch producers ran at
+every pipeline break and cost time on this host-bound engine (phases
+1-12 262.6 s of laps against 173.4 s before, 13a 492.0 s against
+293.7; PERF.md), which first forced two more cuts (11b at 20,000 rows,
+84 of the 85 out of 13a and 13b); since the producers run at the file
+scan alone, both are undone.  Earlier cuts: phase 9 runs one new plan
+per query, as phases 7 and 8 do; phases 7-10 and 12 run over TPC-H at
+scale factor JOIN_SF = 1 (10 before phase 11 came, 5 before 13b ran the
+85); 11a's check of the 18 runs in 13a at 20,000 store_sales rows
+(100,000 before phase 13 came); 11b and 13b run at WL_SCALE = 50,000
+store_sales rows, not at SF1 (11b ran at a quarter of SF10 before phase
+13 came).  Why not SF1: there q24, q24b and q72 run out of the card's
+memory in a join of the reference's plan (q72 completes at 300,000
+rows, not at 400,000); and on an H100 the card's time per query is
+nearly flat in the scale, so the 85 cost their count more than their
+size: with them and TPCx-BB at 288,040 rows in 13b and phases 7-10 at
+SF5, the script took 1,191.1 s of phase laps (13a 290.6 s, 11b 102.7
+s, 13b 439.9 s, phases 7-10 and 12 310.1 s).  Laps vary by up to a
+fifth between hosts.  `main` freezes the collector (`gc.freeze()`) at
+its start and before 13a, so each 11b and 13b query's collection
+before its memory check walks only what the query made (it walked the
+whole heap, ~0.9 s a query, before: 1,059.3 s of laps against 853.5).
+`scripts/torch_tpcds_phase.py --queries rest --scale 2880404` and
+`scripts/torch_workloads_phase.py --scale 2880404` run them at SF1,
+`--queries all --scale 28800991` at SF10 (PERF.md).
 Every phase prints its wall time.  Without a CUDA device, or without
 the package beside it, it exits non-zero before printing any result.
 """
@@ -2721,10 +2771,9 @@ def ds_rest() -> list:
 
 def workloads_check_phase(torch, dev, seed: int) -> dict:
     """Phase 13a: all 103 TPC-DS queries (phase 11's 18 with them) and
-    the 28 TPCx-BB queries over workload_tables(WL_CHECK_SEED,
-    WL_CHECK_SCALE), Mortgage's two plans over WL_CHECK_LOANS x
-    MORTGAGE_MONTHS from `seed`, on the card against the CPU engine
-    (check_queries)."""
+    the 28 TPCx-BB queries over workload_tables(WL_CHECK_SEED, WL_CHECK_SCALE),
+    Mortgage's two plans over WL_CHECK_LOANS x MORTGAGE_MONTHS from
+    `seed`, on the card against the CPU engine (check_queries)."""
     from spark_rapids_tpu_torch.models import tpcxbb as X
     spec = ("workload", WL_CHECK_SEED, WL_CHECK_SCALE)
     label = f"{WL_CHECK_SCALE} store_sales rows"
@@ -2964,13 +3013,7 @@ def io_files_phase(torch, dev, tables: dict, gold: dict, gold_parts: dict,
     from spark_rapids_tpu_torch.models import tpch_data as TD
     from spark_rapids_tpu_torch.models.tpch_queries import QUERIES
     conf = C.RapidsConf({**TB.BENCH_CONF, C.TEST_ENABLED.key: True})
-    io_reset()
-    out = {"write": {}, "queries": {}}
-    for name in ("lineitem", "orders", "customer", "supplier", "partsupp",
-                 "part", "nation", "region"):
-        out["write"][name] = write_files(
-            torch, dev, tables[name], TD.SCHEMAS[name], name,
-            IO_FORMATS.get(name, "parquet"), conf)
+    out = {"write": write_tpch_files(torch, dev, tables), "queries": {}}
 
     def file_tree(plan, names):
         require("LocalBatchSource" not in names
@@ -2989,8 +3032,20 @@ def io_files_phase(torch, dev, tables: dict, gold: dict, gold_parts: dict,
                for s in out["queries"][q]["scans"]}
     require(formats == {"parquet", "orc", "csv"},
             f"14b read the formats {formats}")
+    return out  # the files stay for phase 15
+
+
+def write_tpch_files(torch, dev, tables: dict) -> dict:
+    """The eight TPC-H tables of `tables` written into an empty IO_DIR in
+    their IO_FORMATS (write_files): what 14b and phase 15 read."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    conf = C.RapidsConf({**TB.BENCH_CONF, C.TEST_ENABLED.key: True})
     io_reset()
-    return out
+    return {name: write_files(torch, dev, tables[name], TD.SCHEMAS[name],
+                              name, IO_FORMATS.get(name, "parquet"), conf)
+            for name in TD.SCHEMAS}
 
 
 def plan_gaps_phase(torch, dev, tables: dict, gold: dict, q1_gold: dict,
@@ -3067,6 +3122,647 @@ def plan_gaps_phase(torch, dev, tables: dict, gold: dict, q1_gold: dict,
             names.count("HashAggregateExec") == 2,
             f"the sort aggregate's tree: {names}"), sort_agg=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the runtime (pipeline, scheduler, watchdog, AQE)
+#: TPC-H's power-test order (spec 5.3.5.4, Appendix A's stream 0)
+POWER_ORDER = (14, 2, 9, 20, 6, 17, 18, 8, 21, 13, 3, 22, 16, 4, 11, 15,
+               1, 10, 19, 5, 7, 12)
+
+
+def stream_orders(streams: int) -> list:
+    """Each throughput stream's query order: the power order rotated by
+    an equal share of the 22 for each stream (11 for two streams), so
+    the streams seldom run one query at once."""
+    n = len(POWER_ORDER)
+    return [POWER_ORDER[(n * i) // streams:] + POWER_ORDER[:(n * i) // streams]
+            for i in range(streams)]
+
+
+def check_tpch(q: int, df, gold: dict, sub: list) -> float:
+    """Query q's result against its float64 golden with phases 6-9's
+    checks (gold[1] Q1's and gold[6] Q6's at the same scale)."""
+    if q == 1:
+        return check_q1(df, gold[1], "q1")
+    if q == 6:
+        return check_q6(df, gold[6], "q6")
+    if q in (3, 4, 5):
+        return check_join_query(q, df, gold[q])
+    if q in (7, 8, 9, 10):
+        return check_part_query(q, df, gold[q])
+    return check_rest_query(q, df, gold[q], sub)
+
+
+def tpch_conf(q: int, **extra):
+    """The TPC bench conf with test.enabled (Q21 allows its two
+    CpuHashJoin islands) and the runtime's defaults, plus `extra`."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    islands = ({C.TEST_ALLOWED_NONGPU.key: "CpuHashJoin"} if q == 21
+               else {})
+    return C.RapidsConf({**TB.BENCH_CONF, C.TEST_ENABLED.key: True,
+                         **islands, **extra})
+
+
+def submit_tpch(torch, dev, q: int, tables: dict, conf, label: str,
+                source=None, keep: Optional[list] = None) -> tuple:
+    """One TPC-H query as a user submits it: its plan built over the
+    tables at 16 partitions (each scalar subquery a collect of its own
+    on the card), accelerated and collected; the plan goes to `keep` if
+    given (ExecutionPlanCapture holds it weakly).  Returns (frame,
+    subquery frames, {accelerate, collect, subqueries} seconds)."""
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.models.tpch_queries import QUERIES
+    from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
+    sub: list = []
+
+    def run_sub(plan):
+        df = collect(accelerate(plan, conf, device=dev), conf)
+        sub.append(df)
+        return df
+    ts = time.perf_counter()
+    cpu_plan = QUERIES[q](source if source is not None
+                          else TD.sources(tables, TB.SF10_PARTITIONS),
+                          run_sub)
+    t0 = time.perf_counter()
+    plan = accelerate(cpu_plan, conf, device=dev)
+    if keep is not None:
+        keep.append(plan)
+    t1 = time.perf_counter()
+    df = collect(plan, conf)
+    t2 = time.perf_counter()
+    return df, sub, {"subqueries": t0 - ts, "accelerate": t1 - t0,
+                     "collect": t2 - t1}
+
+
+def threadsafe_recorders(GW, K, lock):
+    """Stand-ins for the aggregate's two kernel wrappers that keep the
+    inputs of the widest CUDA call made from any thread (as `recording`
+    and `recording_grouped` do on one): ([gid, vals, out_cap],
+    [keys, vals, num_rows, n_groups], window stand-in, grouped
+    stand-in)."""
+    wcalls: list = []
+    gcalls: list = []
+
+    def window(gid, vals, *, out_cap: int, capacity: int):
+        if gid.is_cuda:
+            with lock:
+                if not wcalls or capacity > wcalls[0].numel():
+                    wcalls[:] = [gid.clone(), [v.clone() for v in vals],
+                                 out_cap]
+        return GW.window_group_sums(gid, vals, out_cap=out_cap,
+                                    capacity=capacity)
+
+    def grouped(keys, vals, num_rows, *, n_groups: int, capacity: int):
+        if keys.is_cuda:
+            with lock:
+                if not gcalls or capacity > gcalls[0].numel():
+                    gcalls[:] = [keys.clone(), [v.clone() for v in vals],
+                                 int(num_rows), n_groups]
+        return K.grouped_sum(keys, vals, num_rows, n_groups=n_groups,
+                             capacity=capacity)
+    return wcalls, gcalls, window, grouped
+
+
+def launch_counts(GW, K) -> dict:
+    return {"grouped_sum": K.grouped_sum.launches,
+            "window_group_sums": GW.window_group_sums.launches,
+            "q1_fused": K.q1_fused.launches}
+
+
+def reset_launches(GW, K) -> None:
+    K.grouped_sum.launches = 0
+    GW.window_group_sums.launches = 0
+    K.q1_fused.launches = 0
+
+
+def settled_memory(torch, dev, GW, K, before: int, state0: int,
+                   label: str) -> dict:
+    """torch.cuda.memory_allocated() once every producer has ended and
+    the collector has run, required back at `before` but for the growth
+    of the kernel wrappers' own state since `state0`."""
+    from spark_rapids_tpu_torch.exec import pipeline as PL
+    deadline = time.monotonic() + 20.0
+    while PL.pipeline_live()["producers"] and time.monotonic() < deadline:
+        time.sleep(0.05)
+    require(PL.pipeline_live()["producers"] == 0,
+            f"{label}: prefetch producers outlived their queries: "
+            f"{PL.pipeline_live()}")
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    after = torch.cuda.memory_allocated(dev)
+    grown = kernel_state_bytes(GW, K) - state0
+    print(f"{label}: memory_allocated {before} bytes before, {after} "
+          f"after (the kernel wrappers' own state grew {grown})",
+          flush=True)
+    require(after - before == grown,
+            f"{label}: {after - before - grown} bytes of device memory "
+            f"kept after its queries ended")
+    return {"before": before, "after": after, "kernel_state_growth": grown}
+
+
+def throughput_test(torch, dev, tables: dict, gold: dict, streams: int,
+                    GW, K, queries=None, extra=None, orders=None) -> dict:
+    """The TPC-H throughput test (spec 5.3.4): `streams` threads, each
+    submitting its order of the 22 queries (of `queries`, or its list in
+    `orders`) one new plan at a time over `tables` as IO_DIR's files
+    (write_tpch_files), so that every scan prefetches, under the TPC
+    bench conf with test.enabled and the runtime's defaults (pipeline,
+    scheduler and watchdog on) and `extra`; every result held against
+    its golden (`gold`, check_tpch) unless `gold` is None.  Returns each
+    query's seconds and error, each stream's wall and the streams' wall
+    together."""
+    import threading
+
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    if orders is None:
+        orders = [[q for q in o if queries is None or q in queries]
+                  for o in stream_orders(streams)]
+    out: dict = {"queries": {}, "stream_wall": {}, "errors": []}
+    lock = threading.Lock()
+    start = threading.Barrier(streams, timeout=60)
+
+    def stream(i: int) -> None:
+        try:
+            start.wait()
+        except BaseException as e:  # noqa: BLE001 — raised below
+            with lock:
+                out["errors"].append(f"stream {i}: {e!r}")
+            return
+        t_stream = time.perf_counter()
+        for q in orders[i]:
+            # a failed query is named and its stream goes on
+            try:
+                df, sub, sec = submit_tpch(
+                    torch, dev, q, tables, tpch_conf(q, **(extra or {})),
+                    f"s{i} q{q}", source=file_sources(TD.SCHEMAS,
+                                                      TD.SCHEMAS))
+                rel = (check_tpch(q, df, gold, sub) if gold is not None
+                       else float("nan"))
+            except BaseException as e:  # noqa: BLE001 — raised below
+                with lock:
+                    out["errors"].append(f"stream {i} q{q}: {e!r}")
+                print(f"runtime stream {i} q{q} {sf_of(tables)} FAILED: "
+                      f"{e!r}", flush=True)
+                continue
+            with lock:
+                out["queries"][f"s{i}q{q}"] = {**sec, "rel": rel,
+                                               "rows": len(df)}
+            print(f"runtime stream {i} q{q} {sf_of(tables)}: "
+                  f"accelerate {sec['accelerate']:.3f} s, collect "
+                  f"{sec['collect']:.3f} s"
+                  + (f", subqueries {sec['subqueries']:.3f} s"
+                     if sub else "")
+                  + f", {len(df)} rows, rel err {rel:.3g}", flush=True)
+            del df, sub
+        with lock:
+            out["stream_wall"][i] = time.perf_counter() - t_stream
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=stream, args=(i,),
+                                name=f"tpch-stream-{i}")
+               for i in range(streams)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(3000)
+    require(not any(t.is_alive() for t in threads),
+            "a throughput stream never ended")
+    out["wall"] = time.perf_counter() - t0
+    require(not out["errors"], f"throughput test: {out['errors']}")
+    out["orders"] = orders
+    return out
+
+
+def gated(plan, gate, entered):
+    """`plan` under a root exec that parks on the event `gate` (setting
+    `entered`) before passing its batches on: it holds its query admitted
+    until the gate opens."""
+    from spark_rapids_tpu_torch.exec.base import UnaryExecBase
+    from spark_rapids_tpu_torch.utils import watchdog as W
+
+    class GateExec(UnaryExecBase):
+        def output_schema(self):
+            return self.child.output_schema()
+
+        def process_partition(self, batches):
+            entered.set()
+            while not gate.wait(0.05):
+                W.check_cancelled()
+            yield from batches
+    return GateExec(plan)
+
+
+#: 15d's spark.sql.autoBroadcastJoinThreshold: at SF1 Q3's smallest
+#: build side is ~47 MB of device batches (Q5's and Q10's have builds
+#: under Spark's 10 MB default)
+AQE_BROADCAST_BYTES = 64 << 20
+#: 15a's cut (see the docstring's Cuts): two streams run the two halves
+#: of the power order at once, 11 queries each
+HALF_STREAMS = [list(POWER_ORDER[:11]), list(POWER_ORDER[11:])]
+
+
+def runtime_phase(torch, dev, tables: dict, gold: dict, GW, K, cases,
+                  single_collect_s: float, streams: int = 2,
+                  orders=None) -> dict:
+    """Phase 15 (see the module docstring): 15a the TPC-H throughput
+    test (`streams` streams, or the lists of `orders`), 15b admission
+    and the result cache, 15c the watchdog, 15d AQE, 15e the kernel
+    wrappers under threads.  Returns each part's launches and
+    figures."""
+    import threading
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.exec import aggregate as AGG
+    from spark_rapids_tpu_torch.exec import pipeline as PL
+    from spark_rapids_tpu_torch.exec import scheduler as S
+    from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.models.tpch_queries import QUERIES
+    from spark_rapids_tpu_torch.plan import aqe
+    from spark_rapids_tpu_torch.plan.overrides import (ExecutionPlanCapture,
+                                                       accelerate, collect)
+    from spark_rapids_tpu_torch.utils import watchdog as W
+    grouped_case, window_case = cases
+    sched = S.QueryScheduler.get()
+    out: dict = {"launches": {}}
+    laps: dict = {}
+
+    def part_done(name: str, t0: float) -> None:
+        laps[name] = time.perf_counter() - t0
+        print(f"phase {name}: {laps[name]:.1f} s", flush=True)
+
+    # 15a. the throughput test
+    t_part = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    state0 = kernel_state_bytes(GW, K)
+    before = torch.cuda.memory_allocated(dev)
+    reset_launches(GW, K)
+    sched.reset_stats()
+    PL.reset_pipeline_stats()
+    lock = threading.Lock()
+    wcalls, gcalls, AGG.window_group_sums, AGG.grouped_sum = \
+        threadsafe_recorders(GW, K, lock)
+    try:
+        if orders is not None:
+            streams = len(orders)
+        tput = throughput_test(torch, dev, tables, gold, streams, GW, K,
+                               orders=orders)
+    finally:
+        AGG.window_group_sums = GW.window_group_sums
+        AGG.grouped_sum = K.grouped_sum
+    out["launches"]["15a"] = launches = launch_counts(GW, K)
+    sstats, pstats = sched.stats(), PL.pipeline_stats()
+    collects = sum(v["collect"] for v in tput["queries"].values())
+    print(f"runtime 15a: {streams} streams of {len(tput['orders'][0])} "
+          f"queries, {sf_of(tables)}: stream walls "
+          + ", ".join(f"{w:.1f}" for _, w in sorted(
+              tput["stream_wall"].items()))
+          + f" s, together {tput['wall']:.1f} s (the streams' collects "
+          f"{collects:.1f} s; phases 7-9's single-stream collects "
+          f"{single_collect_s:.1f} s); scheduler admitted "
+          f"{sstats['admitted']}, queued {sstats['queued']}, most "
+          f"concurrent {sstats['max_admitted']}; pipeline producers "
+          f"{pstats['producers']}, most batches in flight "
+          f"{pstats['max_in_flight']}; launches {launches}", flush=True)
+    require(launches["q1_fused"] == 0,
+            "q1_fused launched in the throughput test: no call is checked")
+    require(launches["window_group_sums"] and launches["grouped_sum"],
+            f"a kernel of the path never launched in 15a: {launches}")
+    require(pstats["producers"] > 0,
+            "no file scan's prefetch producer ran in 15a")
+    require(sstats["max_admitted"] >= min(2, streams),
+            f"the streams never ran at once: {sstats}")
+    require(bool(wcalls) and bool(gcalls),
+            "15a: a kernel launched but no call of it was recorded")
+    cases_a = {}
+    gid, vals, cap = wcalls
+    case = window_case(gid, vals, cap)
+    case.update(launches=launches["window_group_sums"],
+                shape=f"15a widest call: capacity {gid.numel()}, out_cap "
+                f"{cap}, M={len(vals)}")
+    print(kernel_text("window_group_sums", case), flush=True)
+    cases_a["window_group_sums"] = case
+    keys, gvals, rows, groups = gcalls
+    case = grouped_case(keys, gvals, rows, groups, None)
+    case.update(launches=launches["grouped_sum"],
+                shape=f"15a widest call: capacity {keys.numel()}, "
+                f"G={groups}, M={len(gvals)}, tier {case['tier']}")
+    print(kernel_text("grouped_sum", case), flush=True)
+    cases_a["grouped_sum"] = case
+    del gid, vals, keys, gvals, wcalls[:], gcalls[:]
+    out["15a"] = {"stream_wall": tput["stream_wall"], "wall": tput["wall"],
+                  "collects": collects, "single_collect_s": single_collect_s,
+                  "scheduler": sstats, "pipeline": pstats,
+                  "queries": tput["queries"], "cases": cases_a,
+                  "memory": settled_memory(torch, dev, GW, K, before,
+                                           state0, "runtime 15a")}
+    part_done("15a (TPC-H throughput test)", t_part)
+
+    # 15b. admission: three Q6 at 45% of the budget each, all under a
+    # gate at their root: two are admitted and park there, the third
+    # queues, and the gate opens once the scheduler counts it queued
+    t_part = time.perf_counter()
+    reset_launches(GW, K)
+    dm = DeviceManager.peek()
+    require(dm is not None, "no DeviceManager after 15a")
+    budget = int(0.45 * dm.budget)
+    conf6 = tpch_conf(6, **{C.SCHED_QUERY_BUDGET.key: budget})
+    sched.reset_stats()
+    results: dict = {}
+    errors: list = []
+    gate = threading.Event()
+    entered = [threading.Event() for _ in range(3)]
+
+    def gated_q6(i: int, held: dict, conf) -> None:
+        try:
+            plan = accelerate(QUERIES[6](TD.sources(
+                tables, TB.SF10_PARTITIONS), None), conf, device=dev)
+            t0 = time.perf_counter()
+            held[i] = (collect(gated(plan, gate, entered[i]), conf),
+                       time.perf_counter() - t0)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(f"q6 #{i}: {e!r}")
+
+    ts = [threading.Thread(target=gated_q6, args=(i, results, conf6))
+          for i in range(3)]
+    for t in ts:
+        t.start()
+    try:
+        deadline = time.monotonic() + 120
+        while (sched.stats()["queued"] < 1 and not errors
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        require(not errors and sched.stats()["queued"] >= 1
+                and len(dm.admissions()) == 2,
+                f"15b: three Q6 did not queue one: {sched.stats()}, "
+                f"{dm.admissions()}, {errors}")
+    finally:
+        gate.set()
+        for t in ts:
+            t.join(600)
+    require(not errors and len(results) == 3, f"15b: {errors}")
+    for df, _ in results.values():
+        check_tpch(6, df, gold, [])
+    s6 = sched.stats()
+    print(f"runtime 15b: three Q6 at queryBudgetBytes {budget} (45% of "
+          f"{dm.budget}), held at a gate until one queued: collects "
+          + ", ".join(f"{r[1]:.3f}" for _, r in sorted(results.items()))
+          + f" s, scheduler {s6}", flush=True)
+    require(s6["queued"] >= 1 and s6["rejected"] == 0
+            and s6["longest_queue_wait_ms"] > 0
+            and s6["max_admitted"] == 2,
+            f"15b: admission did not queue the third Q6: {s6}")
+    results.clear()
+    # with queueDepth 0, a third query while two are admitted is shed:
+    # two Q6 at the same budget held admitted by the gate again
+    gate.clear()
+    entered = [threading.Event() for _ in range(2)]
+    held: dict = {}
+    hs = [threading.Thread(target=gated_q6, args=(i, held, conf6))
+          for i in range(2)]
+    for t in hs:
+        t.start()
+    try:
+        require(all(e.wait(120) for e in entered) and not errors,
+                f"15b: the two holders never ran: {errors}")
+        require(len(dm.admissions()) == 2,
+                f"15b: {dm.admissions()} admitted, expected 2")
+        try:
+            submit_tpch(torch, dev, 6, tables, tpch_conf(6, **{
+                C.SCHED_QUERY_BUDGET.key: budget,
+                C.SCHED_QUEUE_DEPTH.key: 0}), "q6 rejected")
+            raise RuntimeError("15b: a third query was not rejected")
+        except S.TpuQueryRejected as e:
+            rejected = str(e)
+    finally:
+        gate.set()
+        for t in hs:
+            t.join(600)
+    require(not errors and len(held) == 2, f"15b holders: {errors}")
+    for df, _ in held.values():
+        check_tpch(6, df, gold, [])
+    print(f"runtime 15b: with queueDepth 0 and two admitted: "
+          f"TpuQueryRejected: {rejected.splitlines()[0]}", flush=True)
+    del held
+    # the result cache: a second submit of Q1 over the same sources
+    conf_rc = tpch_conf(1, **{C.RESULT_CACHE_ENABLED.key: True})
+    S.result_cache().clear()
+    src = TD.sources(tables, TB.SF10_PARTITIONS)
+    df1, _, sec1 = submit_tpch(torch, dev, 1, tables, conf_rc, "q1 cache",
+                               source=src)
+    check_tpch(1, df1, gold, [])
+    counts = launch_counts(GW, K)
+    df2, _, sec2 = submit_tpch(torch, dev, 1, tables, conf_rc, "q1 cache",
+                               source=src)
+    rc = S.result_cache().stats()
+    require(rc["hits"] == 1 and rc["stores"] == 1,
+            f"15b: the second Q1 did not hit the result cache: {rc}")
+    require(launch_counts(GW, K) == counts,
+            "15b: a result-cache hit launched a kernel")
+    import pandas as pd
+    pd.testing.assert_frame_equal(df1, df2, check_exact=True)
+    print(f"runtime 15b: Q1 twice with resultCache.enabled: collects "
+          f"{sec1['collect']:.3f} s, then {sec2['collect']:.4f} s (a hit, "
+          f"equal to the bit, no launch), cache {rc}", flush=True)
+    S.result_cache().clear()
+    del df1, df2, src
+    out["launches"]["15b"] = launch_counts(GW, K)
+    out["15b"] = {"scheduler": s6, "budget": budget,
+                  "rejected": rejected.splitlines()[0], "result_cache": rc}
+    part_done("15b (admission and the result cache)", t_part)
+
+    # 15c. the watchdog: a hung producer cancels Q1, which then runs clean
+    t_part = time.perf_counter()
+    reset_launches(GW, K)
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    state0 = kernel_state_bytes(GW, K)
+    before = torch.cuda.memory_allocated(dev)
+    W.reset_hang_injection()
+    conf_hang = tpch_conf(1, **{
+        C.HANG_INJECT_SITE.key: "producer", C.HANG_INJECT_AFTER.key: 1,
+        C.WATCHDOG_TASK_TIMEOUT.key: 5.0,
+        C.WATCHDOG_POLL_INTERVAL.key: 0.5})
+    t0 = time.perf_counter()
+    try:
+        # over the lineitem file: its scan's producer is the one that hangs
+        submit_tpch(torch, dev, 1, tables, conf_hang, "q1 hang",
+                    source=file_sources(["lineitem"], TD.SCHEMAS))
+        raise RuntimeError("15c: the hung Q1 was not cancelled")
+    except W.TpuQueryTimeout as e:
+        timeout_msg = str(e)
+    hang_s = time.perf_counter() - t0
+    require(hang_s < 15.0, f"15c: the timeout took {hang_s:.1f} s")
+    require("producer" in timeout_msg and "watchdog" in timeout_msg,
+            f"15c: the timeout does not name the producer: "
+            f"{timeout_msg[:300]}")
+    W.reset_hang_injection()
+    df, _, sec = submit_tpch(torch, dev, 1, tables, tpch_conf(1), "q1",
+                             source=file_sources(["lineitem"], TD.SCHEMAS))
+    check_tpch(1, df, gold, [])
+    del df
+    mem_c = settled_memory(torch, dev, GW, K, before, state0,
+                           "runtime 15c")
+    print(f"runtime 15c: Q1 over the lineitem file with its scan's "
+          f"producer hung, cancelled after "
+          f"{hang_s:.2f} s (taskTimeout 5 s): "
+          f"{timeout_msg.splitlines()[0]}; then clean, collect "
+          f"{sec['collect']:.3f} s, equal to the golden; live producers "
+          f"{PL.pipeline_live()['producers']}", flush=True)
+    out["launches"]["15c"] = launch_counts(GW, K)
+    out["15c"] = {"cancel_s": hang_s, "memory": mem_c}
+    part_done("15c (the watchdog)", t_part)
+
+    # 15d. AQE: Q3, Q5, Q10 with spark.sql.adaptive.enabled
+    t_part = time.perf_counter()
+    reset_launches(GW, K)
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    state0 = kernel_state_bytes(GW, K)
+    before = torch.cuda.memory_allocated(dev)
+    out["15d"] = {}
+    coalesced = False
+    for q in (3, 5, 10):
+        conf_aqe = tpch_conf(q, **{C.ADAPTIVE_ENABLED.key: True,
+                                   C.AUTO_BROADCAST_THRESHOLD.key:
+                                       AQE_BROADCAST_BYTES})
+        held_plans: list = []
+        df, _, sec = submit_tpch(torch, dev, q, tables, conf_aqe,
+                                 f"q{q} aqe", keep=held_plans)
+        final = ExecutionPlanCapture.last_plan
+        require(final is not None, f"15d q{q}: no final plan captured")
+        nodes = list(aqe_walk(final, aqe))
+        names = [type(n).__name__ for n in nodes]
+        stages = [n for n in nodes
+                  if isinstance(n, aqe.ShuffleQueryStageExec)]
+        require(stages, f"15d q{q}: no ShuffleQueryStageExec: {names}")
+        require("BroadcastHashJoinExec" in names,
+                f"15d q{q}: no join was demoted to a broadcast: {names}")
+        require(all(s._buckets is None for s in stages),
+                f"15d q{q}: a stage kept its batches after the collect")
+        readers = names.count("CustomShuffleReaderExec")
+        coalesced = coalesced or readers > 0
+        rel = check_tpch(q, df, gold, [])
+        out["15d"][q] = {**sec, "stages": len(stages),
+                         "broadcast_joins":
+                             names.count("BroadcastHashJoinExec"),
+                         "coalesced_readers": readers, "rel": rel}
+        print(f"runtime 15d q{q} with AQE: collect {sec['collect']:.3f} s, "
+              f"{len(stages)} query stages, "
+              f"{names.count('BroadcastHashJoinExec')} broadcast joins, "
+              f"{readers} coalesced readers, rel err {rel:.3g}",
+              flush=True)
+        del df, final, nodes, stages, held_plans
+    require(coalesced, "15d: no query coalesced its partitions")
+    out["15d"]["memory"] = settled_memory(torch, dev, GW, K, before,
+                                          state0, "runtime 15d")
+    out["launches"]["15d"] = launch_counts(GW, K)
+    part_done("15d (AQE)", t_part)
+
+    # 15e. the wrappers under threads, at phase 3's shapes
+    t_part = time.perf_counter()
+    out["15e"] = wrappers_under_threads(torch, dev, GW, K)
+    out["launches"]["15e"] = out["15e"]["launches"]
+    part_done("15e (the kernel wrappers under four threads)", t_part)
+    out["laps"] = laps
+    return out
+
+
+def aqe_walk(node, aqe):
+    """Every node of an adaptive plan, through its stages' exchanges."""
+    yield node
+    kids = list(node.children)
+    if isinstance(node, aqe.ShuffleQueryStageExec):
+        kids.append(node.exchange)
+    elif isinstance(node, aqe.CustomShuffleReaderExec):
+        kids.append(node.stage)
+    for c in kids:
+        yield from aqe_walk(c, aqe)
+
+
+def wrappers_under_threads(torch, dev, GW, K, threads: int = 4,
+                           calls: int = 100) -> dict:
+    """grouped_sum tiers A and B and window_group_sums at phase 3's shapes
+    (2^23 rows and 14 measures at G = 26 and G = 300; 2^14 rows, 17
+    measures, 6 groups), each called `calls` times by each of `threads`
+    threads, interleaved: every result equal to the bit to the same call
+    made alone, and the launch counters grown by exactly threads x calls
+    x 3."""
+    import threading
+
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    g = torch.Generator(device=dev).manual_seed(15)
+    rows = TB.BATCH_CAP
+    vals = [torch.rand(rows, generator=g, device=dev) * 100
+            for _ in range(14)]
+    keys_a = torch.randint(0, 26, (rows,), generator=g, device=dev,
+                           dtype=torch.int32)
+    keys_b = torch.randint(0, 300, (rows,), generator=g, device=dev,
+                           dtype=torch.int32)
+    merge_cap = 1 << 14
+    gid = torch.clamp(torch.arange(merge_cap, device=dev) // 8,
+                      max=5).to(torch.int32)
+    mvals = [torch.rand(merge_cap, generator=g, device=dev) * 1e6
+             for _ in range(17)]
+    calls_of = {
+        "A": lambda: K.grouped_sum(keys_a, vals, rows, n_groups=26,
+                                   capacity=rows),
+        "B": lambda: K.grouped_sum(keys_b, vals, rows, n_groups=300,
+                                   capacity=rows),
+        "W": lambda: (GW.window_group_sums(gid, mvals, out_cap=50,
+                                           capacity=merge_cap),)}
+    alone = {}
+    for name, fn in calls_of.items():
+        alone[name] = fn()
+        if name != "W":
+            require(K.grouped_sum.last_tiers == [name],
+                    f"15e: tier {K.grouped_sum.last_tiers}, expected "
+                    f"{name}")
+    torch.cuda.synchronize(dev)
+    before = launch_counts(GW, K)
+    errors: list = []
+    barrier = threading.Barrier(threads, timeout=60)
+
+    def worker(i: int) -> None:
+        try:
+            barrier.wait()
+            order = ["A", "B", "W"][i % 3:] + ["A", "B", "W"][:i % 3]
+            for _ in range(calls):
+                for name in order:
+                    got = calls_of[name]()
+                    for x, y in zip(got, alone[name]):
+                        if not torch.equal(x, y):
+                            raise RuntimeError(
+                                f"{name} under threads gave other bits")
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(f"thread {i}: {e!r}")
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=worker, args=(i,)) for i in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    require(not any(t.is_alive() for t in ts), "15e: a thread never ended")
+    require(not errors, f"15e: {errors}")
+    after = launch_counts(GW, K)
+    grown = {k: after[k] - before[k] for k in after}
+    require(grown["grouped_sum"] == threads * calls * 2
+            and grown["window_group_sums"] == threads * calls
+            and grown["q1_fused"] == 0,
+            f"15e: launch counters grew by {grown}, expected "
+            f"{threads * calls * 3} in all")
+    print(f"runtime 15e: {threads} threads x {calls} x (grouped_sum tier "
+          f"A, tier B, window_group_sums) at phase 3's shapes in "
+          f"{wall:.2f} s: every result equal to the bit to the call made "
+          f"alone, launches grew by {grown}", flush=True)
+    return {"launches": grown, "wall": wall}
 
 
 def kernel_cases(torch, dev, GW, K):
@@ -3450,8 +4146,8 @@ def main() -> int:
     print(f"phase 10 goldens: {time.perf_counter() - t0:.1f} s",
           flush=True)
     # phase 14c's Q1 golden (sf10_tables' arrays hold no l_tax)
-    gold_q1 = golden_planner({**arrays, "l_tax": tables["lineitem"][
-        "l_tax"].to_numpy()}, TD.days)[0]
+    gold_q1, gold_q6 = golden_planner({**arrays, "l_tax": tables[
+        "lineitem"]["l_tax"].to_numpy()}, TD.days)
     green = arrays["p_green"]
     del arrays
     # one plan per query in phases 7 and 8 (their second, hot plan went
@@ -3571,9 +4267,22 @@ def main() -> int:
     io_b = io_files_phase(torch, dev, tables, gold, gold_parts, GW, K)
     lap("14b (Q3, Q5, Q9 over Parquet, ORC and CSV files)")
     gaps = plan_gaps_phase(torch, dev, tables, gold, gold_q1, GW, K)
-    del tables
     lap("14c (sort-merge join, repartition, cached columnar, sort "
         "aggregate)")
+
+    # 15. the runtime over the same tables: two concurrent TPC-H streams,
+    # admission and the result cache, the watchdog, AQE, the wrappers
+    # under threads; every result against phases 6-9's goldens
+    single_s = sum(sec["collect"] for ph in (joins, parts, rest)
+                   for sec in ph["seconds"].values())
+    runtime = runtime_phase(
+        torch, dev, tables, {1: gold_q1, 6: gold_q6, **gold, **gold_parts,
+                             **gold_rest},
+        GW, K, (grouped_case, window_case), single_s, orders=HALF_STREAMS)
+    io_reset()
+    del tables
+    lap("15 (the runtime: TPC-H throughput test, admission, result cache, "
+        "watchdog, AQE, wrappers under threads)")
     io_more = {i["label"]: i for i in list(io_b["queries"].values())
                + list(gaps.values())}
     for name, cases in plan_cases("14b and 14c", io_more, window_case,
@@ -3603,18 +4312,20 @@ def main() -> int:
           + f" rows, {time.perf_counter() - t0:.1f} s", flush=True)
     ds = ds_phase(torch, dev, args.seed, GW, K, tables=tables)
     lap(f"11b (TPC-DS 18 queries at {WL_SCALE} store_sales rows)")
+    # 13b: TPC-DS's other 85 and Mortgage; TPCx-BB's 28 run by
+    # scripts/torch_workloads_phase.py (the docstring's Cuts)
     ds_more = ds_phase(torch, dev, args.seed, GW, K, queries=ds_rest(),
                        tables=tables)
-    wl = workloads_scale_phase(torch, dev, args.seed, GW, K, WL_SCALE,
-                               MORTGAGE_LOANS, tables=tables)
     del tables
+    wl = workloads_scale_phase(torch, dev, args.seed, GW, K, WL_SCALE,
+                               MORTGAGE_LOANS, xbb_queries=())
     wl["tpcds"] = ds_more
     for name in ("window_group_sums", "grouped_sum"):
         require(any(v["launches"][name] for suite in wl.values()
                     for v in suite.values()),
-                f"{name} never launched in phase 13")
-    lap(f"13b (TPC-DS 85 and TPCx-BB 28 at {WL_SCALE} store_sales rows, "
-        f"Mortgage at {MORTGAGE_LOANS} loans x {MORTGAGE_MONTHS} months)")
+                f"{name} never launched in phase 13b")
+    lap(f"13b (TPC-DS 85 at {WL_SCALE} store_sales rows, Mortgage at "
+        f"{MORTGAGE_LOANS} loans x {MORTGAGE_MONTHS} months)")
 
     kernels["q1_fused"]["launches"] = step_launches
     kernels["grouped_sum"]["launches"] = engine_launches["grouped_sum"]
@@ -3634,7 +4345,8 @@ def main() -> int:
                 key=lambda kv: query_order(kv[0]))}
         for suite in ("tpcxbb", "mortgage"):
             kernels[name][f"{suite}_launches"] = {
-                q: v["launches"][name] for q, v in wl[suite].items()}
+                q: v["launches"][name] for q, v in wl.get(suite,
+                                                          {}).items()}
     case_keys = ("query", "plan", "shape", "launches", "max_abs_err",
                  "max_rel_err", "ms", "device_ms", "device_ms_by",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3658,6 +4370,13 @@ def main() -> int:
         kernels[name]["memory_cases"] = [
             {k: c[k] for k in case_keys if k in c} for c in cases]
     kernels["q1_fused"]["memory_launches"] = {}
+    for name in kernels:
+        kernels[name]["runtime_launches"] = {
+            part: v[name] for part, v in runtime["launches"].items()}
+    for name in ("window_group_sums", "grouped_sum"):
+        kernels[name]["runtime_cases"] = [
+            {k: runtime["15a"]["cases"][name][k] for k in case_keys
+             if k in runtime["15a"]["cases"][name]}]
     for name, key in (("window_group_sums", "window_case"),
                       ("grouped_sum", "grouped_case")):
         kernels[name]["tpcds_cases"] = [
@@ -3667,7 +4386,7 @@ def main() -> int:
             {"suite": suite, **{k: v[key][k] for k in case_keys
                                 if k in v[key]}}
             for suite in ("tpcds", "tpcxbb", "mortgage")
-            for v in wl[suite].values() if key in v]
+            for v in wl.get(suite, {}).values() if key in v]
     print(f"like over {like['rows']} rows: {like['ms']:.4f} ms "
           f"(Contains {like['contains_ms']:.4f} ms), same rows as "
           f"Contains and the p_name green mask", flush=True)
@@ -3677,7 +4396,8 @@ def main() -> int:
             "join_queries_launches", "join_cases", "etl_launches",
             "etl_cases", "tpcds_launches", "tpcds_cases", "memory_launches",
             "memory_cases", "tpcxbb_launches", "mortgage_launches",
-            "workload_cases", "io_launches", "io_cases")
+            "workload_cases", "io_launches", "io_cases",
+            "runtime_launches", "runtime_cases")
     line = {"kernels": [{k: v[k] for k in keys if k in v}
                         for v in kernels.values()]}
     print(json.dumps(line), flush=True)

@@ -289,6 +289,154 @@ OOCORE_RUN_REPLICAS = conf(
     "cost spill-tier capacity, not HBM.")
 
 
+# --- query watchdog (utils/watchdog.py) --------------------------------------
+WATCHDOG_ENABLED = conf(
+    "spark.rapids.sql.watchdog.enabled", True,
+    "Detect hung queries: every long-lived activity (prefetch "
+    "producers, AQE stage fills, out-of-core merge passes, the first "
+    "kernel build) registers a progress heartbeat; a scanner thread "
+    "that sees no progress past the activity's deadline class emits "
+    "one diagnostic dump and cancels the query cooperatively, raising "
+    "a descriptive TpuQueryTimeout instead of hanging forever.")
+WATCHDOG_POLL_INTERVAL = conf(
+    "spark.rapids.sql.watchdog.pollInterval", 1.0,
+    "Seconds between watchdog scans of registered heartbeats.  Bounds "
+    "detection latency at deadline + pollInterval.")
+WATCHDOG_TASK_TIMEOUT = conf(
+    "spark.rapids.sql.watchdog.taskTimeout", 300.0,
+    "Deadline (seconds) for task-class activities: prefetch producer "
+    "loops, AQE stage fills, out-of-core merge passes, admission-queue "
+    "waits.  An activity making no progress for this long is declared "
+    "hung and the query is cancelled with a diagnostic dump.")
+WATCHDOG_COLLECTIVE_TIMEOUT = conf(
+    "spark.rapids.sql.watchdog.collectiveTimeout", 120.0,
+    "Deadline (seconds) for collective-class activities (multi-device "
+    "exchange dispatches; none in a one-card process yet).")
+WATCHDOG_COMPILE_TIMEOUT = conf(
+    "spark.rapids.sql.watchdog.compileTimeout", 600.0,
+    "Deadline (seconds) for kernel builds: the nvcc runs of "
+    "ops/cuda_build.py.")
+WATCHDOG_DUMP_ON_TIMEOUT = conf(
+    "spark.rapids.sql.watchdog.dumpOnTimeout", True,
+    "Emit one diagnostic dump (all thread stacks, semaphore holders, "
+    "scheduler and prefetch state, device memory, hang-injection "
+    "state) when the watchdog declares a timeout; the dump rides on "
+    "the raised TpuQueryTimeout and is logged at ERROR.")
+HANG_INJECT_SITE = conf(
+    "spark.rapids.memory.faultInjection.hangSite", "",
+    "TEST ONLY: inject a hang at the named site so watchdog "
+    "detection, cancellation and resource release are testable "
+    "without a real wedge.  Sites: producer (prefetch producer loop), "
+    "oocore-merge (an out-of-core merge pass), compile (the first "
+    "kernel build).  The injected hang blocks until the query's "
+    "CancelToken fires.  Empty disables.")
+HANG_INJECT_AFTER = conf(
+    "spark.rapids.memory.faultInjection.hangAfterBatches", 0,
+    "TEST ONLY: the injected hang engages after this many units of "
+    "progress (batches produced, merge groups, builds started) at the "
+    "configured hangSite.")
+SLOW_INJECT_SITE = conf(
+    "spark.rapids.memory.faultInjection.slowSite", "",
+    "TEST ONLY: inject a seeded, cancellable delay at the named site "
+    "(the slow sibling of hangSite).  Empty disables.")
+SLOW_INJECT_FACTOR = conf(
+    "spark.rapids.memory.faultInjection.slowFactor", 0.0,
+    "TEST ONLY: slowdown multiplier for slowSite: each unit of work "
+    "sleeps (slowFactor - 1) x slowUnitMs.  <= 1 disables.")
+SLOW_INJECT_SEED = conf(
+    "spark.rapids.memory.faultInjection.slowSeed", 0,
+    "TEST ONLY: seed for the slow injector's +/-25% delay jitter.")
+SLOW_INJECT_VICTIM = conf(
+    "spark.rapids.memory.faultInjection.slowVictim", "",
+    "TEST ONLY: executor id the slow injector targets; empty slows "
+    "every caller that reaches the site.")
+SLOW_INJECT_UNIT_MS = conf(
+    "spark.rapids.memory.faultInjection.slowUnitMs", 20.0,
+    "TEST ONLY: nominal per-unit work time (ms) the slowFactor "
+    "multiplies.")
+
+# --- concurrent multi-query serving (exec/scheduler.py) ----------------------
+SCHED_ENABLED = conf(
+    "spark.rapids.sql.scheduler.enabled", True,
+    "Admission-control concurrent queries against the accounted device "
+    "memory budget: each top-level collect declares a budget estimate "
+    "(scheduler.queryBudgetBytes) and is admitted only while the sum "
+    "of admitted budgets fits the device budget and fewer than "
+    "scheduler.maxConcurrentQueries queries are in flight; otherwise "
+    "it waits FIFO in a bounded queue and is shed with a descriptive "
+    "TpuQueryRejected when the queue is full.")
+SCHED_MAX_CONCURRENT = conf(
+    "spark.rapids.sql.scheduler.maxConcurrentQueries", 4,
+    "Cap on concurrently ADMITTED queries per process.  Also the "
+    "divisor for the default per-query budget when queryBudgetBytes "
+    "is 0.")
+SCHED_QUERY_BUDGET = conf(
+    "spark.rapids.sql.scheduler.queryBudgetBytes", 0,
+    "Device bytes a query declares at admission, charged against the "
+    "DeviceManager admission ledger for the query's lifetime.  0 "
+    "derives an equal share: device budget / maxConcurrentQueries.")
+SCHED_QUEUE_DEPTH = conf(
+    "spark.rapids.sql.scheduler.queueDepth", 32,
+    "Bound on queries waiting in the admission queue.  A query "
+    "arriving at a full queue is rejected with TpuQueryRejected.")
+SCHED_QUEUE_TIMEOUT = conf(
+    "spark.rapids.sql.scheduler.queueTimeout", 120.0,
+    "Seconds a query may wait in the admission queue before it is "
+    "shed with TpuQueryRejected.")
+RESULT_CACHE_ENABLED = conf(
+    "spark.rapids.sql.scheduler.resultCache.enabled", False,
+    "Cache collected query results keyed by (plan structural "
+    "fingerprint, source-data identity, session-conf fingerprint): a "
+    "hit returns the cached result bit-exactly without touching the "
+    "device.  Off by default: in-memory sources are keyed by object "
+    "identity, so callers that mutate source data in place must leave "
+    "this off.")
+RESULT_CACHE_MAX_BYTES = conf(
+    "spark.rapids.sql.scheduler.resultCache.maxBytes", 268435456,
+    "Byte bound on the result cache (LRU eviction; host memory).  A "
+    "single result larger than this is never cached.")
+
+# --- async pipelined execution (exec/pipeline.py) ----------------------------
+PIPELINE_ENABLED = conf(
+    "spark.rapids.sql.pipeline.enabled", True,
+    "Overlap pipeline stages with bounded background prefetch: at "
+    "pipeline breaks (scan->compute, both sides of a shuffle exchange, "
+    "coalesce boundaries, AQE stage materialization) a producer thread "
+    "runs the upstream iterator prefetchDepth batches ahead while the "
+    "consumer computes.  Producers enqueue on their creator's CUDA "
+    "stream, and one blocked on a full queue never holds the "
+    "semaphore.")
+PIPELINE_PREFETCH_DEPTH = conf(
+    "spark.rapids.sql.pipeline.prefetchDepth", 2,
+    "How many batches a pipeline producer may run ahead of its "
+    "consumer at each pipeline break.  Bounds peak device memory at "
+    "~depth extra batches per break; 0 disables prefetch.")
+
+# --- adaptive query execution and broadcast joins (plan/aqe.py) -------------
+ADAPTIVE_ENABLED = conf(
+    "spark.sql.adaptive.enabled", False,
+    "Re-plan at query-stage boundaries from runtime shuffle statistics.")
+COALESCE_PARTITIONS_ENABLED = conf(
+    "spark.sql.adaptive.coalescePartitions.enabled", True,
+    "Merge adjacent small reduce partitions after a shuffle stage.")
+ADVISORY_PARTITION_SIZE = conf(
+    "spark.sql.adaptive.advisoryPartitionSizeInBytes", 64 * 1024 * 1024,
+    "Target post-shuffle partition size for AQE partition coalescing.")
+AUTO_BROADCAST_THRESHOLD = conf(
+    "spark.sql.autoBroadcastJoinThreshold", 10 * 1024 * 1024,
+    "Max build-side bytes for the AQE shuffled-hash-join to "
+    "broadcast-join demotion (-1 disables).")
+BROADCAST_TIMEOUT = conf(
+    "spark.sql.broadcastTimeout", 300,
+    "Seconds allowed for materializing a broadcast build side before "
+    "the exchange fails.")
+MAX_BROADCAST_TABLE_BYTES = conf(
+    "spark.rapids.tpu.maxBroadcastTableBytes", 8 << 30,
+    "Hard cap on a broadcast build side's device bytes; exceeding it "
+    "fails the query with a clear error instead of exhausting device "
+    "memory (Spark's 8GB broadcast-table limit).")
+
+
 def op_enable_key(kind: str, name: str) -> str:
     """Per-operator enable key ("expression" or "exec" kind)."""
     return f"spark.rapids.sql.{kind}.{name}"
@@ -319,6 +467,16 @@ class RapidsConf:
     def __getitem__(self, entry: ConfEntry) -> Any:
         return self.get(entry.key, entry.default)
 
+    def is_set(self, key: str) -> bool:
+        """True when `key` was given explicitly (not a default)."""
+        return key in self._settings
+
+    def fingerprint(self) -> tuple:
+        """Hashable identity of every explicit setting: the result
+        cache's conf component, so two sessions differing in any setting
+        never serve each other's cached results."""
+        return tuple(sorted((k, repr(v)) for k, v in self._settings.items()))
+
     def set(self, key: str, value: Any) -> "RapidsConf":
         """A copy with `key` set to `value`."""
         s = dict(self._settings)
@@ -330,8 +488,15 @@ _active = threading.local()
 
 
 def get_active_conf() -> RapidsConf:
+    """This thread's session conf; a thread with none that works for a
+    query (a prefetch producer, an AQE stage fill) reads that query's
+    conf snapshot, never the defaults."""
     c = getattr(_active, "conf", None)
     if c is None:
+        from spark_rapids_tpu_torch.exec import scheduler as S
+        qc = S.current()
+        if qc is not None:
+            return qc.conf
         c = RapidsConf()
         _active.conf = c
     return c

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import threading
 from typing import Iterator, Optional, Sequence
 
 import torch
@@ -61,16 +62,17 @@ def make_eval_context(columns: list[ColumnVector], capacity: int,
 
 _EXEC_IDS = itertools.count()
 
-#: the execution a plan is in: "epoch" grows with every attempt of an
-#: outermost collect (CommonSubplanExec caches are valid for one), and
-#: "depth" counts nested collects (a range exchange's sample sort)
-_EXECUTION = {"epoch": 0, "depth": 0}
-
 
 def new_execution() -> None:
-    """Start a new execution: shared-subplan caches of earlier ones stop
-    being valid."""
-    _EXECUTION["epoch"] += 1
+    """Start a new execution attempt of the current query: its
+    shared-subplan caches of earlier attempts stop being valid.  Epochs
+    are minted from one process-wide counter but held by the query
+    (exec/scheduler.py), so a concurrent query's attempt never
+    invalidates this one's caches."""
+    from spark_rapids_tpu_torch.exec import scheduler as S
+    qc = S.current()
+    if qc is not None:
+        qc.epoch = S.new_epoch()
 
 
 class TpuExec:
@@ -80,6 +82,10 @@ class TpuExec:
         self._children = list(children)
         self.metrics = M.MetricSet()
         self.exec_id = next(_EXEC_IDS)
+        #: serializes collects over this plan INSTANCE (exec/scheduler.py
+        #: CollectScope): its shared-subplan caches and metrics are
+        #: instance state; distinct instances run concurrently
+        self._plan_lock = threading.Lock()
 
     @property
     def children(self) -> list["TpuExec"]:
@@ -128,24 +134,50 @@ class TpuExec:
         """Materialize to one batch: the sync boundary where deferred
         fast-path checks resolve.  On FastPathInvalid, disable or escalate
         the fast paths at fault and re-execute (plans are pure), up to
-        MAX_DEOPT_RETRIES times."""
-        outermost = _EXECUTION["depth"] == 0
-        _EXECUTION["depth"] += 1
-        try:
-            return self._collect_attempts(outermost)
-        finally:
-            _EXECUTION["depth"] -= 1
-            if outermost:
-                self.release_execution_state()
+        MAX_DEOPT_RETRIES times.
 
-    def _collect_attempts(self, outermost: bool) -> ColumnarBatch:
+        Concurrency: the outermost collect on a thread with no live
+        QueryContext creates one (exec/scheduler.py CollectScope): its
+        own conf snapshot, CancelToken, deferred-check registry, epoch
+        and an admission slot, so top-level collects from different
+        sessions run concurrently, each isolated."""
+        from spark_rapids_tpu_torch.exec import scheduler as S
+        from spark_rapids_tpu_torch.utils import watchdog as W
+        if S.current() is None:
+            # a fresh fallback token: an earlier query-less cancellation
+            # must not bleed in
+            W.begin_query()
+        scope = S.CollectScope(self)
+        try:
+            return self._collect_attempts()
+        finally:
+            if scope.finish_collect():
+                # only the OUTERMOST collect drops shared-subtree caches:
+                # a nested collect (a range exchange's sample sort) must
+                # not clear the enclosing query's
+                self.release_execution_state()
+                qs = W.query_stats()
+                if qs["timeouts"] or qs["cancels"]:
+                    # charge watchdog activity to the plan root only on a
+                    # tripped query
+                    self.metrics.add(M.NUM_WATCHDOG_TIMEOUTS,
+                                     qs["timeouts"])
+                    self.metrics.add(M.NUM_CANCELS, qs["cancels"])
+                    self.metrics.add(M.WATCHDOG_DUMPS, qs["dumps"])
+                    self.metrics.set_max(M.SLOWEST_HEARTBEAT,
+                                         qs["slowest_heartbeat_ms"])
+            scope.close()
+
+    def _collect_attempts(self) -> ColumnarBatch:
+        from spark_rapids_tpu_torch.utils import watchdog as W
         mark = CK.snapshot()
         for attempt in range(self.MAX_DEOPT_RETRIES + 1):
+            # attempt boundary = cancellation point: a cancelled query
+            # does not start another execution
+            W.check_cancelled()
             final = attempt == self.MAX_DEOPT_RETRIES
             if attempt:
                 CK.set_retrying(final)
-            if outermost:
-                new_execution()
             try:
                 out = self._collect_once().dense()
                 checks = list(out.checks) + CK.drain_since(mark)
@@ -167,6 +199,13 @@ class TpuExec:
         raise AssertionError("unreachable")
 
     def _collect_once(self) -> ColumnarBatch:
+        from spark_rapids_tpu_torch.exec import scheduler as S
+        qc = S.current()
+        if qc is not None and qc.collect_depth <= 1:
+            # a new top-level attempt: shared subtrees run again.  A
+            # nested collect (a range exchange's sample sort) must not
+            # bump the epoch of the enclosing query
+            new_execution()
         batches = list(self.execute_columnar())
         if not batches:
             return empty_batch(self.output_schema(), self.device())
@@ -203,11 +242,17 @@ class TpuExec:
         consumers): pressure there spills + retries in place and the
         floor fallback handles the rest."""
         from spark_rapids_tpu_torch.memory import retry as R
+        from spark_rapids_tpu_torch.utils import watchdog as W
         label = label or self.name()
+        # batch boundary = cancellation point: a cancelled query stops
+        # dispatching new work here
+        W.check_cancelled()
         if split:
-            yield from R.with_split_retry(
-                batch, body, metrics=self.metrics,
-                out_bytes_fn=out_bytes_fn, label=label)
+            for out in R.with_split_retry(
+                    batch, body, metrics=self.metrics,
+                    out_bytes_fn=out_bytes_fn, label=label):
+                W.check_cancelled()
+                yield out
         else:
             nbytes = (out_bytes_fn or R.estimate_batch_bytes)(batch)
             yield R.with_retry(lambda: body(batch), out_bytes=nbytes,
@@ -261,7 +306,8 @@ class CommonSubplanExec(TpuExec):
         return self.child.coalesce_after
 
     def execute_partitions(self):
-        epoch = _EXECUTION["epoch"]
+        from spark_rapids_tpu_torch.exec import scheduler as S
+        epoch = S.current_epoch()
         if self._epoch != epoch:
             self._cached = [list(it)
                             for it in self.child.execute_partitions()]

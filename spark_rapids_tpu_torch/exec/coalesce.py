@@ -110,6 +110,8 @@ class CoalesceBatchesExec(UnaryExecBase):
         return f"CoalesceBatchesExec({self.goal})"
 
     def process_partition(self, batches):
+        # the reference prefetches here; the port prefetches only at the
+        # file scan (exec/pipeline.py says why)
         def counted(it):
             for b in it:
                 self.metrics.add(M.NUM_INPUT_BATCHES, 1)

@@ -67,6 +67,7 @@ from spark_rapids_tpu_torch.ops.sort_encode import (encode_key_bits,
                                                     packed_lexsort,
                                                     segment_boundaries)
 from spark_rapids_tpu_torch.utils import metrics as M
+from spark_rapids_tpu_torch.utils import watchdog as W
 
 
 class JoinType(enum.Enum):
@@ -543,7 +544,7 @@ class HashJoinExec(TpuExec):
         batches = self._collect_build_batches()
         conf = C.get_active_conf()
         est = 2 * sum(b.device_size_bytes() for b in batches)
-        if OC.should_go_external(est, conf):
+        if self._grace_eligible() and OC.should_go_external(est, conf):
             self.lane = "grace-hash"
             probe_src = (pb for it in self._probe.execute_partitions()
                          for pb in it if pb.maybe_nonempty())
@@ -562,6 +563,9 @@ class HashJoinExec(TpuExec):
         yield from self._join_stream(
             build, (pb for it in self._probe.execute_partitions()
                     for pb in it))
+
+    def _grace_eligible(self) -> bool:
+        return True
 
     # -- the grace-hash out-of-core lane ----------------------------------
     #: base seed of the grace partition hash (the reference's) —
@@ -634,8 +638,14 @@ class HashJoinExec(TpuExec):
         except BaseException:
             _free_all(build_parts)
             raise
+        hb = W.heartbeat(f"{self.name()}.oocore-merge", kind="task",
+                         conf=conf)
         try:
             for p in range(nparts):
+                # one partition pair = one unit of watched progress
+                W.check_cancelled()
+                W.maybe_hang("oocore-merge", conf)
+                hb.beat()
                 bruns, pruns = build_parts[p], probe_parts[p]
                 if not bruns and not pruns:
                     continue
@@ -669,8 +679,42 @@ class HashJoinExec(TpuExec):
                      if b.maybe_nonempty()])
                 yield from self._join_stream(build, self._read_runs(pruns))
         finally:
+            hb.close()
             _free_all(build_parts)
             _free_all(probe_parts)
+
+
+class BroadcastHashJoinExec(HashJoinExec):
+    """The same join core with its build side from a
+    BroadcastExchangeExec, so every probe partition reuses one broadcast
+    batch (reference GpuBroadcastHashJoinExec)."""
+
+    def _broadcast_build(self) -> bool:
+        from spark_rapids_tpu_torch.shuffle.exchange import \
+            BroadcastExchangeExec
+        return isinstance(self._build, BroadcastExchangeExec)
+
+    def describe(self):
+        return (f"BroadcastHashJoinExec({self.join_type.value}, "
+                f"keys={len(self.left_keys)})")
+
+    def children_coalesce_goal(self):
+        # a broadcast build side already is one batch
+        if not self._broadcast_build():
+            return super().children_coalesce_goal()
+        return [None, None]
+
+    def _collect_build_batches(self) -> list[ColumnarBatch]:
+        if self._broadcast_build():
+            b = self._build.broadcast_batch()
+            return [b] if b.maybe_nonempty() else []
+        return super()._collect_build_batches()
+
+    def _grace_eligible(self) -> bool:
+        # a broadcast build side is already whole (and shared): grace
+        # partitioning it here would bound nothing the broadcast did not
+        # already pay
+        return not self._broadcast_build()
 
 
 def _drain(batches: list) -> Iterator[ColumnarBatch]:

@@ -178,8 +178,14 @@ class TpuFileSourceScanExec(TpuExec):
                 f"({self.scan.path}{pf})")
 
     def execute_partitions(self) -> list[Iterator[ColumnarBatch]]:
-        return [self._partition_iter(p) for p in self.scan.partitions] \
-            or [iter(())]
+        # scan->compute pipeline break: a producer decodes and uploads
+        # batch k+1 while the consumer works on batch k (started lazily,
+        # so partitions do not all begin at once); the prefetch conf is
+        # the running query's, not the plan-time snapshot
+        from spark_rapids_tpu_torch.exec.pipeline import maybe_prefetch
+        return [maybe_prefetch(self._partition_iter(p), label="scan",
+                               metrics=self.metrics)
+                for p in self.scan.partitions] or [iter(())]
 
     def _partition_iter(self, part: FilePartition
                         ) -> Iterator[ColumnarBatch]:

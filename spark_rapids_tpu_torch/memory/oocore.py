@@ -261,33 +261,40 @@ def merge_spilled(runs: list, merge: Callable[[list], ColumnarBatch], *,
     data.  Runs it reads are freed here; `runs`, updated in place, is
     the caller's to free on error."""
     from spark_rapids_tpu_torch.memory.retry import TpuOutOfCoreError
+    from spark_rapids_tpu_torch.utils import watchdog as W
     conf = conf or C.get_active_conf()
     window = window_bytes(conf)
     max_passes = max(1, int(conf[C.OOCORE_MAX_RECURSION]))
     passes = 0
-    while len(runs) > 1:
-        if passes >= max_passes:
-            raise TpuOutOfCoreError(
-                f"{label}: {what} still spans {len(runs)} runs after "
-                f"{passes} merge passes (spark.rapids.memory.oocore."
-                f"maxRecursionDepth={max_passes}) — the merge window "
-                f"({window} bytes) is too small for the run count; raise "
-                f"the device memory budget or oocore.windowFraction")
-        passes += 1
-        if metrics is not None:
-            metrics.add(M.NUM_EXTERNAL_MERGE_PASSES, 1)
-        groups = merge_groups(runs, window)
-        next_runs = []
-        for group in groups:
-            merged = merge([r.read(metrics) for r in group])
-            for r in group:
-                r.free()
-            if len(groups) == 1:
-                return merged  # final merge: no re-spill
-            next_runs.append(spill_run(merged.dense(), label=label,
-                                       metrics=metrics, conf=conf))
-            runs.append(next_runs[-1])  # the caller frees on error
-        runs[:] = next_runs
+    # the merge passes are watched: a group that makes no progress past
+    # the task deadline cancels the query with a dump
+    with W.heartbeat(f"{label}.oocore-merge", kind="task", conf=conf) as hb:
+        while len(runs) > 1:
+            if passes >= max_passes:
+                raise TpuOutOfCoreError(
+                    f"{label}: {what} still spans {len(runs)} runs after "
+                    f"{passes} merge passes (spark.rapids.memory.oocore."
+                    f"maxRecursionDepth={max_passes}) — the merge window "
+                    f"({window} bytes) is too small for the run count; "
+                    f"raise the device memory budget or "
+                    f"oocore.windowFraction")
+            passes += 1
+            if metrics is not None:
+                metrics.add(M.NUM_EXTERNAL_MERGE_PASSES, 1)
+            groups = merge_groups(runs, window)
+            next_runs = []
+            for group in groups:
+                W.maybe_hang("oocore-merge", conf)
+                merged = merge([r.read(metrics) for r in group])
+                for r in group:
+                    r.free()
+                hb.beat()
+                if len(groups) == 1:
+                    return merged  # final merge: no re-spill
+                next_runs.append(spill_run(merged.dense(), label=label,
+                                           metrics=metrics, conf=conf))
+                runs.append(next_runs[-1])  # the caller frees on error
+            runs[:] = next_runs
     batch = runs[0].read(metrics)
     runs[0].free()
     return batch

@@ -21,9 +21,10 @@ the light query has fewer holds, its waiter is next.  `snapshot()`
 exposes the holder table, per-query holds, the live waiter list, and
 `longestWaitMs` so a diagnostic dump shows who is starving whom.
 
-Not ported yet: the scheduler's current query (`exec/scheduler.py`
-`S.current`, a task's group falls back to the task itself), the
-watchdog's cancellable waits and the profile's wait events.
+A task with no `query_ctx` of its own charges the thread's current query
+(`exec/scheduler.py` `S.current`), else itself.  Permit waits are bounded
+polls that honor the query's cancel token (utils/watchdog.py).  Not
+ported: the profile's wait events.
 """
 from __future__ import annotations
 
@@ -111,6 +112,9 @@ class TpuSemaphore:
         """The fair-share group a task charges its permit to: its
         query, else (driver-less/test tasks) the task itself."""
         qc = getattr(ctx, "query_ctx", None)
+        if qc is None:
+            from spark_rapids_tpu_torch.exec import scheduler as S
+            qc = S.current()
         if qc is not None:
             return qc.query_id
         return ("task", ctx.task_attempt_id)
@@ -129,8 +133,10 @@ class TpuSemaphore:
                                   w.seq))
 
     def _wait_for_permit(self, group, reacquire: bool = False) -> None:
-        """Block until this waiter is granted a permit; on return one
-        permit is held and charged to `group`."""
+        """Block (cancellably) until this waiter is granted a permit; on
+        return one permit is held and charged to `group`."""
+        from spark_rapids_tpu_torch.utils import watchdog as W
+        token = W.current_token()
         w = _Waiter(next(self._seq), group, reacquire)
         blocked = False
         with self._cv:
@@ -138,6 +144,8 @@ class TpuSemaphore:
             try:
                 while self._permits <= 0 or self._select_next() is not w:
                     blocked = True
+                    if token.cancelled:
+                        token.check()   # raises TpuQueryTimeout
                     self._cv.wait(_POLL_S)
                 self._permits -= 1
                 self._group_holds[group] = \
@@ -308,7 +316,13 @@ class TpuSemaphore:
         queue-position-preserving: a task parked here outranks every
         waiter that arrived after it (`_select_next` serves reacquire
         waiters first), so spilling never costs a query its turn.
-        No-op outside a task context or when the task holds nothing."""
+        No-op outside a task context or when the task holds nothing.
+
+        A task may run on several threads (a prefetch producer shares its
+        creator's task): if another thread of the task took a permit
+        again while this one was yielded, the task already holds one, and
+        this thread adds its refcount to it instead of waiting for a
+        second permit (which the task's own hold would block forever)."""
         ctx = ctx or TaskContext.get()
         if ctx is None:
             yield
@@ -322,8 +336,30 @@ class TpuSemaphore:
         try:
             yield
         finally:
-            if n > 0:
+            if n > 0 and not self._rejoin(tid, n):
                 self._wait_for_permit(group, reacquire=True)
                 with self._cv:
-                    self._refs[tid] = n
-                    self._holder_group[tid] = group
+                    if self._refs.get(tid, 0) > 0:
+                        # a sibling thread re-took the task's permit while
+                        # this one waited: give the second one back
+                        self._refs[tid] += n
+                        self._permits += 1
+                        left = self._group_holds.get(group, 0) - 1
+                        if left > 0:
+                            self._group_holds[group] = left
+                        else:
+                            self._group_holds.pop(group, None)
+                        self._cv.notify_all()
+                    else:
+                        self._refs[tid] = n
+                        self._holder_group[tid] = group
+
+    def _rejoin(self, tid: int, n: int) -> bool:
+        """Add `n` to task `tid`'s refcount if the task holds a permit
+        already (taken by another of its threads); False if it holds
+        none."""
+        with self._cv:
+            if self._refs.get(tid, 0) > 0:
+                self._refs[tid] += n
+                return True
+        return False

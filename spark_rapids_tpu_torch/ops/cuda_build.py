@@ -10,11 +10,15 @@ its argument types declared.  Nothing here runs at import.
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+log = logging.getLogger("spark_rapids_tpu_torch.cuda_build")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -23,6 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
+#: poll granularity of a build waiter (cancellation and its deadline)
+_POLL_S = 0.05
 _LIBS: dict = {}
 _FNS: dict = {}  # (source, symbol) -> loaded ctypes function
 
@@ -55,33 +61,61 @@ def build(names=SOURCES) -> dict:
     """Compile the stale sources among `names`, one nvcc process each,
     all started together.  Returns {name: compiler output} for what was
     built; raises with the compiler's output if any build fails."""
-    with _LOCK:
+    from spark_rapids_tpu_torch.utils import watchdog as W
+    if not any(_stale(n) for n in names):
+        return {}
+    # single flight: one thread builds while the others wait, but a
+    # waiter whose peer's build outlives the compile deadline builds
+    # itself (a benign double build) instead of waiting on a wedge
+    deadline = time.monotonic() + W.deadline_for("compile")
+    locked = _LOCK.acquire(timeout=_POLL_S)
+    while not locked and time.monotonic() < deadline:
+        W.check_cancelled()
+        locked = _LOCK.acquire(timeout=_POLL_S)
+    try:
         todo = [n for n in names if _stale(n)]
         if not todo:
             return {}
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = nvcc_path()
-        procs = {}
-        for n in todo:
-            tmp = BUILD_DIR / f"lib{n}.so.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{n}.cu")]
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT,
-                                         text=True), tmp)
-        logs, failed = {}, []
-        for n, (proc, tmp) in procs.items():
-            out, _ = proc.communicate()
-            logs[n] = out
-            if proc.returncode:
-                failed.append(f"nvcc failed for {n}.cu "
-                              f"(exit {proc.returncode}):\n{out}")
-                tmp.unlink(missing_ok=True)
-            else:
-                os.replace(tmp, lib_path(n))
-        if failed:
-            raise RuntimeError("\n".join(failed))
-        return logs
+        if not locked:
+            log.warning("kernel build of %s waited past the compile "
+                        "deadline on another thread's build; building "
+                        "here", todo)
+        # the builds are watched under the compile deadline; the
+        # "compile" hang site stands for the reference's XLA compile
+        with W.heartbeat(f"compile:{','.join(todo)}", kind="compile"):
+            W.maybe_hang("compile")
+            return _run_nvcc(todo)
+    finally:
+        if locked:
+            _LOCK.release()
+
+
+def _run_nvcc(todo: list) -> dict:
+    """Run one nvcc per source of `todo` at once."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for n in todo:
+        tmp = BUILD_DIR / (f"lib{n}.so.{os.getpid()}."
+                           f"{threading.get_ident()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT,
+                                     text=True), tmp)
+    logs, failed = {}, []
+    for n, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        logs[n] = out
+        if proc.returncode:
+            failed.append(f"nvcc failed for {n}.cu "
+                          f"(exit {proc.returncode}):\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, lib_path(n))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
 
 
 def function(name: str, symbol: str, argtypes: list,

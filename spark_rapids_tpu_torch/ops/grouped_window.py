@@ -20,24 +20,28 @@ import torch
 from spark_rapids_tpu_torch.ops import cuda_build
 from spark_rapids_tpu_torch.ops.kernels import (
     _INT, _VP, MAX_MEASURES, _chunks, _column_pointers, _device_scope,
-    _on_cuda, _pointer_array, _raw_stream)
+    _on_cuda, _pointer_array, _raw_stream, count_launch, launch_lock)
 
 #: rows per block of csrc/window_group_sums.cu (kTileRows)
 WINDOW_TILE_ROWS = 1024
 
-# device index -> [int32 tile flags, f32 tail partials, last epoch]
+# (device index, stream) -> [int32 tile flags, f32 tail partials, last
+# epoch]
 _TILE_STATE: dict = {}
 
 
-def _tile_state(dev: torch.device, tiles: int) -> tuple:
-    """The device's tile flags and tail-partial scratch (room for `tiles`
-    tiles of MAX_MEASURES) and a new epoch for one launch.  The flags are
-    zeroed only when they are made, and every launch flags with an epoch
-    no earlier launch used; launches on one stream reuse both in turn."""
-    state = _TILE_STATE.get(dev.index)
+def _tile_state(dev: torch.device, tiles: int, stream: int = 0) -> tuple:
+    """The (`dev`, `stream`) tile flags and tail-partial scratch (room for
+    `tiles` tiles of MAX_MEASURES) and a new epoch for one launch.  The
+    flags are zeroed only when they are made, and every launch flags with
+    an epoch no earlier launch used; launches on one stream reuse both in
+    turn.  The caller holds launch_lock(dev) until its launch is
+    enqueued."""
+    key = (dev.index, stream)
+    state = _TILE_STATE.get(key)
     if state is None or state[0].numel() < tiles or state[2] >= 2**31 - 2:
         size = max(tiles, 1024 if state is None else 2 * state[0].numel())
-        state = _TILE_STATE[dev.index] = [
+        state = _TILE_STATE[key] = [
             torch.zeros(size, dtype=torch.int32, device=dev),
             torch.empty(size * MAX_MEASURES, dtype=torch.float32,
                         device=dev), 0]
@@ -71,16 +75,16 @@ def window_group_sums(gid, vals, *, out_cap: int, capacity: int
     stream = _raw_stream(dev)
     out_ptr = out.data_ptr()
     off = 0
-    with _device_scope(dev):
+    with _device_scope(dev), launch_lock(dev):
         for chunk in _chunks(ptrs[1:], MAX_MEASURES):
             ptr_array = _pointer_array(chunk)
-            flags, tail, epoch = _tile_state(dev, tiles)
+            flags, tail, epoch = _tile_state(dev, tiles, stream)
             err = launch(ptrs[0], ptr_array.buffer_info()[0], len(chunk),
                          capacity, out_cap, out_ptr + 4 * off, m,
                          tail.data_ptr(), flags.data_ptr(), epoch, int(vec),
                          stream)
             cuda_build.check(err, "window_group_sums launch")
-            window_group_sums.launches += 1
+            count_launch(window_group_sums)
             off += len(chunk)
     return out
 

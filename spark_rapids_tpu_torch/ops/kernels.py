@@ -6,12 +6,22 @@ CPU; for CUDA tensors it launches its kernel (csrc/*.cu, built on first
 use) or raises.  Each wrapper counts its kernel launches in a plain integer
 attribute (`q1_fused.launches`, `grouped_sum.launches`), so a run can show
 that it went through the kernel.
+
+Wrappers are called from several threads at once (prefetch producers,
+concurrent sessions).  Every launch goes on the caller's current stream;
+the state a wrapper reuses across launches (grouped_sum's tier-A ticket
+and scratch, window_group_sums' tile flags) is kept per device and
+stream, and taking it and enqueuing the launch happen under the device's
+launch lock (`launch_lock`), so no other thread can grow and free a
+scratch block between a launch's pointer and its enqueue.  Launch counts
+are bumped under a lock too (`count_launch`).
 """
 from __future__ import annotations
 
 import array
 import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -50,6 +60,28 @@ def _int32_vector(n, dev) -> torch.Tensor:
     # a fill kernel, not a host-to-device copy (which would wait for the
     # stream)
     return torch.full((1,), int(n), dtype=torch.int32, device=dev)
+
+
+_LOCKS_LOCK = threading.Lock()
+_LAUNCH_LOCKS: dict = {}  # device index -> lock
+_COUNT_LOCK = threading.Lock()
+
+
+def launch_lock(dev: torch.device) -> threading.Lock:
+    """The lock a wrapper holds from taking its reused device state to
+    enqueuing the launch that uses it (one per device)."""
+    lock = _LAUNCH_LOCKS.get(dev.index)
+    if lock is None:
+        with _LOCKS_LOCK:
+            lock = _LAUNCH_LOCKS.setdefault(dev.index, threading.Lock())
+    return lock
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`, atomically with respect to other
+    threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def _on_cuda(dev: torch.device, what: str) -> bool:
@@ -110,7 +142,7 @@ def q1_fused(flag, status, qty, price, disc, tax, ship, num_rows, *,
                      batch_rows, int(cutoff), partials.data_ptr(),
                      torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "q1_fused launch")
-    q1_fused.launches += 1
+    count_launch(q1_fused)
     return partials.to(torch.float64).sum(dim=0)
 
 
@@ -230,8 +262,9 @@ H100_SMEM_OPTIN = 232_448
 LANE_TABLE_MIN_WARPS = 4
 _WARPS = 8  # tiers B and C run 256-thread blocks
 
-# device index -> [SM count, opt-in smem per block, tier-A ticket (int32
-# [1], zeroed once; each launch leaves it at 0), tier-A partial scratch]
+# (device index, stream) -> [SM count, opt-in smem per block, tier-A
+# ticket (int32 [1], zeroed once; each launch leaves it at 0), tier-A
+# partial scratch]
 _GS_DEVICE: dict = {}
 _ROW_COUNTS: dict = {}  # (device index, stream, n) -> int32 [1] holding n
 
@@ -271,11 +304,12 @@ def grouped_sum_plan(n_groups: int, n_measures: int, capacity: int,
     return tier, min(sms * _WARPS, -(-capacity // threads)), threads, 0, 0
 
 
-def _grouped_sum_device(dev: torch.device) -> list:
-    """`dev`'s entry of _GS_DEVICE, made on first use; making it also
-    raises the kernels' shared-memory limit on that device.  Launches on
-    one stream reuse the ticket and scratch in turn."""
-    state = _GS_DEVICE.get(dev.index)
+def _grouped_sum_device(dev: torch.device, stream: int) -> list:
+    """The (`dev`, `stream`) entry of _GS_DEVICE, made on first use;
+    making it also raises the kernels' shared-memory limit on that device.
+    Launches on one stream reuse the ticket and scratch in turn; the
+    caller holds launch_lock(dev)."""
+    state = _GS_DEVICE.get((dev.index, stream))
     if state is None:
         init = cuda_build.function("grouped_sum", "grouped_sum_init",
                                    [ctypes.POINTER(ctypes.c_int)] * 2)
@@ -283,7 +317,7 @@ def _grouped_sum_device(dev: torch.device) -> list:
         with torch.cuda.device(dev):
             cuda_build.check(init(ctypes.byref(sms), ctypes.byref(smem)),
                              "grouped_sum init")
-        state = _GS_DEVICE[dev.index] = [
+        state = _GS_DEVICE[(dev.index, stream)] = [
             sms.value, smem.value,
             torch.zeros(1, dtype=torch.int32, device=dev),
             torch.empty(0, dtype=torch.float32, device=dev)]
@@ -334,14 +368,14 @@ def grouped_sum(keys, vals, num_rows, *, n_groups: int, capacity: int):
         "grouped_sum", "grouped_sum_launch",
         [_INT, _VP, _VP, _INT, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
          _INT, _VP, _INT, _VP, _INT, _VP, _VP, _VP])
-    state = _grouped_sum_device(dev)
-    sms, smem_optin, ticket = state[0], state[1], state[2]
     stream = _raw_stream(dev)
-    nrows = _row_count(num_rows, dev, stream)
     m = len(ptrs) - 1
     sums = torch.empty((n_groups, m), dtype=torch.float64, device=dev)
     counts, tiers, off = None, [], 0
-    with _device_scope(dev):
+    with _device_scope(dev), launch_lock(dev):
+        state = _grouped_sum_device(dev, stream)
+        sms, smem_optin, ticket = state[0], state[1], state[2]
+        nrows = _row_count(num_rows, dev, stream)
         for chunk in _chunks(ptrs[1:], MAX_MEASURES) or [[]]:
             mc = len(chunk)
             ptr_array = _pointer_array(chunk)
@@ -375,7 +409,7 @@ def grouped_sum(keys, vals, num_rows, *, n_groups: int, capacity: int):
                          None if cnt is None else cnt.data_ptr(),
                          ticket.data_ptr(), stream)
             cuda_build.check(err, "grouped_sum launch")
-            grouped_sum.launches += 1
+            count_launch(grouped_sum)
             tiers.append(tier)
             if tier == "B":
                 # float64 combine of the per-block partials; counts exact

@@ -139,6 +139,16 @@ class PlanMeta(BaseMeta):
         self._tag_types()
         if self.rule.tag_extra is not None:
             self.rule.tag_extra(self)
+        pinned = self.node.__dict__.pop("_tpu_tag", None)
+        if pinned is not None and not pinned[0] \
+                and self.can_this_be_replaced:
+            # AQE query-stage prep (plan/aqe.py) pinned this node off the
+            # device with whole-plan context a re-tag cannot see.  Used
+            # once: a later accelerate() under another conf must not
+            # inherit it
+            for r in pinned[1] or {"pinned off the GPU by query-stage "
+                                   "prep"}:
+                self.will_not_work_on_gpu(r)
 
     def _tag_types(self) -> None:
         """Type-matrix check."""

@@ -31,7 +31,8 @@ from spark_rapids_tpu_torch.columnar.vector import resolve_device
 from spark_rapids_tpu_torch.exec import basic as B
 from spark_rapids_tpu_torch.exec.aggregate import AggMode, HashAggregateExec
 from spark_rapids_tpu_torch.exec.base import TpuExec
-from spark_rapids_tpu_torch.exec.joins import HashJoinExec, JoinType
+from spark_rapids_tpu_torch.exec.joins import (BroadcastHashJoinExec,
+                                               HashJoinExec, JoinType)
 from spark_rapids_tpu_torch.exec.sort import SortedTopNExec, SortExec
 from spark_rapids_tpu_torch.exprs.base import Alias, Expression, col
 from spark_rapids_tpu_torch.plan import nodes as N
@@ -277,7 +278,13 @@ def _conv_source(meta, kids) -> TpuExec:
     schema = node.output_schema()
     parts = [[batch_from_df(df, schema, meta.device)] if len(df) else []
              for df in node.partitions]
-    return B.LocalBatchSource(parts, schema, device=meta.device)
+    src = B.LocalBatchSource(parts, schema, device=meta.device)
+    # stable identity across plan rebuilds (the result cache's key): the
+    # uploaded batches are new per accelerate(), the session's pandas
+    # partitions are not
+    src.source_identity = getattr(node, "source_identity", None) \
+        or tuple(node.partitions)
+    return src
 
 
 def _conv_range(meta, kids) -> TpuExec:
@@ -437,6 +444,18 @@ def _conv_aggregate(meta, kids) -> TpuExec:
 def _conv_hash_join(meta, kids) -> TpuExec:
     node: N.CpuHashJoin = meta.node
     left, right = kids
+    if node.broadcast:
+        # the build side (the left one of a RIGHT OUTER join) is
+        # collected once and shared by every probe partition
+        from spark_rapids_tpu_torch.shuffle.exchange import \
+            BroadcastExchangeExec
+        if node.join_type == JoinType.RIGHT_OUTER:
+            left = BroadcastExchangeExec(left)
+        else:
+            right = BroadcastExchangeExec(right)
+        return BroadcastHashJoinExec(node.join_type, node.left_keys,
+                                     node.right_keys, left, right,
+                                     node.condition)
     nparts = max(left.output_partition_count(),
                  right.output_partition_count())
     if nparts > 1:
@@ -451,12 +470,6 @@ def _conv_hash_join(meta, kids) -> TpuExec:
 
 def _tag_join(meta) -> None:
     node: N.CpuHashJoin = meta.node
-    if node.broadcast:
-        # neither a device lane nor a quiet CPU island: the broadcast
-        # exchange and its join come with the distribution work
-        raise NotImplementedError(
-            "BroadcastHashJoinExec is not ported yet (ROADMAP.md §1 item 8, "
-            "shuffle and distribution)")
     supported = {JoinType.INNER, JoinType.LEFT_OUTER, JoinType.RIGHT_OUTER,
                  JoinType.FULL_OUTER, JoinType.LEFT_SEMI, JoinType.LEFT_ANTI,
                  JoinType.CROSS}
@@ -731,6 +744,7 @@ def accelerate(cpu_plan: N.CpuNode, conf: Optional[C.RapidsConf] = None,
                             str(conf[C.TEST_ALLOWED_NONGPU]).split(",") if s)
         assert_is_on_tpu(plan, allowed)
     plan._session_conf = conf
+    plan._session_device = dev
     plan._meta = meta
     ExecutionPlanCapture.capture(plan)
     return plan
@@ -738,36 +752,84 @@ def accelerate(cpu_plan: N.CpuNode, conf: Optional[C.RapidsConf] = None,
 
 def collect(plan, conf: Optional[C.RapidsConf] = None):
     """Run an accelerated (or partly accelerated) plan to a pandas
-    DataFrame under its session conf."""
+    DataFrame under its session conf.  With spark.sql.adaptive.enabled,
+    a fully accelerated plan runs stage at a time with runtime re-planning
+    (plan/aqe.py).
+
+    The serving layer's duties live here: the plan-fingerprint RESULT
+    CACHE (a hit returns the cached frame bit-exactly without touching
+    the device) and one QueryContext around the whole drive (deopt
+    retries, the AQE stage loop, partly accelerated plans) carrying the
+    conf snapshot, the CancelToken and the admission slot
+    (exec/scheduler.py)."""
+    from spark_rapids_tpu_torch.exec import scheduler as S
     conf = conf or getattr(plan, "_session_conf", None) or \
         C.get_active_conf()
     with C.session(conf):
-        return _collect(plan)
+        cache_key = S.result_cache_key(plan, conf)
+        if cache_key is not None:
+            hit = S.result_cache().get(cache_key)
+            if hit is not None:
+                return hit
+        out = _collect(plan, conf)
+        if cache_key is not None and hasattr(out, "memory_usage"):
+            S.result_cache().put(cache_key, out,
+                                 int(conf[C.RESULT_CACHE_MAX_BYTES]))
+        return out
 
 
-def _collect(plan):
+def _plan_device(plan):
+    """Where the plan's device work runs: the device accelerate() was
+    given, else a device plan's own."""
+    dev = getattr(plan, "_session_device", None)
+    if dev is None and isinstance(plan, TpuExec):
+        dev = plan.device()
+    return dev
+
+
+def _collect(plan, conf: C.RapidsConf):
     """The deopt-and-retry boundary of PARTLY accelerated plans: a
     device->CPU transition inside the plan may raise FastPathInvalid
     from a deferred fast-path check; the fast paths at fault are
     disabled and the (pure) plan runs once more with every fast path
     off.  A fully accelerated plan retries inside TpuExec.collect."""
+    from spark_rapids_tpu_torch.exec import scheduler as S
     from spark_rapids_tpu_torch.utils import checks as CK
-    mark = CK.snapshot()
+    scope = S.QueryScope(conf, device=_plan_device(plan))
     try:
-        return _collect_inner(plan)
-    except CK.FastPathInvalid as e:
-        e.recover_all()
-        CK.drain_since(mark)
-        CK.set_retrying(True)
+        mark = CK.snapshot()
         try:
-            return _collect_inner(plan)
-        finally:
-            CK.set_retrying(False)
+            return _collect_inner(plan, conf)
+        except CK.FastPathInvalid as e:
+            e.recover_all()
+            CK.drain_since(mark)
+            CK.set_retrying(True)
+            try:
+                return _collect_inner(plan, conf)
+            finally:
+                CK.set_retrying(False)
+    finally:
+        scope.close()
 
 
-def _collect_inner(plan):
+def _collect_inner(plan, conf: C.RapidsConf):
     if isinstance(plan, TpuExec):
         from spark_rapids_tpu_torch.plan.transitions import df_from_batch
+        if conf[C.ADAPTIVE_ENABLED]:
+            from spark_rapids_tpu_torch.plan.aqe import (
+                adaptive_execute, release_stage_buffers)
+            adapted = adaptive_execute(plan, conf)
+            if adapted is not plan:
+                # the capture holds plans weakly: the final plan lives as
+                # long as the plan the caller holds
+                plan._aqe_final_plan = adapted
+            ExecutionPlanCapture.capture(adapted)
+            try:
+                return df_from_batch(adapted.collect())
+            finally:
+                # the final plan must not pin the query's shuffle output
+                # in device memory
+                release_stage_buffers(adapted)
         return df_from_batch(plan.collect())
     from spark_rapids_tpu_torch.exec.base import new_execution
     new_execution()

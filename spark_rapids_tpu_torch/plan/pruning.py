@@ -64,8 +64,8 @@ def prune_columns(node: N.CpuNode, required: Optional[set] = None
 
     if not shared:
         def rec(c, r):
-            return _prune(c, r, rec)
-        return _prune(node, required, rec)
+            return _pinned(c, _prune(c, r, rec))
+        return _pinned(node, _prune(node, required, rec))
 
     # pass 2: a fixpoint of the requirement unions at shared nodes
     # (None = all columns, absorbing)
@@ -102,11 +102,20 @@ def prune_columns(node: N.CpuNode, required: Optional[set] = None
         i = id(child)
         if i in shared:
             if i not in memo:
-                memo[i] = _prune(child, req_u.get(i), build)
+                memo[i] = _pinned(child, _prune(child, req_u.get(i), build))
             return memo[i]
-        return _prune(child, req, build)
+        return _pinned(child, _prune(child, req, build))
 
-    return _prune(node, required, build)
+    return _pinned(node, _prune(node, required, build))
+
+
+def _pinned(node: N.CpuNode, out: N.CpuNode) -> N.CpuNode:
+    """Move a verdict AQE's query-stage prep pinned on `node`
+    (`_tpu_tag`, plan/aqe.py) to its pruned copy, which is the node the
+    planner tags; a pin is used once, so the original gives it up."""
+    if out is not node and "_tpu_tag" in node.__dict__:
+        out._tpu_tag = node.__dict__.pop("_tpu_tag")
+    return out
 
 
 def _prune(node: N.CpuNode, required: Optional[set], prune_columns,
@@ -121,8 +130,14 @@ def _prune(node: N.CpuNode, required: Optional[set], prune_columns,
         keep = [f.name for f in schema.fields if f.name in required]
         if not keep:  # count(*)-style: keep one column for the rows
             keep = [schema.fields[0].name]
-        return N.CpuSource([p[keep] for p in node.partitions],
-                           T.Schema(tuple(schema.field(k) for k in keep)))
+        pruned = N.CpuSource([p[keep] for p in node.partitions],
+                             T.Schema(tuple(schema.field(k) for k in keep)))
+        # the narrowed copies are made anew on every plan; the result
+        # cache keys source identity on the session's own frames (the
+        # kept columns follow from the plan's structure)
+        pruned.source_identity = getattr(
+            node, "source_identity", None) or tuple(node.partitions)
+        return pruned
     if type(node).__name__ == "CpuFileScan":
         schema = node.output_schema()
         if not build or required is None \

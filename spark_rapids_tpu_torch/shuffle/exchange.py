@@ -7,11 +7,17 @@ partition concatenates its slices.  The reference's other two lanes, the
 device-mesh all-to-all and the shuffle manager, are not ported: the
 manager's conf key raises here rather than running the local lane in its
 place, and the mesh lane needs an active device mesh, which the port
-cannot set, so its key engages nothing.
+cannot set, so its key engages nothing.  Neither side of the local lane
+prefetches, as the reference's does: its input is device work that a
+producer thread cannot overlap (exec/pipeline.py).
+`BroadcastExchangeExec` collects a small build side once for a broadcast
+hash join.
 """
 from __future__ import annotations
 
 import itertools
+import threading
+import time
 
 import numpy as np
 import torch
@@ -172,3 +178,84 @@ class ShuffleExchangeExec(UnaryExecBase):
             cap_sum += b.capacity
         if group:
             yield flush()
+
+
+class BroadcastTimeoutError(RuntimeError):
+    """Build-side materialization exceeded spark.sql.broadcastTimeout
+    (the reference's 'Could not execute broadcast in N secs')."""
+
+
+class BroadcastTooLargeError(RuntimeError):
+    """Build side exceeded spark.rapids.tpu.maxBroadcastTableBytes
+    (Spark's 8GB broadcast-table limit)."""
+
+
+class BroadcastExchangeExec(UnaryExecBase):
+    """Collect the (small) build side once; every consumer gets the same
+    single batch (reference GpuBroadcastExchangeExec).
+
+    The build collect is bounded by spark.sql.broadcastTimeout and its
+    device bytes by spark.rapids.tpu.maxBroadcastTableBytes, so a runaway
+    build side fails with a clear error instead of hanging the query or
+    exhausting device memory.  The timeout is cooperative: checked between
+    build-side batches (one wedged batch is the watchdog's to catch).
+    The batch is held for one execution and dropped with the query's
+    other execution state."""
+
+    def __init__(self, child: TpuExec):
+        super().__init__(child)
+        self._schema = child.output_schema()
+        self._cached = None
+        self._lock = threading.Lock()
+
+    def output_schema(self) -> T.Schema:
+        return self._schema
+
+    def output_partition_count(self) -> int:
+        return 1
+
+    def describe(self):
+        return "BroadcastExchangeExec"
+
+    def broadcast_batch(self) -> ColumnarBatch:
+        with self._lock:
+            if self._cached is None:
+                self._cached = self._materialize_build()
+            return self._cached
+
+    def _materialize_build(self) -> ColumnarBatch:
+        from spark_rapids_tpu_torch.utils import watchdog as W
+        conf = C.get_active_conf()
+        timeout_s = float(conf[C.BROADCAST_TIMEOUT])
+        max_bytes = int(conf[C.MAX_BROADCAST_TABLE_BYTES])
+        with self.metrics.timed("broadcastTime"):
+            t0 = time.monotonic()
+            batches, total = [], 0
+            for it in self.child.execute_partitions():
+                for b in it:
+                    W.check_cancelled()
+                    if not b.maybe_nonempty():
+                        continue
+                    batches.append(b.dense())
+                    total += b.device_size_bytes()
+                    if total > max_bytes:
+                        raise BroadcastTooLargeError(
+                            f"broadcast build side reached {total} bytes > "
+                            f"{C.MAX_BROADCAST_TABLE_BYTES.key}="
+                            f"{max_bytes}")
+                    if time.monotonic() - t0 > timeout_s:
+                        raise BroadcastTimeoutError(
+                            f"could not execute broadcast in {timeout_s} "
+                            f"secs ({C.BROADCAST_TIMEOUT.key})")
+            out = (concat_batches(batches) if batches
+                   else empty_batch(self._schema, self.device()))
+            self.metrics.add("dataSize", out.device_size_bytes())
+        return out
+
+    def execute_partitions(self):
+        return [iter([self.broadcast_batch()])]
+
+    def release_execution_state(self) -> None:
+        with self._lock:
+            self._cached = None
+        super().release_execution_state()

@@ -11,9 +11,11 @@ fast paths at fault; `TpuExec.collect` recovers and re-executes the plan.
 A check with an `error` factory is fatal: a failed one raises that
 error (an ANSI cast's overflow) rather than FastPathInvalid.
 
-Checks attach to batches (`ColumnarBatch.checks`) AND register in a
-per-thread pending list, so a check dropped from a batch's tuple still
-fails safe at the next collect.
+Checks attach to batches (`ColumnarBatch.checks`) AND register in the
+current query's pending list (`QueryContext.pending_checks`, shared by
+the query's prefetch producers), so a check dropped from a batch's tuple
+still fails safe at the next collect.  Work outside any query registers
+in one process-global list.
 """
 from __future__ import annotations
 
@@ -56,13 +58,18 @@ class FastPathInvalid(Exception):
 
 
 _STATE = threading.local()
+_LOCK = threading.Lock()
+_PENDING: list = []
 
 
 def _pending() -> list:
-    p = getattr(_STATE, "pending", None)
-    if p is None:
-        p = _STATE.pending = []
-    return p
+    """The deferred-check registry of the CURRENT query: each
+    QueryContext owns its list, so one query's snapshot/drain never
+    takes another's checks; the process-global list serves work outside
+    any query."""
+    from spark_rapids_tpu_torch.exec import scheduler as S
+    qc = S.current()
+    return qc.pending_checks if qc is not None else _PENDING
 
 
 def set_retrying(flag: bool) -> None:
@@ -77,7 +84,8 @@ def is_retrying() -> bool:
 
 
 def register(check: BatchCheck) -> BatchCheck:
-    _pending().append(check)
+    with _LOCK:
+        _pending().append(check)
     return check
 
 
@@ -109,12 +117,13 @@ def verify(checks, scalars=()) -> list:
     for (i, _), v in zip(items, host):
         checks[i]._memoize(v)
     scalar_vals = host[len(items):]
-    pending = _pending()
-    for c in checks:
-        try:
-            pending.remove(c)
-        except ValueError:
-            pass
+    with _LOCK:
+        pending = _pending()
+        for c in checks:
+            try:
+                pending.remove(c)
+            except ValueError:
+                pass
     bad = [c for c in checks if c._resolved]
     for c in bad:
         if c.error is not None:
@@ -127,12 +136,14 @@ def verify(checks, scalars=()) -> list:
 def snapshot() -> int:
     """Mark the registry position; checks registered after it belong to
     the enclosing execution attempt."""
-    return len(_pending())
+    with _LOCK:
+        return len(_pending())
 
 
 def drain_since(mark: int) -> list:
     """Remove and return every check registered after `mark`."""
-    pending = _pending()
-    out = pending[mark:]
-    del pending[mark:]
+    with _LOCK:
+        pending = _pending()
+        out = pending[mark:]
+        del pending[mark:]
     return out

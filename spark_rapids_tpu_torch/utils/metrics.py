@@ -8,6 +8,7 @@ never waits for the device.
 """
 from __future__ import annotations
 
+import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
@@ -42,35 +43,51 @@ NUM_SPILL_CORRUPTIONS_RECOVERED = "numSpillCorruptionsRecovered"
 BUFFER_TIME = "bufferTime"
 DECODE_TIME = "tpuDecodeTime"
 UPLOAD_BYTES = "uploadBytes"
-# the reference's other names (the pipeline's, the watchdog's, the
-# shuffle's, ...) come with the layers that charge them
+# the prefetch pipeline (exec/pipeline.py): consumer wait (ns), pulls
+# served from the queue, pulls that had to wait
+PIPELINE_WAIT_TIME = "pipelineWaitTime"
+PREFETCH_HITS = "prefetchHits"
+PREFETCH_STALLS = "prefetchStalls"
+# the watchdog (utils/watchdog.py), charged to a tripped query's root
+NUM_WATCHDOG_TIMEOUTS = "numWatchdogTimeouts"
+NUM_CANCELS = "numCancels"
+WATCHDOG_DUMPS = "watchdogDumps"
+SLOWEST_HEARTBEAT = "slowestHeartbeatMs"
+# the reference's other names (the shuffle's, ...) come with the layers
+# that charge them
 
 
 class MetricSet:
     """Counters that accept LAZY (device-scalar) values: adding a row
     count still being computed must not wait for the device, so device
-    values queue and resolve only when a metric is read."""
+    values queue and resolve only when a metric is read.  A prefetch
+    producer and its consumer charge one exec's set from two threads, so
+    every update holds the set's lock."""
 
     def __init__(self):
         self._values = defaultdict(float)
         #: queued (name, value, op) updates; op is "add" or "max"
         self._pending: list = []
+        self._lock = threading.Lock()
 
     def add(self, name: str, value) -> None:
-        if isinstance(value, (int, float)):
-            self._values[name] += value
-        else:
-            self._pending.append((name, value, "add"))
+        with self._lock:
+            if isinstance(value, (int, float)):
+                self._values[name] += value
+            else:
+                self._pending.append((name, value, "add"))
 
     def set_max(self, name: str, value) -> None:
         """Raise `name` to at least `value`.  Queues like `add`, so a
         peak tracker on the hot path never waits for the device."""
-        self._pending.append((name, value, "max"))
+        with self._lock:
+            self._pending.append((name, value, "max"))
 
     def _resolve(self) -> None:
-        if not self._pending:
-            return
-        pending, self._pending = self._pending, []
+        with self._lock:
+            if not self._pending:
+                return
+            pending, self._pending = self._pending, []
         # ONE stacked readback per (dtype, device) group for the whole
         # queue: a read per value would cost a device round trip each
         resolved: list = [None] * len(pending)
@@ -86,15 +103,17 @@ class MetricSet:
             for (i, _), val in zip(items, vals):
                 resolved[i] = float(val)
         # FIFO order, so interleaved add/max see what eager resolves would
-        for (name, _, op), val in zip(pending, resolved):
-            if op == "max":
-                self._values[name] = max(self._values[name], val)
-            else:
-                self._values[name] += val
+        with self._lock:
+            for (name, _, op), val in zip(pending, resolved):
+                if op == "max":
+                    self._values[name] = max(self._values[name], val)
+                else:
+                    self._values[name] += val
 
     def value(self, name: str) -> float:
         self._resolve()
-        return self._values[name]
+        with self._lock:
+            return self._values[name]
 
     @contextmanager
     def timed(self, name: str = TOTAL_TIME):
@@ -106,7 +125,8 @@ class MetricSet:
 
     def as_dict(self) -> dict:
         self._resolve()
-        return dict(self._values)
+        with self._lock:
+            return dict(self._values)
 
     def __repr__(self):
         return f"MetricSet({self.as_dict()})"

@@ -663,3 +663,119 @@ def test_q1_over_a_partitioned_parquet_dataset(cuda_device, tmp_path):
     assert GW.window_group_sums.launches > before
     want = QUERIES[1](TD.sources(tables, 2), None).collect()
     compare_frames(want, got, "q1 over parquet on the card")
+
+
+@pytest.mark.gpu
+def test_wrappers_under_threads_give_the_same_bits(cuda_device):
+    """grouped_sum tiers A and B and window_group_sums called from four
+    threads at once, interleaved: every result equal to the bit to the
+    same call made alone, and the launch counters grown exactly (the
+    runtime puts the wrappers on prefetch producers and concurrent
+    sessions)."""
+    import threading
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = 1 << 20
+    vals = [torch.rand(rows, generator=g, device=dev) for _ in range(6)]
+    keys_a = torch.randint(0, 26, (rows,), generator=g, device=dev,
+                           dtype=torch.int32)
+    keys_b = torch.randint(0, 300, (rows,), generator=g, device=dev,
+                           dtype=torch.int32)
+    gid = torch.clamp(torch.arange(1 << 14, device=dev) // 8,
+                      max=5).to(torch.int32)
+    mvals = [torch.rand(1 << 14, generator=g, device=dev) for _ in range(17)]
+    calls = {
+        "A": lambda: K.grouped_sum(keys_a, vals, rows, n_groups=26,
+                                   capacity=rows),
+        "B": lambda: K.grouped_sum(keys_b, vals, rows, n_groups=300,
+                                   capacity=rows),
+        "W": lambda: (GW.window_group_sums(gid, mvals, out_cap=50,
+                                           capacity=1 << 14),)}
+    alone = {name: fn() for name, fn in calls.items()}
+    before = (K.grouped_sum.launches, GW.window_group_sums.launches)
+    errors = []
+
+    def worker():
+        try:
+            for _ in range(25):
+                for name, fn in calls.items():
+                    for x, y in zip(fn(), alone[name]):
+                        assert torch.equal(x, y), name
+        except BaseException as e:  # noqa: BLE001 — asserted below
+            errors.append(repr(e))
+
+    ts = [threading.Thread(target=worker) for _ in range(4)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(120)
+    assert not errors, errors
+    assert K.grouped_sum.launches - before[0] == 4 * 25 * 2
+    assert GW.window_group_sums.launches - before[1] == 4 * 25
+
+
+@pytest.mark.gpu
+def test_producer_enqueues_on_its_creators_stream(cuda_device):
+    """A prefetch producer's launches go on the stream current where its
+    iterator was made (a side stream here), so its batches need no sync
+    between streams."""
+    from spark_rapids_tpu_torch.exec.pipeline import PrefetchIterator
+    side = torch.cuda.Stream(device=cuda_device)
+    seen = []
+
+    def src():
+        seen.append(torch.cuda.current_stream(cuda_device).cuda_stream)
+        yield torch.ones(4, device=cuda_device)
+
+    with torch.cuda.stream(side):
+        (x,) = list(PrefetchIterator(src(), depth=1))
+        assert x.sum().item() == 4
+    assert seen == [side.cuda_stream]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["broadcast_join", "aqe_q5"])
+def test_runtime_plans_match_the_cpu(cuda_device, case):
+    """A planner join with broadcast=True (BroadcastHashJoinExec) and
+    TPC-H Q5 under spark.sql.adaptive.enabled (query stages, a demoted
+    broadcast join) on the card, against the same plans on the CPU
+    (keys and counts exact, floats rtol 1e-5)."""
+    from parity import compare_frames
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.exec.joins import JoinType
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.models import tpch_queries as TQ
+    from spark_rapids_tpu_torch.plan import aqe
+    from spark_rapids_tpu_torch.plan.overrides import (ExecutionPlanCapture,
+                                                       accelerate, collect)
+    tables, _ = TB.sf10_tables(2, 0.01)
+    adaptive = case == "aqe_q5"
+    conf = C.RapidsConf({**TB.BENCH_CONF, C.TEST_ENABLED.key: True,
+                         C.ADAPTIVE_ENABLED.key: adaptive})
+
+    def plan_of():
+        t = TD.sources(tables, 4)
+        if adaptive:
+            return TQ.QUERIES[5](t, None)
+        return TQ._join(JoinType.INNER, t["orders"], t["customer"],
+                        ["o_custkey"], ["c_custkey"], broadcast=True)
+
+    plan = accelerate(plan_of(), conf, device=cuda_device)
+    got = collect(plan, conf)
+    kinds = set()
+    node_stack = [ExecutionPlanCapture.last_plan]
+    while node_stack:
+        n = node_stack.pop()
+        kinds.add(type(n).__name__)
+        node_stack.extend(n.children)
+        if isinstance(n, aqe.ShuffleQueryStageExec):
+            node_stack.append(n.exchange)
+        if isinstance(n, aqe.CustomShuffleReaderExec):
+            node_stack.append(n.stage)
+    assert "BroadcastHashJoinExec" in kinds, kinds
+    if adaptive:
+        assert "ShuffleQueryStageExec" in kinds, kinds
+    want = collect(accelerate(plan_of(), conf, device="cpu"), conf)
+    compare_frames(want, got, f"{case} on the card")

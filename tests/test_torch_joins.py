@@ -319,12 +319,23 @@ def test_join_pruning_keeps_the_reference_columns(query):
 
 
 def test_broadcast_join_is_refused_not_moved_to_the_cpu():
-    """No TPC-H query broadcasts; a plan that does raises rather than
-    quietly becoming a CPU island."""
-    from spark_rapids_tpu_torch.plan.overrides import accelerate
+    """No TPC-H query broadcasts; a plan that does runs as a device
+    BroadcastHashJoinExec (since the runtime slice ported it), never as a
+    quiet CPU island, and its rows are the shuffled join's."""
+    from parity import compare_frames
+
+    from spark_rapids_tpu_torch.exec.joins import BroadcastHashJoinExec
+    from spark_rapids_tpu_torch.plan import nodes as TN2
+    from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
     tables = TD.gen_tables(np.random.default_rng(2), 200)
     t = TD.sources(tables)
-    plan = TQ._join(JT.INNER, t["orders"], t["customer"], ["o_custkey"],
-                    ["c_custkey"], broadcast=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        accelerate(plan, C.RapidsConf({}), device="cpu")
+    conf = C.RapidsConf({})
+    out = {}
+    for bc in (False, True):
+        plan = accelerate(TQ._join(JT.INNER, t["orders"], t["customer"],
+                                   ["o_custkey"], ["c_custkey"],
+                                   broadcast=bc), conf, device="cpu")
+        assert not isinstance(plan, TN2.CpuNode)
+        assert isinstance(plan, BroadcastHashJoinExec) is bc
+        out[bc] = collect(plan, conf)
+    compare_frames(out[False], out[True], "broadcast")

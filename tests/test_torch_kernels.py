@@ -155,3 +155,65 @@ def test_window_group_sums_matches_pallas(case):
     present = np.zeros(out_cap, bool)
     present[gid[(gid >= 0) & (gid < out_cap)]] = True
     assert not got.numpy()[~present].any()
+
+
+def test_wrapper_state_is_safe_under_eight_threads():
+    """The state the wrappers reuse across launches, taken the way a
+    launch takes it (under the device's launch lock), from eight threads
+    at once over CPU tensors: every window_group_sums epoch is unique on
+    its flag array (a grown array is new and zeroed, so its epochs start
+    again), the tier-A scratch a thread holds is never swapped before its
+    "launch" is done, and launch counts are exact."""
+    import threading
+    dev = torch.device("cpu")
+    n_threads, calls = 8, 200
+    epochs: list = []
+    errors: list = []
+    state = [0, 0, torch.zeros(1, dtype=torch.int32),
+             torch.empty(0, dtype=torch.float32)]
+    GW._TILE_STATE.pop((dev.index, 0), None)
+
+    class _Wrapper:
+        launches = 0
+
+    barrier = threading.Barrier(n_threads, timeout=30)
+
+    def worker(seed: int):
+        rng = np.random.default_rng(seed)
+        mine = []
+        try:
+            barrier.wait()
+            for _ in range(calls):
+                tiles = int(rng.integers(1, 3000))
+                n = int(rng.integers(1, 5000))
+                with K.launch_lock(dev):
+                    flags, tail, epoch = GW._tile_state(dev, tiles)
+                    assert flags.numel() >= tiles
+                    assert tail.numel() >= tiles * K.MAX_MEASURES
+                    scratch = K._lane_table_scratch(state, n)
+                    assert scratch.numel() >= n
+                    # the "kernel" writes its scratch: no other thread
+                    # may grow it (and free this block) meanwhile
+                    scratch[:n] = seed
+                    assert bool((scratch[:n] == seed).all())
+                    assert state[3] is scratch
+                    K.count_launch(_Wrapper)
+                mine.append((flags, epoch))
+        except BaseException as e:  # noqa: BLE001 — asserted below
+            errors.append(repr(e))
+        epochs.extend(mine)
+
+    ts = [threading.Thread(target=worker, args=(i,))
+          for i in range(n_threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(60)
+    assert not any(t.is_alive() for t in ts)
+    assert not errors, errors
+    assert len(epochs) == n_threads * calls
+    # the flag tensors stay alive in `epochs`, so their ids are distinct
+    keys = {(id(flags), epoch) for flags, epoch in epochs}
+    assert len(keys) == len(epochs), "two launches took one epoch"
+    assert _Wrapper.launches == n_threads * calls
+    GW._TILE_STATE.pop((dev.index, 0), None)

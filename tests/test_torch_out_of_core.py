@@ -1,6 +1,7 @@
 """spark_rapids_tpu_torch's out-of-core lanes against spark_rapids_tpu's,
-twins of 14 of the 17 tests of tests/test_out_of_core.py (the other
-three need the movement ledger or the watchdog, not ported yet).
+twins of 16 of the 17 tests of tests/test_out_of_core.py (the other one,
+`test_three_way_spill_reconciliation`, needs the movement ledger,
+ROADMAP.md item 9).
 
 When the conf-capped device budget (`spark.rapids.memory.hbmBudgetBytes`)
 cannot hold an operator's working set, sort / hash join / hash aggregate
@@ -20,6 +21,7 @@ tests take other knobs than the reference's to reach the same lane
 (each says which and why).
 """
 import os
+import time
 
 import numpy as np
 import pandas as pd
@@ -54,6 +56,7 @@ from spark_rapids_tpu_torch.models import tpch_data as TD
 from spark_rapids_tpu_torch.plan.nodes import schema_of_df
 from spark_rapids_tpu_torch.plan.transitions import batch_from_df
 from spark_rapids_tpu_torch.utils import metrics as M
+from test_torch_pipeline import run_tpch_files, write_tpch_files
 
 #: an uncapped device total for the accounted arena: big enough that
 #: the unconstrained lane never degrades
@@ -497,6 +500,72 @@ def test_chaos_composite_tpch(tmp_path, ref):
         assert R.injected_oom_count() > 0
         e.assert_clean()
         assert TpuSemaphore.get().holders() == 0
+
+
+# ---------------------------------------------------------------------------
+# the watchdog over the out-of-core lane
+def test_watchdog_covers_hung_merge_pass(tmp_path):
+    """A hang injected inside an external merge pass is detected by the
+    heartbeat watchdog and killed with a dump naming the site: the
+    out-of-core lane may be slow, never silently stuck."""
+    from spark_rapids_tpu_torch.utils import watchdog as W
+    W.reset_hang_injection()
+    df = _orders()
+    with _Env(tmp_path, "hang", cap=1 << 16,
+              **{C.HANG_INJECT_SITE.key: "oocore-merge",
+                 C.HANG_INJECT_AFTER.key: 0,
+                 "spark.rapids.sql.watchdog.taskTimeout": 1.5,
+                 "spark.rapids.sql.watchdog.pollInterval": 0.1}) as e:
+        t0 = time.monotonic()
+        with pytest.raises(W.TpuQueryTimeout) as ei:
+            e.run(_sort_plan(df))
+        assert time.monotonic() - t0 < 2 * 1.5 + 10.0
+        msg = str(ei.value)
+        assert "oocore-merge" in msg, msg[:400]
+        assert "watchdog" in msg
+        assert TpuSemaphore.get().holders() == 0
+    W.reset_hang_injection()
+
+
+def test_chaos_hang_times_out_then_reruns_clean(tmp_path, ref):
+    """Chaos and a seeded hang: the watchdog kills the wedged query with
+    a descriptive dump, and the SAME process then runs the query again
+    under the rest of the injection, equal to the JAX package's result
+    (keys and counts exact, sums within compare_frames' rtol 1e-5), with
+    nothing left behind."""
+    from spark_rapids_tpu_torch.exec import pipeline as PL
+    from spark_rapids_tpu_torch.utils import watchdog as W
+    tables = TD.gen_tables(np.random.default_rng(11), CHAOS_SCALE)
+    keys = {**TB.BENCH_CONF,
+            C.OOM_INJECT_RATE.key: 0.05, C.OOM_INJECT_SEED.key: 7,
+            C.RETRY_MIN_SPLIT_ROWS.key: 64,
+            C.SPILL_CORRUPT_RATE.key: 0.005,
+            C.OOCORE_RUN_REPLICAS.key: 2}
+    hang = {C.HANG_INJECT_SITE.key: "producer",
+            C.HANG_INJECT_AFTER.key: 1,
+            "spark.rapids.sql.watchdog.taskTimeout": 2.0,
+            "spark.rapids.sql.watchdog.pollInterval": 0.1}
+    leaked = PL.pipeline_stats()["leaked_producers"]
+    # the port prefetches at the file scan alone: the hung query reads
+    # lineitem from Parquet, so its scan's producer is the one that hangs
+    root = write_tpch_files(tables, tmp_path / "files", names=["lineitem"])
+    W.reset_hang_injection()
+    with _Env(tmp_path, "hang-chaos", cap=1 << 14, host_spill=1 << 14,
+              **keys, **hang) as e:
+        with pytest.raises(W.TpuQueryTimeout) as ei:
+            run_tpch_files(1, root, e.conf, names=["lineitem"])
+        assert "producer" in str(ei.value)
+    W.reset_hang_injection()
+    with _Env(tmp_path, "hang-rerun", cap=1 << 14, host_spill=1 << 14,
+              **keys) as e:
+        got = TB.run_query(1, tables, device="cpu", conf=e.conf)
+        want = ref["q1"]
+        compare_frames(want, got, "q1 after the chaos hang timeout")
+        for name in ("l_returnflag", "l_linestatus", "count_order"):
+            assert got[name].tolist() == want[name].tolist(), name
+        e.assert_clean()
+        assert TpuSemaphore.get().holders() == 0
+        assert PL.pipeline_stats()["leaked_producers"] == leaked
 
 
 # ---------------------------------------------------------------------------
