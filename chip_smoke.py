@@ -6,8 +6,9 @@ out-of-core lanes and OOM retry lattice (phase 12), the rest of the
 workloads (phase 13): the other 85 TPC-DS queries, TPCx-BB's 28 without
 a UDF and Mortgage's ETL, the I/O layer with the planner's sort-merge
 join, repartition, cached columnar scan and sort aggregate (phase 14),
-and the runtime: two concurrent TPC-H streams, admission control, the
-result cache, the watchdog and AQE (phase 15), on one NVIDIA card
+the runtime: two concurrent TPC-H streams, admission control, the
+result cache, the watchdog and AQE (phase 15), and the shuffle manager
+lane with the brute-force joins (phase 16), on one NVIDIA card
 (59,986,052 lineitem rows, scale factor 10, in phases 4-6 and 14a, TPC-H
 spec 4.2.5; 50,000 TPC-DS store_sales rows in 11b and 13b, where SF1 has
 2,880,404, Table 3-2).
@@ -219,15 +220,46 @@ Phases, each of which raises on failure (exit code 1, no result line):
      and B and window_group_sums at phase 3's shapes, 100 calls each
      from four threads at once: every result equal to the bit to the
      call made alone, the counters grown by exactly 4 x 100 x 3;
- 16. print the kernels line (all three kernels, with their launches in
+ 16. the shuffle manager lane (shuffle/*, exec/speculation.py), after
+     phase 15 over phases 7-9's SF1 tables and goldens, 16 partitions,
+     under the TPC bench conf with test.enabled, spark.rapids.shuffle.
+     enabled and shuffle.localExecutors 4 (a four-executor cluster's
+     shuffle on one card; the executors are made anew for each part,
+     since each takes its conf when made); a second OS process on the
+     card is started first and serves 16e: 16a, Q3, Q5, Q9 and Q18 over
+     the loopback lane against the goldens, per query accelerate and
+     collect, the exchanges' map-output bytes, the bytes each store tier
+     took, the device store's peak, peak device memory and the kernels'
+     launches, the widest call of each kernel held against its twin and
+     device memory back to its value before the query with no map
+     output left; 16b, Q5 with every map output advertised on the TCP
+     lane and zstd on the wire, the rows of 16a's to the bit, wire and
+     raw bytes; 16c, Q3 with local-1 killed after 4 served frames
+     (failureThreshold 1), maps recomputed and stage attempts printed,
+     16a's rows to the bit; 16d, Q3 with speculation against local-1
+     slowed tenfold at its map tasks, a duplicate winning and a loser
+     cancelled, 16a's rows to the bit; 16e, 2^22 rows (int64, float64
+     and int32 with nulls, strings with nulls) from the second process
+     over TCP with lz4, equal to the batch it served to the bit, then
+     that process killed while a second, paced read is in flight
+     (FetchFailedError within the read's timeout); 16f, nation x region
+     as a CpuCartesianProduct and a CpuNestedLoopJoin on
+     n_regionkey < r_regionkey, both enabled and planned onto
+     NestedLoopJoinExec on the card, against pandas; at the end no
+     executor and no shuffle thread is left;
+ 17. print the kernels line (all three kernels, with their launches in
      every phase: `launches` the main path's, then per phase and per
-     part of phase 15) and, last, the device line.
+     part of phases 15 and 16) and, last, the device line.
 Cuts, to keep the script within 950 s of its 1,200 s limit, in this
 order: (1) TPCx-BB's 28 left 13b (13a still checks them at 20,000 rows;
 `scripts/torch_workloads_phase.py` runs them at any scale); (2) 15a's
 two streams run the two halves of the power order, 11 queries each
 (`scripts/torch_runtime_phase.py` runs two streams of the 22, and three
-at SF10).  When phase 15 came, the runtime's prefetch producers ran at
+at SF10); (3) when phase 16 came, 13b runs every second one of the 85
+in registration order (43 queries, ds_rest_cut) at WL_SCALE (13a still
+checks all 85 against the CPU engine; `scripts/torch_tpcds_phase.py
+--queries rest` runs all 85 at WL_SCALE); with the 85 the script had
+taken 976.6 s of laps, 252.9 s of them 13b's.  When phase 15 came, the runtime's prefetch producers ran at
 every pipeline break and cost time on this host-bound engine (phases
 1-12 262.6 s of laps against 173.4 s before, 13a 492.0 s against
 293.7; PERF.md), which first forced two more cuts (11b at 20,000 rows,
@@ -2769,6 +2801,14 @@ def ds_rest() -> list:
     return sorted(set(QUERIES) - set(DS_SLICE), key=query_order)
 
 
+def ds_rest_cut() -> list:
+    """13b's queries: every second one of the 85 in registration order
+    (the docstring's cut 3; 13a checks all 85)."""
+    from spark_rapids_tpu_torch.models.tpcds_queries import QUERIES
+    rest = set(ds_rest())
+    return sorted([q for q in QUERIES if q in rest][::2], key=query_order)
+
+
 def workloads_check_phase(torch, dev, seed: int) -> dict:
     """Phase 13a: all 103 TPC-DS queries (phase 11's 18 with them) and
     the 28 TPCx-BB queries over workload_tables(WL_CHECK_SEED, WL_CHECK_SCALE),
@@ -3765,6 +3805,562 @@ def wrappers_under_threads(torch, dev, GW, K, threads: int = 4,
     return {"launches": grown, "wall": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the shuffle manager lane
+#: the queries of 16a, through four executors of the card
+SHUFFLE_QUERIES = (3, 5, 9, 18)
+SHUFFLE_EXECUTORS = 4
+#: rows of the map output the second process serves in 16e
+SHUFFLE_CHILD_ROWS = 1 << 22
+#: 16e's paced frames (seconds a DATA frame waits once the child is told
+#: to pace), and how long into the paced read the child is killed
+SHUFFLE_PACE_S = 0.1
+SHUFFLE_KILL_AFTER_S = 0.3
+_STRING_POOL = [f"{c} {n}" for c in ("almond", "blush", "cornsilk",
+                                     "dodger", "frosted", "ghost")
+                for n in ("requests", "deposits", "packages", "accounts",
+                          "theodolites")]
+
+
+def shuffle_child_table(seed: int, rows: int):
+    """The map output of 16e's second process, as a pyarrow table: int64
+    keys, float64 and int32 measures with nulls, and dictionary strings
+    with nulls, all from `seed` (the parent rebuilds it to compare)."""
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+    k = rng.integers(-(1 << 40), 1 << 40, rows)
+    v = rng.standard_normal(rows)
+    d = rng.integers(-(1 << 20), 1 << 20, rows).astype(np.int32)
+    idx = rng.integers(0, len(_STRING_POOL), rows).astype(np.int32)
+    v_null, d_null, s_null = (rng.random(rows) < p
+                              for p in (0.05, 0.1, 0.02))
+    s = pa.DictionaryArray.from_arrays(
+        pa.array(idx, mask=s_null), pa.array(_STRING_POOL))
+    return pa.table({"k": pa.array(k), "v": pa.array(v, mask=v_null),
+                     "d": pa.array(d, mask=d_null), "s": s})
+
+
+SHUFFLE_CHILD = r'''
+import json, sys, threading, time
+import torch
+import chip_smoke as CS
+from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.memory.env import ResourceEnv
+from spark_rapids_tpu_torch.shuffle import ici_transport as ici
+from spark_rapids_tpu_torch.shuffle.manager import TpuShuffleManager
+
+spec = json.loads(sys.stdin.readline())
+paced = threading.Event()
+_send = ici._send_all
+
+
+def _paced_send(conn, data):
+    # told to pace, every DATA-sized frame waits: the parent's second
+    # read is then in flight long enough to kill this process in it
+    _send(conn, data)
+    if paced.is_set() and len(data) > 512:
+        time.sleep(spec["pace_s"])
+
+
+ici._send_all = _paced_send
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+conf = C.RapidsConf({"spark.rapids.shuffle.enabled": True,
+                     "spark.rapids.shuffle.compression.codec": "lz4"})
+with C.session(conf):
+    t0 = time.perf_counter()
+    env = ResourceEnv.init(conf, device=dev)
+    mgr = TpuShuffleManager("executor-S", env, conf)
+    mgr.register_shuffle(spec["shuffle_id"])
+    batch = ColumnarBatch.from_arrow(
+        CS.shuffle_child_table(spec["seed"], spec["rows"]), device=dev)
+    w = mgr.get_writer(spec["shuffle_id"], 0)
+    w.write_partition(0, batch)
+    st = w.commit(1)
+    torch.cuda.synchronize(dev)
+    print("OUTPUT:" + json.dumps({
+        "executor_id": st.executor_id, "tcp_address": st.tcp_address,
+        "partition_sizes": st.partition_sizes,
+        "setup_s": time.perf_counter() - t0}), flush=True)
+    for line in sys.stdin:
+        if line.strip() == "pace":
+            paced.set()
+            print("PACED", flush=True)
+'''
+
+
+def start_shuffle_child(seed: int, shuffle_id: int):
+    """16e's second OS process on the card, started early so that its
+    start overlaps 16a-16d: it makes a map output of SHUFFLE_CHILD_ROWS
+    rows on the card and serves it over TCP with lz4."""
+    import subprocess
+    proc = subprocess.Popen(
+        [sys.executable, "-c", SHUFFLE_CHILD], stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        cwd=str(Path(__file__).resolve().parent))
+    proc.stdin.write((json.dumps({
+        "seed": seed, "rows": SHUFFLE_CHILD_ROWS, "shuffle_id": shuffle_id,
+        "pace_s": SHUFFLE_PACE_S}) + "\n").encode())
+    proc.stdin.flush()
+    return proc
+
+
+def child_line(proc, prefix: str, timeout: float = 120.0) -> str:
+    """The child's next stdout line, which must start with `prefix`; the
+    wait is bounded (a reader thread, joined with a timeout)."""
+    import threading
+    box: list = []
+    t = threading.Thread(target=lambda: box.append(proc.stdout.readline()),
+                         daemon=True)
+    t.start()
+    t.join(timeout)
+    line = box[0].decode() if box else ""
+    if not line.startswith(prefix):
+        proc.kill()
+        err = proc.stderr.read().decode()[-3000:]
+        raise RuntimeError(f"16e: the serving process said {line!r}, not "
+                           f"{prefix}: {err}")
+    return line[len(prefix):]
+
+
+def shuffle_conf(q: int, **extra):
+    """The TPC bench conf with test.enabled and the manager lane over
+    SHUFFLE_EXECUTORS executors, plus `extra`."""
+    from spark_rapids_tpu_torch import config as C
+    return tpch_conf(q, **{C.RAPIDS_SHUFFLE_ENABLED.key: True,
+                           C.SHUFFLE_LOCAL_EXECUTORS.key: SHUFFLE_EXECUTORS,
+                           **extra})
+
+
+def exchange_totals(plan) -> dict:
+    """The manager-lane metrics of every ShuffleExchangeExec in `plan`,
+    summed."""
+    from spark_rapids_tpu_torch.shuffle.exchange import ShuffleExchangeExec
+    names = ("dataSize", "numFetchFailures", "numMapRecomputes",
+             "numStageRetries", "numPeersBlacklisted", "numSpeculativeTasks",
+             "numSpeculativeWins", "shuffleCompressedBytes",
+             "shuffleUncompressedBytes")
+    tot = dict.fromkeys(names, 0.0)
+    n = 0
+    for node in walk(plan):
+        if isinstance(node, ShuffleExchangeExec):
+            n += 1
+            d = node.metrics.as_dict()
+            for k in names:
+                tot[k] += d.get(k, 0)
+    tot["exchanges"] = n
+    return tot
+
+
+def same_result(want, got, label: str) -> None:
+    """Two results of one query equal to the bit (values, nulls, order,
+    dtypes)."""
+    require(list(want.columns) == list(got.columns)
+            and want.reset_index(drop=True).equals(
+                got.reset_index(drop=True)),
+            f"{label}: not the same rows, to the bit, as 16a's")
+
+
+def shuffle_query(torch, dev, q: int, tables: dict, gold: dict, conf,
+                  label: str, GW, K, cases=None) -> dict:
+    """One TPC-H query through the manager lane as a user submits it: the
+    result against its golden, accelerate and collect apart, the
+    exchanges' metrics, the device store's peak, the bytes each tier took,
+    peak device memory, the launches and, with `cases`, the widest call
+    of each kernel held against its twin; device memory back to its
+    value before the query.  The plan is dropped before the memory check."""
+    import threading
+
+    from spark_rapids_tpu_torch.exec import aggregate as AGG
+    from spark_rapids_tpu_torch.memory.env import ResourceEnv
+    from spark_rapids_tpu_torch.shuffle.manager import MapOutputRegistry
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    state0 = kernel_state_bytes(GW, K)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    env = ResourceEnv.get(dev)
+    stores = (env.device_store, env.host_store, env.disk_store)
+    added0 = [s.bytes_added for s in stores]
+    env.device_store.reset_peak()
+    launches0 = launch_counts(GW, K)
+    wcalls, gcalls, AGG.window_group_sums, AGG.grouped_sum = \
+        threadsafe_recorders(GW, K, threading.Lock())
+    held: list = []
+    try:
+        df, sub, sec = submit_tpch(torch, dev, q, tables, conf, label,
+                                   keep=held)
+    finally:
+        AGG.window_group_sums = GW.window_group_sums
+        AGG.grouped_sum = K.grouped_sum
+    launches = {k: v - launches0[k] for k, v in launch_counts(GW, K).items()}
+    rel = check_tpch(q, df, gold, sub)
+    totals = exchange_totals(held[0])
+    out = {**sec, "rel": rel, "rows": len(df), "launches": launches,
+           "exchanges": totals, "frame": df,
+           "device_store_peak": env.device_store.peak_size,
+           "tier_bytes": {s.tier.name.lower(): s.bytes_added - a
+                          for s, a in zip(stores, added0)},
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    print(f"shuffle {label} {sf_of(tables)} over {SHUFFLE_EXECUTORS} "
+          f"executors: accelerate {sec['accelerate']:.3f} s, collect "
+          f"{sec['collect']:.3f} s, {len(df)} rows, rel err {rel:.3g}; "
+          f"{totals['exchanges']} exchanges, map outputs "
+          f"{int(totals['dataSize'])} bytes written, tiers "
+          f"{out['tier_bytes']}, device store peak "
+          f"{out['device_store_peak']} bytes; peak device memory "
+          f"{out['peak_gib']:.2f} GiB; launches {launches}", flush=True)
+    if cases is not None:
+        grouped_case, window_case = cases
+        out["cases"] = {}
+        if wcalls:
+            gid, vals, cap = wcalls
+            case = window_case(gid, vals, cap)
+            case.update(query=q, launches=launches["window_group_sums"],
+                        shape=f"{label} widest call: capacity {gid.numel()},"
+                        f" out_cap {cap}, M={len(vals)}")
+            print(kernel_text("window_group_sums", case), flush=True)
+            out["cases"]["window_group_sums"] = case
+            del gid, vals
+        if gcalls:
+            keys, gvals, nrows, groups = gcalls
+            case = grouped_case(keys, gvals, nrows, groups, None)
+            case.update(query=q, launches=launches["grouped_sum"],
+                        shape=f"{label} widest call: capacity "
+                        f"{keys.numel()}, G={groups}, M={len(gvals)}, tier "
+                        f"{case['tier']}")
+            print(kernel_text("grouped_sum", case), flush=True)
+            out["cases"]["grouped_sum"] = case
+            del keys, gvals
+        for name in ("window_group_sums", "grouped_sum"):
+            require(not launches[name] or name in out["cases"],
+                    f"{label}: {name} launched but no call was recorded")
+        del wcalls[:], gcalls[:]
+    del wcalls, gcalls
+    del held, sub
+    out["memory"] = settled_memory(torch, dev, GW, K, before, state0,
+                                   f"shuffle {label}")
+    require(MapOutputRegistry.live_shuffles() == 0,
+            f"{label}: map outputs still registered after the query")
+    require(env.device_store.current_size == 0,
+            f"{label}: {env.device_store.current_size} bytes of map "
+            f"output left in the device store")
+    return out
+
+
+class tcp_statuses:
+    """Within the block every map output is advertised on the TCP lane:
+    a registered MapStatus's address is its TCP address, so readers in
+    this process fetch other executors' outputs over sockets."""
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.shuffle.manager import MapOutputRegistry
+        self.cls = MapOutputRegistry
+        self.orig = MapOutputRegistry.__dict__["register"]
+        register = MapOutputRegistry.register
+
+        def over_tcp(shuffle_id, map_id, status, epoch=None,
+                     first_wins=False):
+            if status.tcp_address:
+                status.address = status.tcp_address
+            return register(shuffle_id, map_id, status, epoch=epoch,
+                            first_wins=first_wins)
+        MapOutputRegistry.register = staticmethod(over_tcp)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, "register", self.orig)
+
+
+def shuffle_threads() -> list:
+    """The live threads of the shuffle lane: accept loops, handlers,
+    fetches, hedges and speculative attempts."""
+    import threading
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith(("tpu-shuffle", "tpu-speculate"))]
+
+
+def shuffle_phase(torch, dev, tables: dict, gold: dict, GW, K, cases,
+                  seed: int) -> dict:
+    """Phase 16 (see the module docstring): 16a-16f.  Returns each part's
+    figures and launches."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.exec import speculation as SPEC
+    from spark_rapids_tpu_torch.exec.joins import (JoinType,
+                                                   NestedLoopJoinExec)
+    from spark_rapids_tpu_torch.exprs.base import col
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.plan import nodes as N
+    from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
+    from spark_rapids_tpu_torch.shuffle import client_server as CSV
+    from spark_rapids_tpu_torch.shuffle import manager as M
+    from spark_rapids_tpu_torch.shuffle.recovery import PeerHealth
+    from spark_rapids_tpu_torch.utils import metrics as MX
+    from spark_rapids_tpu_torch.utils import watchdog as W
+    out: dict = {"launches": {}}
+    laps: dict = {}
+    child_sid = 1 << 30
+    child = start_shuffle_child(seed, child_sid)
+
+    def part_done(name: str, t0: float) -> None:
+        laps[name] = time.perf_counter() - t0
+        print(f"phase {name}: {laps[name]:.1f} s", flush=True)
+
+    def fresh_executors() -> None:
+        # the executors take their conf (codec, fault injection) when
+        # made: each part makes its own
+        M.TpuShuffleManager.close_all()
+        M.MapOutputRegistry.clear()
+        PeerHealth.get().clear()
+
+    try:
+        # 16a. Q3, Q5, Q9, Q18 over the loopback lane
+        t_part = time.perf_counter()
+        fresh_executors()
+        out["16a"] = {}
+        for q in SHUFFLE_QUERIES:
+            out["16a"][q] = shuffle_query(torch, dev, q, tables, gold,
+                                          shuffle_conf(q), f"16a q{q}", GW,
+                                          K, cases)
+        # the queries' own launches: the twin checks' are not the path's
+        out["launches"]["16a"] = {k: sum(v["launches"][k] for v in
+                                         out["16a"].values())
+                                  for k in launch_counts(GW, K)}
+        require(out["launches"]["16a"]["window_group_sums"] > 0,
+                "window_group_sums never launched in 16a")
+        require(M.TpuShuffleManager.live_executors() == SHUFFLE_EXECUTORS,
+                f"16a: {M.TpuShuffleManager.live_executors()} executors")
+        part_done("16a (Q3, Q5, Q9, Q18 over four executors)", t_part)
+
+        # 16b. Q5, every map output on the TCP lane, zstd on the wire
+        t_part = time.perf_counter()
+        fresh_executors()
+        with tcp_statuses():
+            b = shuffle_query(torch, dev, 5, tables, gold, shuffle_conf(
+                5, **{C.SHUFFLE_COMPRESSION_CODEC.key: "zstd"}),
+                "16b q5 tcp zstd", GW, K)
+        same_result(out["16a"][5]["frame"], b["frame"], "16b q5")
+        wire = b["exchanges"]["shuffleCompressedBytes"]
+        raw = b["exchanges"]["shuffleUncompressedBytes"]
+        require(wire > 0 and raw > wire,
+                f"16b: no compressed bytes crossed the wire ({wire}, {raw})")
+        print(f"shuffle 16b: Q5 over TCP with zstd, {int(wire)} wire bytes "
+              f"for {int(raw)} raw ({wire / raw:.3f}), the rows of 16a's "
+              f"to the bit", flush=True)
+        out["16b"] = {**b, "wire_bytes": wire, "raw_bytes": raw}
+        out["launches"]["16b"] = b["launches"]
+        part_done("16b (Q5 over TCP with zstd)", t_part)
+
+        # 16c. Q3 with one executor killed after a few served frames
+        t_part = time.perf_counter()
+        fresh_executors()
+        recovery = {C.SHUFFLE_FETCH_MAX_RETRIES.key: 1,
+                    C.SHUFFLE_FETCH_BACKOFF_BASE_MS.key: 1.0,
+                    C.SHUFFLE_BLACKLIST_THRESHOLD.key: 1}
+        conf_c = shuffle_conf(3, **recovery)
+        for i in range(SHUFFLE_EXECUTORS):
+            M.TpuShuffleManager.get_or_create(
+                f"local-{i}", conf=conf_c if i != 1 else shuffle_conf(
+                    3, **recovery,
+                    **{C.SHUFFLE_FAULT_PEER_KILL_FRAMES.key: 4}),
+                device=dev)
+        victim = M.TpuShuffleManager.get("local-1")
+        c = shuffle_query(torch, dev, 3, tables, gold, conf_c,
+                          "16c q3 peer kill", GW, K)
+        same_result(out["16a"][3]["frame"], c["frame"], "16c q3")
+        ex = c["exchanges"]
+        require(victim.transport.faults.peer_killed,
+                "16c: the victim executor was never killed")
+        require(ex["numMapRecomputes"] > 0 and ex["numStageRetries"] > 0,
+                f"16c: no recovery: {ex}")
+        print(f"shuffle 16c: Q3 with local-1 killed after "
+              f"{victim.transport.faults.frames_served} frames: fetch "
+              f"failures {int(ex['numFetchFailures'])}, maps recomputed "
+              f"{int(ex['numMapRecomputes'])}, stage attempts beyond the "
+              f"first {int(ex['numStageRetries'])}, peers blacklisted "
+              f"{int(ex['numPeersBlacklisted'])}; the rows of 16a's to the "
+              f"bit", flush=True)
+        out["16c"] = c
+        out["launches"]["16c"] = c["launches"]
+        part_done("16c (Q3 under peer kill)", t_part)
+
+        # 16d. Q3 with speculation against one slow executor
+        t_part = time.perf_counter()
+        fresh_executors()
+        SPEC.reset_speculation_stats()
+        W.reset_slow_injection()
+        d = shuffle_query(torch, dev, 3, tables, gold, shuffle_conf(3, **{
+            C.SPECULATION_ENABLED.key: True,
+            C.SPECULATION_MIN_RUNTIME_MS.key: 50.0,
+            C.SPECULATION_MIN_COMPLETED.key: 1,
+            C.SPECULATION_MULTIPLIER.key: 3.0,
+            C.WATCHDOG_POLL_INTERVAL.key: 0.05,
+            C.SLOW_INJECT_SITE.key: "map-task",
+            C.SLOW_INJECT_FACTOR.key: 10.0,
+            C.SLOW_INJECT_UNIT_MS.key: 20.0,
+            C.SLOW_INJECT_VICTIM.key: "local-1",
+            C.SLOW_INJECT_SEED.key: seed}), "16d q3 speculation", GW, K)
+        same_result(out["16a"][3]["frame"], d["frame"], "16d q3")
+        stats = SPEC.speculation_stats()
+        require(stats["wins"] >= 1 and stats["losers_cancelled"] >= 1,
+                f"16d: no duplicate won and no loser was cancelled: "
+                f"{stats}")
+        print(f"shuffle 16d: Q3 with local-1 slowed "
+              f"{W.slow_injection_counts()}: speculation {stats}, "
+              f"exchanges {int(d['exchanges']['numSpeculativeTasks'])} "
+              f"duplicates, {int(d['exchanges']['numSpeculativeWins'])} "
+              f"won; the rows of 16a's to the bit, every buffer freed",
+              flush=True)
+        W.reset_slow_injection()
+        out["16d"] = {**d, "speculation": stats}
+        out["launches"]["16d"] = d["launches"]
+        part_done("16d (Q3 with speculation)", t_part)
+
+        # 16e. a map output of a second process on the card, over TCP
+        t_part = time.perf_counter()
+        fresh_executors()
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        spec = json.loads(child_line(child, "OUTPUT:"))
+        want = shuffle_child_table(seed, SHUFFLE_CHILD_ROWS)
+        reader = M.TpuShuffleManager.get_or_create(
+            "executor-R", conf=shuffle_conf(0), device=dev)
+        reader.register_shuffle(child_sid)
+        M.MapOutputRegistry.register(child_sid, 0, M.MapStatus(
+            spec["executor_id"], spec["tcp_address"],
+            spec["partition_sizes"], tcp_address=spec["tcp_address"]))
+        metrics = MX.MetricSet()
+        t0 = time.perf_counter()
+        got = list(reader.get_reader(child_sid, 0, timeout=30.0,
+                                     metrics=metrics))
+        torch.cuda.synchronize(dev)
+        read_s = time.perf_counter() - t0
+        require(len(got) == 1 and got[0].device.type == "cuda",
+                f"16e: {len(got)} batches read")
+        table = got[0].to_arrow()
+        for name in want.column_names:
+            w_col = want.column(name)
+            if name == "s":
+                w_col = w_col.cast("string")
+            require(table.column(name).equals(w_col),
+                    f"16e: column {name} differs from the served batch")
+        md = metrics.as_dict()
+        del got, table
+        print(f"shuffle 16e: {SHUFFLE_CHILD_ROWS} rows (int64, float64 and "
+              f"int32 with nulls, strings with nulls) from a second "
+              f"process on the card (its setup {spec['setup_s']:.1f} s) "
+              f"over TCP with lz4 in {read_s:.3f} s: "
+              f"{int(md['shuffleCompressedBytes'])} wire bytes for "
+              f"{int(md['shuffleUncompressedBytes'])} raw, equal to the "
+              f"batch to the bit", flush=True)
+        # the server is killed while a second read of the same output is
+        # in flight: FetchFailedError within the read's timeout, no hang
+        child.stdin.write(b"pace\n")
+        child.stdin.flush()
+        child_line(child, "PACED")
+        seen: dict = {}
+
+        def kill_in_flight():
+            deadline = time.monotonic() + 20.0
+            while not CSV.inflight_count() and time.monotonic() < deadline:
+                time.sleep(0.005)
+            time.sleep(SHUFFLE_KILL_AFTER_S)
+            seen["in_flight"] = CSV.inflight_fetches()
+            child.kill()
+
+        import threading
+        killer = threading.Thread(target=kill_in_flight, daemon=True)
+        killer.start()
+        t0 = time.perf_counter()
+        try:
+            list(reader.get_reader(child_sid, 0, timeout=20.0))
+            raise RuntimeError("16e: the read completed though its server "
+                               "was killed")
+        except CSV.FetchFailedError as e:
+            failed = str(e)
+        kill_s = time.perf_counter() - t0
+        killer.join(30)
+        child.wait(30)
+        require(bool(seen.get("in_flight")),
+                "16e: the server was not killed while a fetch was in flight")
+        require(kill_s < 30.0, f"16e: FetchFailedError took {kill_s:.1f} s")
+        reader.unregister_shuffle(child_sid)
+        print(f"shuffle 16e: the server process killed "
+              f"{SHUFFLE_KILL_AFTER_S} s into a paced read (in flight: "
+              f"{seen['in_flight']}): FetchFailedError after {kill_s:.2f} s:"
+              f" {failed[:160]}", flush=True)
+        out["16e"] = {"rows": SHUFFLE_CHILD_ROWS, "read_s": read_s,
+                      "child_setup_s": spec["setup_s"],
+                      "wire_bytes": md["shuffleCompressedBytes"],
+                      "raw_bytes": md["shuffleUncompressedBytes"],
+                      "kill_s": kill_s}
+        fresh_executors()
+        out["16e"]["memory"] = settled_memory(torch, dev, GW, K, before,
+                                              kernel_state_bytes(GW, K),
+                                              "shuffle 16e")
+        part_done("16e (a second process's map output over TCP)", t_part)
+
+        # 16f. the brute-force joins on the card
+        t_part = time.perf_counter()
+        reset_launches(GW, K)
+        conf_f = tpch_conf(0, **{
+            C.op_enable_key("exec", "CpuCartesianProduct"): True,
+            C.op_enable_key("exec", "CpuNestedLoopJoin"): True})
+        src = TD.sources({k: tables[k] for k in ("nation", "region")}, 1)
+        cross = tables["nation"].merge(tables["region"], how="cross")
+        out["16f"] = {}
+        for name, node, want_df in (
+                ("cartesian", N.CpuCartesianProduct(src["nation"],
+                                                    src["region"]), cross),
+                ("nested loop", N.CpuNestedLoopJoin(
+                    JoinType.INNER, src["nation"], src["region"],
+                    col("n_regionkey") < col("r_regionkey")),
+                 cross[cross["n_regionkey"] < cross["r_regionkey"]])):
+            t0 = time.perf_counter()
+            plan = accelerate(node, conf_f, device=dev)
+            require(any(isinstance(n, NestedLoopJoinExec)
+                        for n in walk(plan)),
+                    f"16f {name}: no NestedLoopJoinExec in the plan")
+            df = collect(plan, conf_f)
+            sec = time.perf_counter() - t0
+            keys = ["n_nationkey", "r_regionkey"]
+            got_df = df.sort_values(keys, ignore_index=True)
+            want_s = want_df.sort_values(keys, ignore_index=True)
+            require(len(got_df) == len(want_s), f"16f {name}: rows")
+            for c_ in want_s.columns:
+                require(got_df[c_].astype(str).tolist()
+                        == want_s[c_].astype(str).tolist(),
+                        f"16f {name}: column {c_} differs from pandas")
+            print(f"shuffle 16f: nation x region {name} on the card: "
+                  f"{len(df)} rows equal to pandas, {sec:.3f} s", flush=True)
+            out["16f"][name] = {"rows": len(df), "s": sec}
+            del plan, df
+        out["launches"]["16f"] = launch_counts(GW, K)
+        part_done("16f (the brute-force joins)", t_part)
+    finally:
+        child.kill()
+        child.wait(30)
+        M.TpuShuffleManager.close_all()
+    deadline = time.monotonic() + 10.0
+    while shuffle_threads() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    require(M.TpuShuffleManager.live_executors() == 0,
+            "executors left after phase 16")
+    require(not shuffle_threads(),
+            f"shuffle threads left after phase 16: {shuffle_threads()}")
+    print(f"shuffle: live executors {M.TpuShuffleManager.live_executors()},"
+          f" shuffle threads {shuffle_threads()}", flush=True)
+    for part in ("16a",):
+        for v in out[part].values():
+            v.pop("frame", None)
+    for part in ("16b", "16c", "16d"):
+        out[part].pop("frame", None)
+    out["laps"] = laps
+    return out
+
+
 def kernel_cases(torch, dev, GW, K):
     """(grouped_case, window_case): a kernel's call on `dev` held
     against its plain twin, its second call's bits, and its times (the
@@ -4280,9 +4876,20 @@ def main() -> int:
                              **gold_rest},
         GW, K, (grouped_case, window_case), single_s, orders=HALF_STREAMS)
     io_reset()
-    del tables
     lap("15 (the runtime: TPC-H throughput test, admission, result cache, "
         "watchdog, AQE, wrappers under threads)")
+
+    # 16. the shuffle manager lane over the same tables: four executors
+    # of the card, the TCP lane, peer loss, a straggler, a second process
+    # and the brute-force joins
+    shuffle = shuffle_phase(
+        torch, dev, tables, {1: gold_q1, 6: gold_q6, **gold, **gold_parts,
+                             **gold_rest},
+        GW, K, (grouped_case, window_case), args.seed)
+    del tables
+    lap("16 (the shuffle manager lane: Q3, Q5, Q9, Q18 over four "
+        "executors, TCP with zstd, peer kill, speculation, a second "
+        "process, the brute-force joins)")
     io_more = {i["label"]: i for i in list(io_b["queries"].values())
                + list(gaps.values())}
     for name, cases in plan_cases("14b and 14c", io_more, window_case,
@@ -4314,7 +4921,7 @@ def main() -> int:
     lap(f"11b (TPC-DS 18 queries at {WL_SCALE} store_sales rows)")
     # 13b: TPC-DS's other 85 and Mortgage; TPCx-BB's 28 run by
     # scripts/torch_workloads_phase.py (the docstring's Cuts)
-    ds_more = ds_phase(torch, dev, args.seed, GW, K, queries=ds_rest(),
+    ds_more = ds_phase(torch, dev, args.seed, GW, K, queries=ds_rest_cut(),
                        tables=tables)
     del tables
     wl = workloads_scale_phase(torch, dev, args.seed, GW, K, WL_SCALE,
@@ -4324,7 +4931,8 @@ def main() -> int:
         require(any(v["launches"][name] for suite in wl.values()
                     for v in suite.values()),
                 f"{name} never launched in phase 13b")
-    lap(f"13b (TPC-DS 85 at {WL_SCALE} store_sales rows, Mortgage at "
+    lap(f"13b (TPC-DS {len(ds_rest_cut())} of the 85 at {WL_SCALE} "
+        f"store_sales rows, Mortgage at "
         f"{MORTGAGE_LOANS} loans x {MORTGAGE_MONTHS} months)")
 
     kernels["q1_fused"]["launches"] = step_launches
@@ -4373,6 +4981,13 @@ def main() -> int:
     for name in kernels:
         kernels[name]["runtime_launches"] = {
             part: v[name] for part, v in runtime["launches"].items()}
+    for name in kernels:
+        kernels[name]["shuffle_launches"] = {
+            part: v[name] for part, v in shuffle["launches"].items()}
+        kernels[name]["shuffle_cases"] = [
+            {k: c["cases"][name][k] for k in case_keys
+             if k in c["cases"][name]}
+            for c in shuffle["16a"].values() if name in c["cases"]]
     for name in ("window_group_sums", "grouped_sum"):
         kernels[name]["runtime_cases"] = [
             {k: runtime["15a"]["cases"][name][k] for k in case_keys
@@ -4397,7 +5012,8 @@ def main() -> int:
             "etl_cases", "tpcds_launches", "tpcds_cases", "memory_launches",
             "memory_cases", "tpcxbb_launches", "mortgage_launches",
             "workload_cases", "io_launches", "io_cases",
-            "runtime_launches", "runtime_cases")
+            "runtime_launches", "runtime_cases", "shuffle_launches",
+            "shuffle_cases")
     line = {"kernels": [{k: v[k] for k in keys if k in v}
                         for v in kernels.values()]}
     print(json.dumps(line), flush=True)

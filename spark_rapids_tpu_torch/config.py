@@ -20,15 +20,18 @@ class ConfEntry:
     default: Any
     doc: str
     converter: Callable[[str], Any]
+    #: a test-only or engine-internal key, left out of user docs
+    internal: bool = False
 
 
 def _bool(s):
     return s if isinstance(s, bool) else str(s).lower() in ("true", "1", "yes")
 
 
-def conf(key: str, default: Any, doc: str) -> ConfEntry:
+def conf(key: str, default: Any, doc: str,
+         internal: bool = False) -> ConfEntry:
     conv = {bool: _bool, int: int, float: float, str: str}[type(default)]
-    entry = ConfEntry(key, default, doc, conv)
+    entry = ConfEntry(key, default, doc, conv, internal)
     _REGISTRY[key] = entry
     return entry
 
@@ -87,13 +90,143 @@ DENSE_JOIN_MAX_SPAN = conf(
     "is 8 bytes per slot).")
 RAPIDS_SHUFFLE_ENABLED = conf(
     "spark.rapids.shuffle.enabled", False,
-    "Route exchanges through the accelerated shuffle manager.  Not "
-    "ported yet: an exchange raises NotImplementedError while it is on.")
+    "Route exchanges through the accelerated shuffle manager (map "
+    "outputs held spillable in the device store, reduce partitions "
+    "read from the catalog or fetched over the transport, "
+    "shuffle/manager.py) instead of the in-process exchange.")
 MESH_EXCHANGE_ENABLED = conf(
     "spark.rapids.shuffle.meshExchange.enabled", True,
     "Route hash exchanges through a device-mesh all-to-all when a mesh "
     "is active.  Not ported yet: the port has no active mesh, so the "
     "local exchange lane runs.")
+
+# --- the shuffle manager lane (shuffle/manager.py and its transport) -------
+SHUFFLE_TRANSPORT_CLASS = conf(
+    "spark.rapids.shuffle.transport.class",
+    "spark_rapids_tpu_torch.shuffle.ici_transport.IciShuffleTransport",
+    "Fully-qualified RapidsShuffleTransport implementation.  A class "
+    "of the JAX package (a module under spark_rapids_tpu.) is refused "
+    "with a ValueError naming this default, never imported.")
+SHUFFLE_MAX_RECV_INFLIGHT = conf(
+    "spark.rapids.shuffle.maxMetadataFetchSize", 1073741824,
+    "Max in-flight receive bytes per client (throttle).")
+SHUFFLE_BOUNCE_BUFFER_SIZE = conf(
+    "spark.rapids.shuffle.bounceBuffers.size", 4194304,
+    "Bounce/staging buffer size for cross-slice (DCN) transfers.")
+SHUFFLE_BOUNCE_BUFFER_COUNT = conf(
+    "spark.rapids.shuffle.bounceBuffers.count", 32,
+    "Number of staging buffers per transport direction.")
+SHUFFLE_COMPRESSION_CODEC = conf(
+    "spark.rapids.shuffle.compression.codec", "none",
+    "Codec for serialized shuffle payloads on the transport wire: "
+    "none, copy (testing), lz4, zstd.")
+SHUFFLE_FAULT_DROP_RATE = conf(
+    "spark.rapids.shuffle.transport.faultInjection.dropRate", 0.0,
+    "TEST ONLY: probability that the transport server aborts a "
+    "transfer mid-stream (connection-loss injection; the reference "
+    "builds UCX with --enable-fault-injection for the same class of "
+    "soak testing). The client's bounded-retry path must recover.",
+    internal=True)
+SHUFFLE_FAULT_CORRUPT_RATE = conf(
+    "spark.rapids.shuffle.transport.faultInjection.corruptRate", 0.0,
+    "TEST ONLY: probability that a DATA chunk payload is corrupted on "
+    "the wire; the receiver's deserialization/CRC checks must detect "
+    "it and the fetch must retry.", internal=True)
+SHUFFLE_FAULT_SEED = conf(
+    "spark.rapids.shuffle.transport.faultInjection.seed", 0,
+    "Deterministic seed for fault injection.", internal=True)
+SHUFFLE_FAULT_PEER_KILL_FRAMES = conf(
+    "spark.rapids.shuffle.transport.faultInjection.peerKillAfterFrames", 0,
+    "TEST ONLY: after serving this many DATA frames (across both the "
+    "TCP and loopback lanes) the transport kills its own peer: sockets "
+    "close mid-stream, the accept loop stops, and the loopback "
+    "registration disappears — a hard executor loss, not a polite "
+    "error.  The shuffle fault-recovery subsystem must invalidate the "
+    "peer's map outputs and recompute them.  0 disables.",
+    internal=True)
+SHUFFLE_FETCH_MAX_RETRIES = conf(
+    "spark.rapids.shuffle.fetch.maxRetries", 3,
+    "Transfer-level retry budget per peer fetch: a failed transaction "
+    "(mid-stream abort, wire corruption, dead socket) is retried on a "
+    "fresh connection up to this many times before the fetch surfaces "
+    "a FetchFailedError to the stage-recovery layer (reference "
+    "RapidsShuffleClient FetchRetry).")
+SHUFFLE_FETCH_BACKOFF_BASE_MS = conf(
+    "spark.rapids.shuffle.fetch.backoff.baseMs", 50.0,
+    "Base delay for exponential backoff between fetch retries: attempt "
+    "k sleeps min(capMs, baseMs * 2^(k-1)) with +/-50% deterministic "
+    "jitter (seeded from faultInjection.seed when set), so a flapping "
+    "peer is not hammered with immediate reconnects.")
+SHUFFLE_FETCH_BACKOFF_CAP_MS = conf(
+    "spark.rapids.shuffle.fetch.backoff.capMs", 2000.0,
+    "Upper bound on a single fetch-retry backoff sleep.")
+SHUFFLE_RECOVERY_ENABLED = conf(
+    "spark.rapids.shuffle.recovery.enabled", True,
+    "Recover from shuffle fetch failures instead of failing the query: "
+    "a FetchFailedError at the reduce side invalidates the failed "
+    "peer's map outputs (per-shuffle epoch bump), recomputes only the "
+    "lost map tasks from the exchange's retained lineage, and retries "
+    "the reduce — the role Spark's DAG scheduler plays for the "
+    "reference's FetchFailedException.")
+SHUFFLE_RECOVERY_MAX_STAGE_ATTEMPTS = conf(
+    "spark.rapids.shuffle.recovery.maxStageAttempts", 4,
+    "Bounded stage retries: how many times a reduce partition may be "
+    "attempted (initial try + recoveries) before the query fails with "
+    "a descriptive FetchFailedError — never a hang, never a partial "
+    "result (Spark's spark.stage.maxConsecutiveAttempts analog).")
+SHUFFLE_BLACKLIST_THRESHOLD = conf(
+    "spark.rapids.shuffle.recovery.blacklist.failureThreshold", 3,
+    "Consecutive recovery-attributed failures after which a peer "
+    "address is blacklisted: readers route around it via the "
+    "MapStatus's alternate address and map tasks stop being placed on "
+    "it, instead of waiting out its full timeout every stage.")
+SHUFFLE_BLACKLIST_DECAY_S = conf(
+    "spark.rapids.shuffle.recovery.blacklist.decaySeconds", 30.0,
+    "A blacklist entry expires after this long and the peer gets a "
+    "fresh consecutive-failure budget — a recovered (flapping) "
+    "executor rejoins service instead of being shunned forever.")
+SHUFFLE_LOCAL_EXECUTORS = conf(
+    "spark.rapids.shuffle.localExecutors", 1,
+    "Number of in-process executor environments the manager-lane "
+    "exchange spreads map tasks across (round-robin).  >1 makes map "
+    "outputs genuinely remote to the reducing executor — loopback/TCP "
+    "fetches, fault injection, and recovery all exercise multi-executor "
+    "behavior in one process, like the reference's mocked-transport "
+    "suites.  1 (default) keeps the single local manager.")
+SHUFFLE_REPLICATION_FACTOR = conf(
+    "spark.rapids.shuffle.replication.factor", 1,
+    "Copies of each map output across in-process executors (1 = "
+    "primary only, the default).  At 2+ the CachingShuffleWriter "
+    "pushes each partition's serialized payload to factor-1 backup "
+    "executors at write time: hedged fetches "
+    "(spark.rapids.shuffle.hedge.enabled) can race a replica against "
+    "a slow primary, and shuffle recovery promotes a live replica to "
+    "primary on peer loss instead of recomputing from lineage "
+    "(recompute remains the fallback when no replica survives).  "
+    "Costs one extra serialization + host-store copy per replicated "
+    "partition (replicatedBytes on the exchange's metrics).")
+SHUFFLE_HEDGE_ENABLED = conf(
+    "spark.rapids.shuffle.hedge.enabled", False,
+    "Hedge slow shuffle fetches: when a remote fetch has not "
+    "completed after the hedge delay (hedge.delayMs floor, or the "
+    "hedge.quantile of recently observed fetch durations once enough "
+    "samples exist), issue the same block request to a replica peer "
+    "(shuffle.replication.factor >= 2) and keep the first complete, "
+    "uncorrupted response — the loser is cancelled and its buffers "
+    "freed.  "
+    "First-wins is bit-exact: both attempts serve identical "
+    "serialized payloads.")
+SHUFFLE_HEDGE_DELAY_MS = conf(
+    "spark.rapids.shuffle.hedge.delayMs", 1000.0,
+    "Floor (and cold-start fallback) for the hedge trigger delay: a "
+    "fetch outstanding this long fires the hedge even before enough "
+    "latency samples exist to compute the quantile.")
+SHUFFLE_HEDGE_QUANTILE = conf(
+    "spark.rapids.shuffle.hedge.quantile", 0.95,
+    "Latency quantile of recently completed fetches above which an "
+    "outstanding fetch is considered straggling and hedged (once >= 8 "
+    "samples exist; the effective delay is max(quantile latency, "
+    "hedge.delayMs)).")
 
 # --- expressions ------------------------------------------------------------
 INCOMPATIBLE_OPS = conf(
@@ -395,6 +528,36 @@ RESULT_CACHE_MAX_BYTES = conf(
     "spark.rapids.sql.scheduler.resultCache.maxBytes", 268435456,
     "Byte bound on the result cache (LRU eviction; host memory).  A "
     "single result larger than this is never cached.")
+
+# --- speculative partition execution (exec/speculation.py) -------------------
+SPECULATION_ENABLED = conf(
+    "spark.rapids.sql.speculation.enabled", False,
+    "Launch duplicate attempts of straggling manager-lane map tasks "
+    "(spark.rapids.shuffle.enabled with localExecutors >= 2): a task "
+    "running far past its stage's completed-task median (a *slow* "
+    "watchdog classification, distinct from *hung*) is re-executed "
+    "from the exchange's retained lineage on another in-process "
+    "executor; whichever attempt commits its map output first wins "
+    "and the loser is cancelled via its per-attempt CancelToken.  "
+    "First-wins commit is epoch-guarded in the MapOutputRegistry, so "
+    "a losing attempt can never publish — results stay bit-exact.  "
+    "The p95/p99 lever for one degraded executor; speculation never "
+    "fires on a healthy stage.")
+SPECULATION_MULTIPLIER = conf(
+    "spark.rapids.sql.speculation.multiplier", 3.0,
+    "How many times slower than the stage's completed-task median a "
+    "running task must be before a speculative duplicate launches "
+    "(spark.speculation.multiplier analog).")
+SPECULATION_MIN_RUNTIME_MS = conf(
+    "spark.rapids.sql.speculation.minTaskRuntimeMs", 100.0,
+    "A task is never speculated before running at least this long — "
+    "guards against duplicating every task of a stage whose median is "
+    "microseconds.")
+SPECULATION_MIN_COMPLETED = conf(
+    "spark.rapids.sql.speculation.minCompletedTasks", 2,
+    "Completed tasks the stage needs before its median is trusted for "
+    "slow classification (spark.speculation.quantile analog: no "
+    "speculation while the baseline is unknown).")
 
 # --- async pipelined execution (exec/pipeline.py) ----------------------------
 PIPELINE_ENABLED = conf(

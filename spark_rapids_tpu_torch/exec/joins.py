@@ -34,8 +34,15 @@ Every probe batch and the build-side concat go through the OOM retry
 harness (`TpuExec.oom_retry_batches`, memory/retry.py).
 
 Join types: inner, left/right/full outer, left semi, left anti.  A
-residual condition filters an inner join's pairs.  Not ported:
-BroadcastHashJoinExec, NestedLoopJoinExec and CartesianProductExec.
+residual condition filters an inner join's pairs.
+
+`BroadcastHashJoinExec` builds from a broadcast exchange's one batch.
+`NestedLoopJoinExec` (and `CartesianProductExec`, its constructor) is the
+brute-force join of the reference's GpuBroadcastNestedLoopJoinExec and
+GpuCartesianProductExec, inner and cross only: every (left, right) row
+pair of a left piece and a right batch, gathered at once, then the
+condition; the left side is cut into pieces so that one pair block fits
+`target_size_bytes` (spark.rapids.sql.batchSizeBytes from the planner).
 """
 from __future__ import annotations
 
@@ -715,6 +722,100 @@ class BroadcastHashJoinExec(HashJoinExec):
         # partitioning it here would bound nothing the broadcast did not
         # already pay
         return not self._broadcast_build()
+
+
+class NestedLoopJoinExec(TpuExec):
+    """Brute-force cross or conditioned inner join (reference
+    GpuBroadcastNestedLoopJoinExec / GpuCartesianProductExec, both
+    disabled by default there for their memory).  Pairs come out
+    left-major: left row i with every right row, then row i + 1."""
+
+    def __init__(self, left: TpuExec, right: TpuExec,
+                 condition: Optional[Expression] = None,
+                 join_type: JoinType = JoinType.CROSS):
+        super().__init__(left, right)
+        if join_type not in (JoinType.CROSS, JoinType.INNER):
+            raise ValueError("nested loop join supports cross/inner only")
+        self.join_type = join_type
+        self.condition = condition
+        self._schema = T.Schema(tuple(left.output_schema().fields) +
+                                tuple(right.output_schema().fields))
+        self._cond_filter = None
+        #: bytes one pair block may take (0: 1 GiB)
+        self.target_size_bytes = 0
+
+    def output_schema(self) -> T.Schema:
+        return self._schema
+
+    def output_partition_count(self) -> int:
+        return 1
+
+    def describe(self):
+        cond = "" if self.condition is None else f", {self.condition!r}"
+        return f"NestedLoopJoinExec({self.join_type.value}{cond})"
+
+    def _pairs(self, lb: ColumnarBatch, rb: ColumnarBatch) -> ColumnarBatch:
+        """Every (left row, right row) pair of two dense batches."""
+        ln, rn = lb.num_rows, rb.num_rows
+        n = ln * rn
+        k = torch.arange(bucket_capacity(n), device=lb.device)
+        valid = k < n
+        lout = lb.gather(torch.where(valid, k // rn, 0), valid, n)
+        rout = rb.gather(torch.where(valid, k % rn, 0), valid, n)
+        return ColumnarBatch(self._schema, lout.columns + rout.columns, n,
+                             lb.checks + rb.checks)
+
+    def _apply_condition(self, batch: ColumnarBatch) -> ColumnarBatch:
+        from spark_rapids_tpu_torch.exec.basic import FilterExec
+        if self._cond_filter is None:
+            self._cond_filter = FilterExec(self.condition,
+                                           SchemaOnlyExec(self._schema))
+        (out,) = self._cond_filter.process_partition(iter([batch]))
+        return out
+
+    def execute_columnar(self) -> Iterator[ColumnarBatch]:
+        right = [b.dense() for it in self.children[1].execute_partitions()
+                 for b in it if b.maybe_nonempty()]
+        right = [b for b in right if b.num_rows > 0]
+        # the pair block of a left piece and a right batch holds
+        # piece x right-capacity rows: the left side is cut until that
+        # fits target_size_bytes (reference targetSizeBytes)
+        tsb = int(self.target_size_bytes) or (1 << 30)
+        row_bytes = max(8 * len(self._schema.fields), 1)
+        for it in self.children[0].execute_partitions():
+            for lb in it:
+                W.check_cancelled()
+                if not lb.maybe_nonempty():
+                    continue
+                lb = lb.dense()
+                if lb.num_rows == 0:
+                    continue
+                for rb in right:
+                    max_left = max(1, tsb // (row_bytes * rb.capacity))
+                    pieces = ([lb] if lb.capacity <= max_left else
+                              [lb.slice(lo, min(max_left, lb.num_rows - lo))
+                               for lo in range(0, lb.num_rows, max_left)])
+                    for piece in pieces:
+                        with self.metrics.timed(M.TOTAL_TIME):
+                            out = self._pairs(piece.dense(), rb)
+                            if self.condition is not None:
+                                out = self._apply_condition(out)
+                        if out.maybe_nonempty():
+                            self.update_output_metrics(out)
+                            yield out
+
+    def execute_partitions(self):
+        return [self.execute_columnar()]
+
+
+def CartesianProductExec(left: TpuExec, right: TpuExec,
+                         condition: Optional[Expression] = None
+                         ) -> NestedLoopJoinExec:
+    """Spark's CartesianProductExec: a CROSS nested-loop join, built
+    through the shims as the reference builds it."""
+    from spark_rapids_tpu_torch.shims import current_shims
+    return current_shims(C.get_active_conf()).make_nested_loop_join(
+        JoinType.CROSS, left, right, condition)
 
 
 def _drain(batches: list) -> Iterator[ColumnarBatch]:

@@ -100,6 +100,8 @@ class BufferStore:
         self._lock = threading.RLock()
         self.spill_store: Optional["BufferStore"] = None
         self.current_size = 0
+        #: the most bytes resident at once since the last reset_peak()
+        self.peak_size = 0
         #: bytes ever stored at this tier (a spill report's per-tier sum)
         self.bytes_added = 0
 
@@ -112,6 +114,7 @@ class BufferStore:
             self._buffers[buf.id] = buf
             buf.store = self
             self.current_size += buf.size_bytes
+            self.peak_size = max(self.peak_size, self.current_size)
             self.bytes_added += buf.size_bytes
             h = id(buf)
             self._handle_of[h] = buf.id
@@ -143,6 +146,10 @@ class BufferStore:
     def get(self, bid: BufferId) -> Optional[SpillableBuffer]:
         with self._lock:
             return self._buffers.get(bid)
+
+    def reset_peak(self) -> None:
+        with self._lock:
+            self.peak_size = self.current_size
 
     def stats(self) -> dict:
         """Resident bytes + buffer count for this tier (telemetry

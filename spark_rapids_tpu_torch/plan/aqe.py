@@ -17,8 +17,11 @@ The two optimizations the reference takes part in:
 `adaptive_execute` walks the physical plan bottom-up, materializes every
 `ShuffleExchangeExec` into a `ShuffleQueryStageExec` (its reduce-side
 batches held on the device), reads the per-partition sizes, and rewrites
-the rest of the plan.  The reference's stage re-materialization after a
-shuffle-manager fetch failure comes with that manager (not ported).
+the rest of the plan.  A stage whose materialization fails with a
+`FetchFailedError` (the shuffle manager's recovery gave up) is
+materialized again from scratch, as Spark resubmits a failed stage, up
+to spark.rapids.shuffle.recovery.maxStageAttempts times (once with
+recovery off).
 """
 from __future__ import annotations
 
@@ -178,12 +181,41 @@ class ShuffleQueryStageExec(TpuExec):
         # materialized again after release_stage_buffers dropped them: a
         # plan run again re-runs the exchange
         if self._buckets is None:
-            self.materialize()
-            self._finish_fill()
-            if self._buckets is None:  # an async start raced a release
-                self._buckets = [list(it) for it in
-                                 self.exchange.execute_partitions()]
+            self._materialize_with_retries()
         return self._buckets
+
+    def _materialize_with_retries(self) -> None:
+        """Materialize the stage, again from scratch after a
+        FetchFailedError: the exchange's own recovery recomputed what it
+        could, so a failure that still surfaces re-runs the WHOLE stage
+        (reference plan/aqe.py:182-205), a bounded number of times."""
+        from spark_rapids_tpu_torch.shuffle.client_server import (
+            FetchFailedError)
+        from spark_rapids_tpu_torch.utils import metrics as M
+        conf = C.get_active_conf()
+        allowed = (max(1, int(conf[C.SHUFFLE_RECOVERY_MAX_STAGE_ATTEMPTS]))
+                   if conf[C.SHUFFLE_RECOVERY_ENABLED] else 1)
+        attempt = 1
+        while True:
+            try:
+                self.materialize()
+                self._finish_fill()
+                if self._buckets is None:  # an async start raced a release
+                    self._buckets = [list(it) for it in
+                                     self.exchange.execute_partitions()]
+                return
+            except FetchFailedError as e:
+                self._fill = None
+                self._queues = None
+                self._acc = None
+                self._fill_error = None
+                self._consumed = set()
+                if attempt >= allowed:
+                    raise
+                attempt += 1
+                self.exchange.metrics.add(M.NUM_STAGE_RETRIES, 1)
+                log.warning("AQE stage re-materialization %d/%d after "
+                            "fetch failure: %s", attempt, allowed, e)
 
     def iter_partition(self, p: int) -> Iterator[ColumnarBatch]:
         """One partition's batches: STREAMED as they land while the fill

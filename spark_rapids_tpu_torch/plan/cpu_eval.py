@@ -16,6 +16,8 @@ every expression the planner does.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import pandas as pd
 
@@ -752,4 +754,27 @@ _DISPATCH = {
     "GetArrayItem": _get_array_item,
     "GetMapValue": _get_map_value,
 }
+
+
+def nested_loop_join(ldf: pd.DataFrame, rdf: pd.DataFrame,
+                     condition: Optional[E.Expression],
+                     schema: T.Schema) -> pd.DataFrame:
+    """The brute-force join on the CPU: every (left, right) row pair,
+    left-major, kept where `condition` (over both sides' columns, in
+    `schema`) is true."""
+    merged = ldf.merge(rdf.add_prefix("__r_"), how="cross")
+
+    def reassemble(frame):
+        return pd.concat([
+            frame[list(ldf.columns)].reset_index(drop=True),
+            frame[[f"__r_{c}" for c in rdf.columns]]
+            .rename(columns=lambda c: c[4:]).reset_index(drop=True)],
+            axis=1)
+
+    out = reassemble(merged)
+    if condition is not None and len(out):
+        m = cpu_eval(condition, out, schema)
+        out = out[m.astype("boolean").fillna(False).astype(bool)
+                  .to_numpy()].reset_index(drop=True)
+    return out
 

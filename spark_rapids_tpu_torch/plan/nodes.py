@@ -1,7 +1,7 @@
 """Device-neutral physical plan nodes with real CPU (pandas) execution
 (port of spark_rapids_tpu/plan/nodes.py: source, project, filter, limit,
-sort, aggregate, sort aggregate, hash and sort-merge join, cached
-columnar data and the user's repartition).
+sort, aggregate, sort aggregate, hash, sort-merge and nested-loop join,
+cartesian product, cached columnar data and the user's repartition).
 
 These play the role of Spark's own row-based operators: the input of the
 plan rewrite (`plan/overrides.py`), and the engine a node runs on when it
@@ -24,7 +24,9 @@ from spark_rapids_tpu_torch.exec.joins import JoinType
 from spark_rapids_tpu_torch.exec.sort import SortOrder
 from spark_rapids_tpu_torch.exprs.aggregates import AggAlias
 from spark_rapids_tpu_torch.exprs.base import Expression, output_name
-from spark_rapids_tpu_torch.plan.cpu_eval import cpu_eval, nullable_dtype
+from spark_rapids_tpu_torch.plan.cpu_eval import (cpu_eval,
+                                                  nested_loop_join,
+                                                  nullable_dtype)
 
 
 class CpuNode:
@@ -591,6 +593,60 @@ class CpuSortMergeJoin(CpuHashJoin):
 
     def describe(self):
         return f"CpuSortMergeJoin({self.join_type.value})"
+
+
+class CpuNestedLoopJoin(CpuNode):
+    """Brute-force join with NO equi keys (Spark
+    BroadcastNestedLoopJoinExec).  The reference registers its rule
+    disabled by default ('large joins can cause out of memory errors',
+    `GpuOverrides.scala:1770-1774`), and supports inner-like join types
+    only (`GpuBroadcastNestedLoopJoinExec.scala:49-53`); both hold here.
+    The planner's way to a non-equi join condition."""
+
+    def __init__(self, join_type: JoinType, left: CpuNode, right: CpuNode,
+                 condition: Optional[Expression] = None):
+        super().__init__(left, right)
+        if join_type not in (JoinType.INNER, JoinType.CROSS):
+            # refused at construction: the CPU evaluation computes inner
+            # and cross semantics only
+            raise ValueError(
+                f"nested loop join supports inner/cross only, "
+                f"got {join_type}")
+        self.join_type = join_type
+        self.condition = condition
+        ls, rs = left.output_schema(), right.output_schema()
+        self._schema = T.Schema(tuple(ls.fields) + tuple(rs.fields))
+
+    def output_schema(self):
+        return self._schema
+
+    def output_partition_count(self) -> int:
+        return 1
+
+    def describe(self):
+        cond = "" if self.condition is None else ", condition"
+        return f"{type(self).__name__}({self.join_type.value}{cond})"
+
+    def execute(self):
+        frames = []
+        for child in self.children:
+            parts = [df for it in child.execute() for df in it]
+            frames.append(pd.concat(parts, ignore_index=True) if parts
+                          else empty_df(child.output_schema()))
+        out = nested_loop_join(frames[0], frames[1], self.condition,
+                               self._schema)
+        return [iter([normalize_df(out, self._schema)])]
+
+
+class CpuCartesianProduct(CpuNestedLoopJoin):
+    """Spark's CartesianProductExec: a CROSS join of two sides, with an
+    optional condition.  A class of its own so its per-op enable key is
+    the reference's separate `exec[CartesianProductExec]` rule
+    (`GpuOverrides.scala:1774-1789`, also disabled by default)."""
+
+    def __init__(self, left: CpuNode, right: CpuNode,
+                 condition: Optional[Expression] = None):
+        super().__init__(JoinType.CROSS, left, right, condition)
 
 
 class CpuCachedColumnar(CpuNode):

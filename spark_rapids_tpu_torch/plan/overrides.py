@@ -482,6 +482,32 @@ def _tag_join(meta) -> None:
             "residual join condition only supported for inner joins")
 
 
+def _conv_nested_loop_join(meta, kids) -> TpuExec:
+    from spark_rapids_tpu_torch.shims import current_shims
+    node: N.CpuNestedLoopJoin = meta.node
+    return current_shims(meta.conf).make_nested_loop_join(
+        node.join_type, kids[0], kids[1], node.condition,
+        target_size_bytes=int(meta.conf[C.BATCH_SIZE_BYTES]))
+
+
+def _tag_nested_loop_join(meta) -> None:
+    """Reference `GpuOverrides.scala:1770-1789`: both brute-force join
+    rules are disabled by default ('large joins can cause out of memory
+    errors'); `GpuBroadcastNestedLoopJoinExec.scala:49-53` supports
+    inner-like types only."""
+    node: N.CpuNestedLoopJoin = meta.node
+    name = type(node).__name__
+    if not meta.conf.is_op_enabled("exec", name, default=False):
+        meta.will_not_work_on_gpu(
+            f"{name} is disabled by default (large joins can cause out "
+            f"of memory errors); enable with "
+            f"{C.op_enable_key('exec', name)}")
+    if node.join_type not in (JoinType.INNER, JoinType.CROSS):
+        meta.will_not_work_on_gpu(
+            f"nested loop join type {node.join_type} is not supported "
+            f"on the GPU (inner-like only)")
+
+
 def _strip_smj_sort(kid: TpuExec, keys) -> TpuExec:
     """Drop a per-partition SortExec that is exactly the ordering a
     sort-merge join requires (its keys, ascending, in key order, default
@@ -578,6 +604,18 @@ register_exec(
     exprs_of=lambda n: list(n.left_keys) + list(n.right_keys) +
     ([n.condition] if n.condition is not None else []),
     tag_extra=_tag_sort_merge_join)
+# the brute-force joins: registered as the reference's
+# exec[BroadcastNestedLoopJoinExec] / exec[CartesianProductExec] pair
+# (GpuOverrides.scala:1770-1789), both disabled by default
+register_exec(
+    N.CpuNestedLoopJoin, "join using brute force", _conv_nested_loop_join,
+    exprs_of=lambda n: [n.condition] if n.condition is not None else [],
+    tag_extra=_tag_nested_loop_join)
+register_exec(
+    N.CpuCartesianProduct, "cartesian product using brute force",
+    _conv_nested_loop_join,
+    exprs_of=lambda n: [n.condition] if n.condition is not None else [],
+    tag_extra=_tag_nested_loop_join)
 register_exec(N.CpuShuffleExchange, "shuffle exchange", _conv_shuffle,
               exprs_of=lambda n: list(n.spec.exprs) +
               [o.expr for o in n.spec.order])

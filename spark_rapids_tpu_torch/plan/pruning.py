@@ -187,6 +187,19 @@ def _prune(node: N.CpuNode, required: Optional[set], prune_columns,
                           prune_columns(node.children[1], rreq),
                           condition=node.condition,
                           broadcast=node.broadcast)
+    if isinstance(node, N.CpuNestedLoopJoin):
+        if required is None:
+            lreq = rreq = None
+        else:
+            above = set(required) | expr_refs(node.condition)
+            lreq = above & set(node.children[0].output_schema().names)
+            rreq = above & set(node.children[1].output_schema().names)
+        left = prune_columns(node.children[0], lreq)
+        right = prune_columns(node.children[1], rreq)
+        if isinstance(node, N.CpuCartesianProduct):
+            return N.CpuCartesianProduct(left, right, node.condition)
+        return N.CpuNestedLoopJoin(node.join_type, left, right,
+                                   node.condition)
     if isinstance(node, N.CpuUnion):
         kids = [prune_columns(c, required) for c in node.children]
         if build:

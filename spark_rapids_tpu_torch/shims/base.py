@@ -1,8 +1,8 @@
 """The shim surface (port of spark_rapids_tpu/shims/base.py, cut to the
-methods the I/O layer and the exchange call): the hybrid-calendar rebase
-keys and modes, the shuffle exchange constructor, file partition
-planning and the small-file scan copy.  The transitions, First/Last
-construction, AQE, the shuffle manager and the nested-loop constructor
+methods the I/O layer, the exchange and the brute-force joins call): the
+hybrid-calendar rebase keys and modes, the shuffle exchange and
+nested-loop join constructors, file partition planning and the
+small-file scan copy.  The transitions, First/Last construction and AQE
 come with the layers that call them."""
 from __future__ import annotations
 
@@ -81,6 +81,17 @@ class SparkShims:
         ex = ShuffleExchangeExec(partitioning, child)
         ex.can_change_num_partitions = True  # 3.0 semantics
         return ex
+
+    # -- join construction drift --------------------------------------------
+    def make_nested_loop_join(self, join_type, left, right, condition,
+                              target_size_bytes: int = 0):
+        """Nested-loop join constructor (reference
+        `getGpuBroadcastNestedLoopJoinShim`: the exec's constructor
+        signature drifts per version; targetSizeBytes threading changed)."""
+        from spark_rapids_tpu_torch.exec.joins import NestedLoopJoinExec
+        j = NestedLoopJoinExec(left, right, condition, join_type)
+        j.target_size_bytes = target_size_bytes
+        return j
 
     # -- file scan ----------------------------------------------------------
     def make_file_partitions(self, files: Sequence, max_bytes: int,

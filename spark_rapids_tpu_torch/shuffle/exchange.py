@@ -1,23 +1,35 @@
 """Shuffle exchange (port of spark_rapids_tpu/shuffle/exchange.py: the
-local lane).
+local lane and the shuffle-manager lane).
 
-Every upstream partition's batches are split by the bound partitioner
-(device-side partition ids, stable reorder, slices), and each downstream
-partition concatenates its slices.  The reference's other two lanes, the
-device-mesh all-to-all and the shuffle manager, are not ported: the
-manager's conf key raises here rather than running the local lane in its
-place, and the mesh lane needs an active device mesh, which the port
-cannot set, so its key engages nothing.  Neither side of the local lane
-prefetches, as the reference's does: its input is device work that a
-producer thread cannot overlap (exec/pipeline.py).
-`BroadcastExchangeExec` collects a small build side once for a broadcast
-hash join.
+Local lane: every upstream partition's batches are split by the bound
+partitioner (device-side partition ids, stable reorder, slices), and each
+downstream partition concatenates its slices.
+
+Manager lane (spark.rapids.shuffle.enabled, reference
+`RapidsShuffleManager` write/read): map tasks run over
+spark.rapids.shuffle.localExecutors executors of this process,
+round-robin over the healthy ones; each map output stays spillable in the
+device store through its executor's catalog, and each reduce partition
+reads its local blocks from the catalog and fetches the rest over the
+transport (loopback or TCP), through a recovery driver that recomputes a
+lost peer's maps from the retained lineage.  Speculation and map-output
+replicas ride on it when their keys are on.  The reduce side merges a
+partition's batches up to the consolidation target, as the local lane
+does.
+
+The reference's third lane, the device-mesh all-to-all, is not ported:
+the port has no active mesh, so its key engages nothing.  Neither side
+of either lane prefetches, as the reference's do: the map side is device
+work that a producer thread cannot overlap (exec/pipeline.py), and the
+manager's reads already run a fetch thread.  `BroadcastExchangeExec`
+collects a small build side once for a broadcast hash join.
 """
 from __future__ import annotations
 
 import itertools
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -66,9 +78,7 @@ class ShuffleExchangeExec(UnaryExecBase):
 
     def execute_partitions(self):
         if C.get_active_conf()[C.RAPIDS_SHUFFLE_ENABLED]:
-            raise NotImplementedError(
-                "the shuffle-manager exchange lane is not ported yet "
-                f"(set {C.RAPIDS_SHUFFLE_ENABLED.key}=false)")
+            return self._execute_via_manager()
         return [self._merged_reader(bs) for bs in self._materialize()]
 
     def _materialize(self) -> list[list[ColumnarBatch]]:
@@ -142,6 +152,183 @@ class ShuffleExchangeExec(UnaryExecBase):
         return RangePartitioning.compute_bounds(
             concat_batches(samples), part.order, part.num_partitions)
 
+    _SHUFFLE_IDS = itertools.count(1)
+    _SHUFFLE_IDS_LOCK = threading.Lock()
+
+    @classmethod
+    def _next_shuffle_id(cls) -> int:
+        with cls._SHUFFLE_IDS_LOCK:
+            return next(cls._SHUFFLE_IDS)
+
+    def _execute_via_manager(self):
+        """The manager lane (reference `_execute_via_manager`, SURVEY.md
+        §3.4): map outputs land in the executors' spillable catalogs,
+        reducers read through the caching reader.  The map side writes
+        every map task before any partition is read; a failed map stage
+        frees every executor's buffers of this shuffle; the last reader
+        to finish (or close) unregisters it.  The reduce side runs
+        through a ShuffleRecoveryDriver whose recompute re-runs only the
+        lost map partitions of `self.child` on the reducing executor."""
+        from spark_rapids_tpu_torch.exec import speculation as SPEC
+        from spark_rapids_tpu_torch.shuffle.manager import (
+            MapOutputRegistry, TpuShuffleManager)
+        from spark_rapids_tpu_torch.shuffle.recovery import (
+            PeerHealth, ShuffleRecoveryDriver)
+        from spark_rapids_tpu_torch.utils import metrics as M
+        from spark_rapids_tpu_torch.utils import watchdog as W
+        conf = C.get_active_conf()
+        dev = self.device()
+        n_execs = max(1, int(conf[C.SHUFFLE_LOCAL_EXECUTORS]))
+        names = (["local"] if n_execs == 1
+                 else [f"local-{i}" for i in range(n_execs)])
+        mgrs = [TpuShuffleManager.get_or_create(nm, device=dev)
+                for nm in names]
+        primary = mgrs[0]
+        health = PeerHealth.get()
+        shuffle_id = self._next_shuffle_id()
+        for m in mgrs:
+            m.register_shuffle(shuffle_id)
+        part = self.partitioning
+        if isinstance(part, RangePartitioning) and part.bounds is None:
+            # two passes: the bounds' sample and the split must see the
+            # same batches, so the map inputs are held once
+            per_map = [[b for b in it if b.maybe_nonempty()]
+                       for it in self.child.execute_partitions()]
+            part.bounds = self._sample_bounds(
+                part, [b.dense() for bs in per_map for b in bs
+                       if b.num_rows > 0])
+            map_iters = [iter(bs) for bs in per_map]
+        else:
+            map_iters = self.child.execute_partitions()
+        n = part.num_partitions
+        repl_factor = max(1, int(conf[C.SHUFFLE_REPLICATION_FACTOR]))
+
+        def healthy_mgrs():
+            ok = [m for m in mgrs
+                  if not any(health.is_blacklisted(a) for a in
+                             (m.loop_address, m.tcp_address) if a)]
+            return ok or [primary]
+
+        def replicas_for(mgr):
+            """factor - 1 backup executors for a map task on `mgr`: the
+            next healthy peers in ring order."""
+            if repl_factor < 2:
+                return ()
+            return tuple([m for m in healthy_mgrs()
+                          if m is not mgr][:repl_factor - 1])
+
+        def write_map_task(map_id, batch_iter, mgr, epoch=None,
+                           first_wins=False):
+            writer = mgr.get_writer(shuffle_id, map_id,
+                                    replicas=replicas_for(mgr))
+            try:
+                for batch in batch_iter:
+                    # a batch boundary is a cancellation point: a losing
+                    # speculative attempt stops here
+                    W.check_cancelled()
+                    # seeded slow-task injection (the straggler model)
+                    W.maybe_slow("map-task", conf=conf,
+                                 executor_id=mgr.executor_id)
+                    if not batch.maybe_nonempty():
+                        continue
+                    # a map output is published only once its deferred
+                    # checks hold: an optimistic fast path that failed
+                    # raises FastPathInvalid here, on the query's thread,
+                    # for the collect's deopt retry (a reader would meet
+                    # it only in a serializing server, as a failed fetch)
+                    batch.verify_checks()
+                    with self.metrics.timed(M.TOTAL_TIME):
+                        slices = part.partition_batch(batch)
+                    for p, s in enumerate(slices):
+                        if s is not None and s.num_rows > 0:
+                            writer.write_partition(p, s)
+                            self.metrics.add("dataSize",
+                                             s.device_size_bytes())
+            except BaseException:
+                writer.abort()
+                raise
+            writer.commit(n, epoch=epoch, first_wins=first_wins)
+            if writer.replicated_bytes:
+                self.metrics.add(M.REPLICATED_BYTES,
+                                 writer.replicated_bytes)
+
+        def lineage(map_id):
+            # the retained map-side lineage (shared with recovery): a
+            # FRESH run of exactly this child partition
+            return self.child.execute_partitions()[map_id]
+
+        def backup_for(exclude_mgr):
+            ok = [m for m in healthy_mgrs() if m is not exclude_mgr]
+            return ok[0] if ok else None
+
+        spec = SPEC.maybe_create(shuffle_id, conf, self.metrics,
+                                 write_map_task, lineage, backup_for,
+                                 num_executors=len(mgrs))
+        try:
+            pool = healthy_mgrs()
+            for map_id, it in enumerate(map_iters):
+                mgr = pool[map_id % len(pool)]
+                if spec is not None:
+                    spec.run_task(map_id, it, mgr)
+                else:
+                    write_map_task(map_id, it, mgr)
+            # arm the partial-read guard: a read over fewer outputs than
+            # this FetchFails, never returns partial data
+            MapOutputRegistry.set_expected_maps(shuffle_id, len(map_iters))
+        except BaseException:
+            # a failed map stage: no reader will run, so free the
+            # completed tasks' buffers too
+            for m in mgrs:
+                m.unregister_shuffle(shuffle_id)
+            raise
+        finally:
+            if spec is not None:
+                spec.finish()
+
+        driver = None
+        if conf[C.SHUFFLE_RECOVERY_ENABLED]:
+            def recompute(lost_map_ids, epoch):
+                # only the lost map partitions, split by the same bound
+                # partitioning (range bounds already sampled), onto the
+                # reducing executor: the one recovery relies on
+                its = self.child.execute_partitions()
+                for map_id in lost_map_ids:
+                    write_map_task(map_id, its[map_id], primary,
+                                   epoch=epoch)
+            driver = ShuffleRecoveryDriver(primary, shuffle_id, recompute,
+                                           conf=conf, metrics=self.metrics)
+
+        remaining = [n]
+        lock = threading.Lock()
+
+        def done():
+            with lock:
+                remaining[0] -= 1
+                last = remaining[0] == 0
+            if last:
+                for m in mgrs:
+                    m.unregister_shuffle(shuffle_id)
+
+        def reader(p: int, finished):
+            try:
+                batches = (driver.read_partition(p) if driver is not None
+                           else primary.get_reader(shuffle_id, p,
+                                                   metrics=self.metrics))
+                for b in self._merged_reader(batches):
+                    yield b
+            finally:
+                finished()
+
+        readers = []
+        for p in range(n):
+            finished = _once(done)
+            it = reader(p, finished)
+            # a reader never started (its consumer failed first) runs no
+            # finally: it counts as done when it is dropped
+            weakref.finalize(it, finished)
+            readers.append(it)
+        return readers
+
     def _merged_reader(self, bs: list[ColumnarBatch]):
         """A partition's slices, merged device-side up to the
         consolidation target."""
@@ -178,6 +365,20 @@ class ShuffleExchangeExec(UnaryExecBase):
             cap_sum += b.capacity
         if group:
             yield flush()
+
+
+def _once(fn):
+    """`fn`, called at most once however often the result is called."""
+    lock = threading.Lock()
+    called = [False]
+
+    def call():
+        with lock:
+            if called[0]:
+                return
+            called[0] = True
+        fn()
+    return call
 
 
 class BroadcastTimeoutError(RuntimeError):

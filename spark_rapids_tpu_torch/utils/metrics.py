@@ -53,8 +53,25 @@ NUM_WATCHDOG_TIMEOUTS = "numWatchdogTimeouts"
 NUM_CANCELS = "numCancels"
 WATCHDOG_DUMPS = "watchdogDumps"
 SLOWEST_HEARTBEAT = "slowestHeartbeatMs"
-# the reference's other names (the shuffle's, ...) come with the layers
-# that charge them
+# the shuffle manager lane's recovery (shuffle/recovery.py, plan/aqe.py)
+NUM_FETCH_FAILURES = "numFetchFailures"
+NUM_MAP_RECOMPUTES = "numMapRecomputes"
+NUM_STAGE_RETRIES = "numStageRetries"
+NUM_PEERS_BLACKLISTED = "numPeersBlacklisted"
+RECOVERY_TIME = "recoveryTime"
+# tail tolerance (exec/speculation.py, hedged fetches, map-output
+# replicas), and wire payloads whose CRC caught in-flight damage
+NUM_SPECULATIVE_TASKS = "numSpeculativeTasks"
+NUM_SPECULATIVE_WINS = "numSpeculativeWins"
+NUM_HEDGED_FETCHES = "numHedgedFetches"
+NUM_HEDGED_WINS = "numHedgedWins"
+REPLICATED_BYTES = "replicatedBytes"
+NUM_REPLICA_PROMOTIONS = "numReplicaPromotions"
+NUM_WIRE_CORRUPTIONS = "numWireCorruptions"
+# wire bytes a manager-lane exchange's readers pulled, compressed and not
+SHUFFLE_COMPRESSED_BYTES = "shuffleCompressedBytes"
+SHUFFLE_RAW_BYTES = "shuffleUncompressedBytes"
+# the reference's other names come with the layers that charge them
 
 
 class MetricSet:

@@ -565,7 +565,8 @@ def _device_memory_lines() -> list[str]:
 def build_dump(stuck: Optional[Heartbeat] = None) -> str:
     """One diagnostic snapshot: the stuck activity, every registered
     heartbeat, semaphore holders, the scheduler, the prefetch pipeline,
-    device memory, hang injection and all thread stacks.  Every section
+    the shuffle fetches in flight, speculation, device memory, hang
+    injection and all thread stacks.  Every section
     is guarded on its own: a dump must never fail."""
     lines = ["==== query watchdog dump ===="]
     if stuck is not None:
@@ -607,6 +608,17 @@ def build_dump(stuck: Optional[Heartbeat] = None) -> str:
                                                           pipeline_stats)
         return [f"  {pipeline_stats()} live={pipeline_live()}"]
 
+    def fetches() -> list:
+        from spark_rapids_tpu_torch.shuffle.client_server import (
+            inflight_fetches)
+        return [f"  {f}" for f in inflight_fetches()] or ["  (none)"]
+
+    def speculation() -> list:
+        from spark_rapids_tpu_torch.exec.speculation import (
+            speculation_stats)
+        return [f"  {speculation_stats()} "
+                f"slow_injected={slow_injection_counts()}"]
+
     def injection() -> list:
         with _INJ_LOCK:
             return [f"  counters={dict(_INJ_COUNTS)} "
@@ -625,6 +637,8 @@ def build_dump(stuck: Optional[Heartbeat] = None) -> str:
     section("semaphore", semaphore)
     section("query scheduler", scheduler)
     section("prefetch pipeline", pipeline)
+    section("in-flight shuffle fetches", fetches)
+    section("speculation / slow injection", speculation)
     section("device memory", _device_memory_lines)
     section("hang injection", injection)
     section("thread stacks", stacks)

@@ -779,3 +779,74 @@ def test_runtime_plans_match_the_cpu(cuda_device, case):
         assert "ShuffleQueryStageExec" in kinds, kinds
     want = collect(accelerate(plan_of(), conf, device="cpu"), conf)
     compare_frames(want, got, f"{case} on the card")
+
+
+@pytest.mark.gpu
+def test_shuffle_write_on_a_side_stream_fetched_over_tcp(cuda_device):
+    """A map task writes its slices on a side stream while the output is
+    fetched over TCP at once: the serving handler thread (on no stream of
+    the writer's) waits on each buffer's event, so the bytes the reader
+    gets are the writer's, every time."""
+    import threading
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.memory.env import ResourceEnv
+    from spark_rapids_tpu_torch.shuffle.manager import (MapOutputRegistry,
+                                                        TpuShuffleManager)
+    dev = cuda_device
+    conf = C.RapidsConf({"spark.rapids.shuffle.enabled": True})
+    env = ResourceEnv.init(conf, device=dev)
+    try:
+        m0 = TpuShuffleManager("gpu-w", env, conf)
+        m1 = TpuShuffleManager("gpu-r", env, conf)
+        rounds, rows = 8, 1 << 20
+        for m in (m0, m1):
+            for sid in range(rounds):
+                m.register_shuffle(sid)
+        side = torch.cuda.Stream(dev)
+        want = []
+        errors: list = []
+
+        def read(sid):
+            try:
+                got = list(m1.get_reader(sid, 0, timeout=30.0))
+                assert len(got) == 1
+                errors.append(None if torch.equal(
+                    got[0].column("k").data[:rows], want[sid]) else sid)
+            except BaseException as e:  # noqa: BLE001 — asserted below
+                errors.append(e)
+
+        readers = []
+        for sid in range(rounds):
+            with torch.cuda.stream(side):
+                # a slow producer on the side stream: the values land long
+                # after the host has moved on
+                base = torch.arange(rows, device=dev, dtype=torch.int64)
+                for _ in range(20):
+                    base = base * 3 + sid
+                torch.cuda._sleep(5_000_000)
+                k = base + 1
+                b = ColumnarBatch.from_numpy(
+                    {"k": np.zeros(rows, np.int64)}, device=dev)
+                b.columns[0].data[:rows].copy_(k)
+                b.columns[0].narrow = None
+                # ordered before the write's event, so a reader that got
+                # the bytes may read it
+                want.append(k.clone())
+                w = m0.get_writer(sid, 0)
+                w.write_partition(0, b)
+                status = w.commit(1)
+            status.address = m0.tcp_address  # the wire lane
+            MapOutputRegistry.register(sid, 0, status)
+            t = threading.Thread(target=read, args=(sid,))
+            t.start()
+            readers.append(t)
+        for t in readers:
+            t.join(60)
+        torch.cuda.synchronize(dev)
+        assert errors == [None] * rounds, errors
+    finally:
+        MapOutputRegistry.clear()
+        TpuShuffleManager.close_all()
+        ResourceEnv.shutdown()

@@ -34,6 +34,43 @@ def test_the_import_guard_covers_the_io_layer_and_the_shims():
                              for p in files)
 
 
+def test_the_import_guard_covers_the_shuffle_manager_lane():
+    """The shuffle manager, its transport, codecs, catalogs, recovery,
+    speculation and the script that runs its phase are under the guard."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for f in ("shuffle/transport.py", "shuffle/compression.py",
+              "shuffle/catalog.py", "shuffle/client_server.py",
+              "shuffle/ici_transport.py", "shuffle/manager.py",
+              "shuffle/recovery.py", "exec/speculation.py"):
+        assert f"spark_rapids_tpu_torch/{f}" in names, f
+    assert "scripts/torch_shuffle_phase.py" in names
+
+
+def test_a_transport_class_of_the_jax_package_is_refused(monkeypatch):
+    """spark.rapids.shuffle.transport.class naming a module of the JAX
+    package (its own default, in a conf both packages share) raises a
+    ValueError naming the port's class, and nothing is imported."""
+    import importlib
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.shuffle import transport as TR
+    imported = []
+    real = importlib.import_module
+    monkeypatch.setattr(importlib, "import_module",
+                        lambda name, *a: imported.append(name) or
+                        real(name, *a))
+    for path in ("spark_rapids_tpu.shuffle.ici_transport.IciShuffleTransport",
+                 "spark_rapids_tpu.no_such_module.Transport"):
+        conf = C.RapidsConf({C.SHUFFLE_TRANSPORT_CLASS.key: path})
+        with pytest.raises(ValueError, match="spark_rapids_tpu_torch.shuffle"
+                           ".ici_transport.IciShuffleTransport"):
+            TR.make_transport(conf)
+    assert imported == []
+    t = TR.make_transport(C.RapidsConf())
+    assert type(t).__module__ == "spark_rapids_tpu_torch.shuffle.ici_transport"
+    t.shutdown()
+
+
 @pytest.mark.parametrize("layer", ["io", "shims"])
 def test_io_and_shims_import_pyarrow_only_inside_functions(layer):
     """pyarrow decodes and encodes on the host only where a file is read
