@@ -7,8 +7,9 @@ workloads (phase 13): the other 85 TPC-DS queries, TPCx-BB's 28 without
 a UDF and Mortgage's ETL, the I/O layer with the planner's sort-merge
 join, repartition, cached columnar scan and sort aggregate (phase 14),
 the runtime: two concurrent TPC-H streams, admission control, the
-result cache, the watchdog and AQE (phase 15), and the shuffle manager
-lane with the brute-force joins (phase 16), on one NVIDIA card
+result cache, the watchdog and AQE (phase 15), the shuffle manager
+lane with the brute-force joins (phase 16), and the observability layer
+(phase 17), on one NVIDIA card
 (59,986,052 lineitem rows, scale factor 10, in phases 4-6 and 14a, TPC-H
 spec 4.2.5; 50,000 TPC-DS store_sales rows in 11b and 13b, where SF1 has
 2,880,404, Table 3-2).
@@ -112,10 +113,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
      freeing phases 1-10's data: 11a, their check against the CPU engine
      (keys, strings, ranks, row numbers, counts and the sort keys' order
      exact; sums and averages rtol 1e-3: the banded lane adds in f32),
-     runs in 13a; 11b runs them over the tables 13b runs over
+     runs in 13a; 11b runs the 18 over the tables 13b runs over
      (workload_tables(seed, WL_SCALE): 50,000 store_sales rows, the
      generator's own ratios for the rest), 16 partitions, one new
-     plan per query: accelerate and collect timed
+     plan per query, spread over this process and CARD_HELPERS more on
+     the card as 13's are: accelerate and collect timed
      apart, plan runs, peak device memory, rows, lane decisions and the
      kernels' launches printed; the widest input batch of every
      WindowExec and ExpandExec downloaded and the exec's output held
@@ -135,11 +137,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
      result held against the CPU engine's, which CPU_WORKERS processes
      compute while the card runs (no result empty but q91's, as the
      reference fixture allows; q9's five scalar subqueries each a
-     collect of its own on the card, timed apart); 13b runs the 85
-     TPC-DS queries over workload_tables(seed, WL_SCALE) and Mortgage
-     over 1,000,000 loans x 24 months (24M performance rows), one new
-     plan each, as 11b runs the 18 (q9's subquery collects counted and
-     checked with its plan; TPCx-BB's 28 left 13b: see the cuts);
+     collect of its own on the card, timed apart); 13b runs every
+     second one of the 85 TPC-DS queries (see the cuts) over
+     workload_tables(seed, WL_SCALE) and Mortgage over 1,000,000 loans
+     x 24 months (24M performance rows), one new plan each, as 11b runs
+     the 18 (q9's subquery collects counted and checked with its plan;
+     TPCx-BB's 28 left 13b: see the cuts); 13a's, 11b's and 13b's
+     TPC-DS and TPCx-BB queries are spread over this process and
+     CARD_HELPERS processes more on the card (card_pool, spread: the
+     next query to the runner that frees first, the slowest first),
+     since at these scales the engine holds the card a few percent of a
+     query's time; 11b's and 13b's widest kernel calls come back as
+     numpy copies and are held against their twins and timed in this
+     process once its phase's queries have run, with the card to
+     itself (call_cases); Mortgage's two plans run in this process;
      throughout: accelerate and collect apart, plan runs, peak device
      memory, rows, aggregate and join lanes and the kernels' launches
      printed, every float of a result finite, the widest call of each
@@ -247,19 +258,64 @@ Phases, each of which raises on failure (exit code 1, no result line):
      n_regionkey < r_regionkey, both enabled and planned onto
      NestedLoopJoinExec on the card, against pandas; at the end no
      executor and no shuffle thread is left;
- 17. print the kernels line (all three kernels, with their launches in
+ 17. the observability layer (utils/profile.py, movement.py,
+     residency.py, kernelprof.py, telemetry.py and their hooks), after
+     phase 16 over phases 7-9's SF1 tables and goldens and 14b's files
+     (IO_DIR stays until phase 17 ends), with spark.rapids.sql.profile.
+     enabled, profile.kernels.enabled (every entry timed) and telemetry.
+     enabled, telemetry's HTTP endpoint on a free port of 127.0.0.1, the
+     Chrome traces and the event log in PROFILE_DIR (git-ignored, emptied
+     at the phase's start and end): 17a, planner Q1 and Q5 over the
+     files, the exec-tree Q1 and the stacked Q1 step over one batch of
+     SF1's 6,001,215 lineitem rows at capacity 2^23, and
+     window_group_sums at phase 3's merge shape, each profiled after an
+     unprofiled run of the same (the same bits; the goldens); every
+     TpuExec of each plan has a span, each Chrome trace parses as
+     written, upload and readback moved bytes, the residency high-water
+     mark is above 0 with no leak, no kernel or edge is past its H100
+     roofline, each hand kernel's catalog launches equal its wrapper's
+     `.launches` delta, and its warm sampled mean (the samples after a
+     first call at its shape: 5 of q1_fused, 6 of grouped_sum from six
+     profiled exec-tree collects, 20 of window_group_sums) must be
+     within CATALOG_RTOL of the kernel timed alone at the same shape
+     (CUDA events behind a sleep kernel, as the phases after 7 time
+     kernels; the catalog's pairs start behind a spin too); 17a's Q5
+     is held against 17e's first run; 17c, Q3 over four executors,
+     profiled: wire bytes sent equal bytes received, every
+     shuffle-fetch span parents under its query; 17b, the same Q3
+     under phase 12's OOM injection, profiled, twice: with the
+     out-of-core lanes under a quarter of its peak (17c's residency
+     high-water mark), and without them under a 32nd (so that the
+     retry harness's pressure spills the device store, which holds the
+     manager lane's map output): in each, the oom_retry and
+     oom_split_retry events equal numRetries and numSplitRetries, the
+     device store's device->* hops equal the spill callback's bytes and
+     the plan's spillBytes, the out-of-core hops equal the run
+     accounting and spillRunBytes, and the leg's own hops are above 0;
+     17d, two streams over the files (Q1 and Q3, and
+     Q5) under the sampler: the causes' shares sum to 100%, the
+     Prometheus text parses, /metrics answers; 17e, Q5 unprofiled
+     before 17a-d and twice after, once telemetry (no instance, no
+     thread), kernel attribution and residency tracking are found off:
+     the collect times, the process RSS and gc.get_count() printed;
+ 18. print the kernels line (all three kernels, with their launches in
      every phase: `launches` the main path's, then per phase and per
-     part of phases 15 and 16) and, last, the device line.
+     part of phases 15-17, and phase 17's catalog mean beside the
+     kernel timed alone) and, last, the device line.
 Cuts, to keep the script within 950 s of its 1,200 s limit, in this
 order: (1) TPCx-BB's 28 left 13b (13a still checks them at 20,000 rows;
 `scripts/torch_workloads_phase.py` runs them at any scale); (2) 15a's
 two streams run the two halves of the power order, 11 queries each
 (`scripts/torch_runtime_phase.py` runs two streams of the 22, and three
 at SF10); (3) when phase 16 came, 13b runs every second one of the 85
-in registration order (43 queries, ds_rest_cut) at WL_SCALE (13a still
-checks all 85 against the CPU engine; `scripts/torch_tpcds_phase.py
+in registration order (43 queries, ds_rest_cut) at WL_SCALE (13a
+still checks all 85 against the CPU engine; `scripts/torch_tpcds_phase.py
 --queries rest` runs all 85 at WL_SCALE); with the 85 the script had
-taken 976.6 s of laps, 252.9 s of them 13b's.  When phase 15 came, the runtime's prefetch producers ran at
+taken 976.6 s of laps, 252.9 s of them 13b's.  When phase 17 came, the
+script took 1,227 s of laps with it (PERF.md) on hosts where phases
+1-16 and 13 ran ~25% slower than where the script had taken 919.1 s; rather
+than cut more queries, 13a, 11b and 13b now run their queries in three
+processes on the card (CARD_HELPERS).  When phase 15 came, the runtime's prefetch producers ran at
 every pipeline break and cost time on this host-bound engine (phases
 1-12 262.6 s of laps against 173.4 s before, 13a 492.0 s against
 293.7; PERF.md), which first forced two more cuts (11b at 20,000 rows,
@@ -2519,8 +2575,23 @@ def card_run(torch, dev, conf, laps: list):
 #: card runs the same queries (the CPU engine took a fifth of 13a's
 #: time, q72 alone ~40 s)
 CPU_WORKERS = 2
+#: spawned processes that run phases 13a's, 11b's and 13b's queries on
+#: the card beside the main process (card_pool, spread), one query at a
+#: time each: at these scales the engine is host-bound (a TPC-DS query
+#: at 20,000 store_sales rows holds the card ~2 s, nearly all of it the
+#: host's), so three processes on one card run the queries in about a
+#: third of the time
+CARD_HELPERS = 2
+#: the queries that took the card longest in 13a, 11b and 13b (on an
+#: H100): handed out first, so that no runner is left with
+#: one of them while the others wait
+SLOW_QUERIES = ("q64", "q4", "q72", "q74", "q11", "q49", "q67", "q14",
+                "q80", "q14b", "q75", "q66", "q78", "q57", "q56", "q88",
+                "q5", "q60", "q76", "q47", "q85")
 #: a CPU worker process's tables, made once by cpu_worker_init
 _WORKER_TABLES: dict = {}
+#: a card helper's tables, by make_tables spec (one spec at a time)
+_HELPER_TABLES: dict = {}
 
 
 def cpu_worker_init(spec: tuple) -> None:
@@ -2542,36 +2613,166 @@ def cpu_engine_result(wl_name: str, q: str) -> tuple:
     return df, ds_order_columns(plan), time.perf_counter() - t0
 
 
-def check_queries(torch, dev, wl: Workload, spec: tuple, queries,
-                  label: str) -> dict:
-    """Each query of `queries` over make_tables(spec) as a user submits
-    it on the card, 16 partitions, under the TPC bench conf with
-    test.enabled (a CPU node fails the plan), against the CPU engine's
-    result (check_ds_query), which CPU_WORKERS processes compute
-    meanwhile; no result may be empty but q91's (the reference fixture
-    allows it).  Each scalar subquery that a query collects through
-    `run` (q9's five) is a collect of its own on the card, timed apart."""
+def card_helper_init(device: str) -> None:
+    """A card helper's start: one torch thread (the main process and the
+    CPU workers hold the host's other cores) and its device's context."""
+    import torch
+    torch.set_num_threads(1)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    torch.zeros(1, device=device)
+
+
+def card_pool(dev, helpers: int = CARD_HELPERS):
+    """`helpers` spawned processes on `dev`'s kind of device (the card),
+    for spread; the caller shuts them down (`with card_pool(dev) as
+    pool:`)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(helpers, multiprocessing.get_context("spawn"),
+                               initializer=card_helper_init,
+                               initargs=(dev.type,))
 
+
+def helper_tables(spec: tuple) -> dict:
+    """In a card helper: make_tables(spec), made on first use (the same
+    frames the main process makes from the same spec)."""
+    if spec not in _HELPER_TABLES:
+        _HELPER_TABLES.clear()
+        gc.collect()
+        _HELPER_TABLES[spec] = make_tables(spec)
+    return _HELPER_TABLES[spec]
+
+
+def slow_first(queries) -> list:
+    """`queries` with SLOW_QUERIES' first, in that order, then the rest
+    in theirs."""
+    rank = {q: i for i, q in enumerate(SLOW_QUERIES)}
+    return sorted(queries, key=lambda q: rank.get(q, len(rank)))
+
+
+def spread(queries, here, there, pool, done) -> None:
+    """Runs each of `queries` once, in the order given, on the runner that
+    frees first: this process (`here(q)` returns its result) or one of
+    `pool`'s processes (one query at a time each; `there(q)` is the
+    (function, *arguments) submitted); without a pool, all here.
+    done(q, result, error), one of the two None, is called in this
+    thread as results come, between this process's own queries; once it
+    raises, the runners take no further query and the error is raised
+    here when they have stopped."""
+    import threading
+    from collections import deque
+    todo = deque(queries)
+    lock = threading.Lock()
+    ready: deque = deque()
+
+    def take():
+        with lock:
+            return todo.popleft() if todo else None
+
+    def feed() -> None:
+        while (q := take()) is not None:
+            try:
+                ready.append((q, pool.submit(*there(q)).result(), None))
+            except Exception as e:  # noqa: BLE001 -- handed to done
+                ready.append((q, None, e))
+
+    def drain() -> None:
+        while ready:
+            done(*ready.popleft())
+
+    feeders = [] if pool is None else [
+        threading.Thread(target=feed, name=f"card-helper-feed-{i}",
+                         daemon=True) for i in range(pool._max_workers)]
+    for t in feeders:
+        t.start()
+    try:
+        while (q := take()) is not None:
+            try:
+                res, err = here(q), None
+            except Exception as e:  # noqa: BLE001 -- handed to done
+                res, err = None, e
+            done(q, res, err)
+            drain()
+        for t in feeders:
+            t.join()
+        drain()
+    finally:
+        with lock:
+            todo.clear()
+        for t in feeders:
+            t.join()
+
+
+def card_query(torch, dev, wl: Workload, tables: dict, q: str) -> tuple:
+    """Query q of `wl` over `tables` as a user submits it on the card, 16
+    partitions, under the TPC bench conf with test.enabled (a CPU node
+    fails the plan): (result, each scalar subquery's collect seconds,
+    seconds)."""
     from spark_rapids_tpu_torch import config as C
     from spark_rapids_tpu_torch.models import tpcds_bench as DB
-    n = DB.SF10_PARTITIONS
     conf = C.RapidsConf({**DB.BENCH_CONF, C.TEST_ENABLED.key: True})
+    t0 = time.perf_counter()
+    laps: list = []
+    run = card_run(torch, dev, conf, laps)
+    got = run(wl.queries[q](wl.sources(tables, DB.SF10_PARTITIONS), run))
+    return got, laps[:-1], time.perf_counter() - t0
+
+
+def helper_device(device: str):
+    import torch
+    return torch.device("cuda", 0) if device == "cuda" \
+        else torch.device(device)
+
+
+def helper_check(wl_name: str, spec: tuple, q: str, device: str) -> tuple:
+    """In a card helper: card_query of q over helper_tables(spec)."""
+    import torch
+    return card_query(torch, helper_device(device), workload(wl_name),
+                      helper_tables(spec), q)
+
+
+def helper_ds(wl_name: str, spec: tuple, q: str, device: str) -> dict:
+    """In a card helper: ds_query of q over helper_tables(spec), its
+    widest kernel calls kept for the main process to time
+    (run_queries)."""
+    import torch
+
+    from spark_rapids_tpu_torch.ops import grouped_window as GW
+    from spark_rapids_tpu_torch.ops import kernels as K
+    try:
+        out = ds_query(q, helper_tables(spec), torch, helper_device(device),
+                       GW, K, None, workload(wl_name))
+        del out["frame"]
+        return out
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def check_queries(torch, dev, wl: Workload, spec: tuple, queries,
+                  label: str, pool=None) -> dict:
+    """Each query of `queries` over make_tables(spec) as a user submits
+    it on the card (card_query), against the CPU engine's result
+    (check_ds_query), which CPU_WORKERS processes compute meanwhile; no
+    result may be empty but q91's (the reference fixture allows it).
+    Each scalar subquery that a query collects through `run` (q9's five)
+    is a collect of its own on the card, timed apart.  With a `pool` of
+    card helpers, the queries are spread over them and this process,
+    the slow ones first."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     tables = make_tables(spec)
     out = {"rel": 0.0, "seconds": {}, "subqueries": {}}
+    order = slow_first(queries) if pool is not None else list(queries)
+    waiting: list = []
     with ProcessPoolExecutor(
             CPU_WORKERS, multiprocessing.get_context("spawn"),
-            initializer=cpu_worker_init, initargs=(spec,)) as pool:
-        cpu = {q: pool.submit(cpu_engine_result, wl.name, q)
-               for q in queries}
-        for q in queries:
-            t0 = time.perf_counter()
-            laps: list = []
-            run = card_run(torch, dev, conf, laps)
-            got = run(wl.queries[q](wl.sources(tables, n), run))
-            subqueries = laps[:-1]
-            card_s = time.perf_counter() - t0
+            initializer=cpu_worker_init, initargs=(spec,)) as cpu_pool:
+        cpu = {q: cpu_pool.submit(cpu_engine_result, wl.name, q)
+               for q in order}
+
+        def check(q: str, got, subqueries: list, card_s: float) -> None:
             want, order_cols, cpu_s = cpu[q].result()
             require(len(want) > 0 or (wl.name, q) == ("tpcds", "q91"),
                     f"{wl.name} {q}: the CPU engine's result is empty")
@@ -2587,6 +2788,21 @@ def check_queries(torch, dev, wl: Workload, spec: tuple, queries,
             print(f"{wl.name} {q} at {label}: {len(got)} rows equal to the "
                   f"CPU engine's (CPU {cpu_s:.2f} s, card {card_s:.2f} s), "
                   f"max rel err {rel:.3g}{subs}", flush=True)
+
+        def done(q: str, res, err) -> None:
+            # checked once the CPU engine has its result; the rest wait
+            if err is not None:
+                raise err
+            waiting.append((q, res))
+            for item in [w for w in waiting if cpu[w[0]].done()]:
+                waiting.remove(item)
+                check(item[0], *item[1])
+
+        spread(order, lambda q: card_query(torch, dev, wl, tables, q),
+               lambda q: (helper_check, wl.name, spec, q, dev.type), pool,
+               done)
+        for q, res in waiting:
+            check(q, *res)
     return out
 
 
@@ -2613,8 +2829,11 @@ def ds_query(q: str, tables: dict, torch, dev, GW, K, cases,
     rows, aggregate and join lanes, the kernels' launches; every float
     of the result finite; the widest input batch of every WindowExec and
     ExpandExec held against its CPU node (the 18 of phase 11 must have
-    one), and the widest call of each kernel against its twin, the
-    subquery collects' calls and launches with the plan's.  Every device
+    one), and the widest call of each kernel against its twin (with
+    `cases` from kernel_cases; without, a numpy copy of each call's
+    inputs in out["window_call"] and out["grouped_call"], for
+    call_cases), the subquery collects' calls and launches with the
+    plan's.  Every device
     tensor the query made is dropped when it returns:
     torch.cuda.memory_allocated() must come back to its value before
     the query, but for the growth of the kernel wrappers' own state
@@ -2629,7 +2848,6 @@ def ds_query(q: str, tables: dict, torch, dev, GW, K, cases,
     from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
     wl = wl or workload("tpcds")
     label = f"{wl.name} {q}"
-    grouped_case, window_case = cases
     conf = C.RapidsConf({**DB.BENCH_CONF, C.TEST_ENABLED.key: True})
     gc.collect()
     torch.cuda.synchronize(dev)
@@ -2715,24 +2933,17 @@ def ds_query(q: str, tables: dict, torch, dev, GW, K, cases,
             f"{label}: window_group_sums launched but no call recorded")
     require(bool(gcalls) == bool(launches["grouped_sum"]),
             f"{label}: grouped_sum launched but no call recorded")
-    if calls:
-        gid, vals, cap = calls
-        case = window_case(gid, vals, cap)
-        case.update(query=q, launches=launches["window_group_sums"],
-                    shape=f"{label} widest call: capacity {gid.numel()}, "
-                    f"out_cap {cap}, M={len(vals)}")
-        print(kernel_text("window_group_sums", case), flush=True)
-        out["window_case"] = case
-        del gid, vals
-    if gcalls:
-        keys, vals, rows, groups = gcalls
-        case = grouped_case(keys, vals, rows, groups, None)
-        case.update(query=q, launches=launches["grouped_sum"],
-                    shape=f"{label} widest call: capacity {keys.numel()}, "
-                    f"G={groups}, M={len(vals)}, tier {case['tier']}")
-        print(kernel_text("grouped_sum", case), flush=True)
-        out["grouped_case"] = case
-        del keys, vals
+    if cases is not None:
+        call_cases(torch, dev, out, label, q, cases, calls, gcalls)
+    else:
+        # held against the twins and timed later, where this process is
+        # not on the card (run_queries)
+        if calls:
+            out["window_call"] = (calls[0].cpu().numpy(), [
+                v.cpu().numpy() for v in calls[1]], calls[2])
+        if gcalls:
+            out["grouped_call"] = (gcalls[0].cpu().numpy(), [
+                v.cpu().numpy() for v in gcalls[1]], gcalls[2], gcalls[3])
     del calls, gcalls
     gc.collect()
     torch.cuda.synchronize(dev)
@@ -2749,39 +2960,98 @@ def ds_query(q: str, tables: dict, torch, dev, GW, K, cases,
     return out
 
 
+def call_cases(torch, dev, out: dict, label: str, q: str, cases, wcall,
+               gcall) -> None:
+    """The widest call of each kernel in a ds_query run held against its
+    twin and timed (kernel_cases `cases`), into out["window_case"] and
+    out["grouped_case"]: `wcall` [gid, vals, out_cap] and `gcall` [keys,
+    vals, num_rows, n_groups], as device tensors or as numpy copies."""
+    grouped_case, window_case = cases
+
+    def on_card(x):
+        return x if isinstance(x, torch.Tensor) \
+            else torch.from_numpy(x).to(dev)
+
+    if wcall:
+        gid, vals, cap = on_card(wcall[0]), [on_card(v) for v in wcall[1]], \
+            wcall[2]
+        case = window_case(gid, vals, cap)
+        case.update(query=q, launches=out["launches"]["window_group_sums"],
+                    shape=f"{label} widest call: capacity {gid.numel()}, "
+                    f"out_cap {cap}, M={len(vals)}")
+        print(kernel_text("window_group_sums", case), flush=True)
+        out["window_case"] = case
+        del gid, vals
+    if gcall:
+        keys, vals, rows, groups = on_card(gcall[0]), [
+            on_card(v) for v in gcall[1]], gcall[2], gcall[3]
+        case = grouped_case(keys, vals, rows, groups, None)
+        case.update(query=q, launches=out["launches"]["grouped_sum"],
+                    shape=f"{label} widest call: capacity {keys.numel()}, "
+                    f"G={groups}, M={len(vals)}, tier {case['tier']}")
+        print(kernel_text("grouped_sum", case), flush=True)
+        out["grouped_case"] = case
+        del keys, vals
+
+
 def run_queries(torch, dev, wl: Workload, tables: dict, queries, GW, K,
-                cases, failed: Optional[list] = None) -> dict:
+                cases, failed: Optional[list] = None, pool=None,
+                spec: Optional[tuple] = None) -> dict:
     """ds_query for each query of `queries` in turn, the caching
-    allocator emptied after each.  With a `failed` list, a query that
-    raises is named there with its error (its traceback printed) and the
-    next one runs; without one, the first error ends the run."""
+    allocator emptied after each.  With a `pool` of card helpers
+    (card_pool), the queries are spread over them (over
+    make_tables(spec), the same frames as `tables`) and this process,
+    the slow ones first, and each query's widest kernel calls are held
+    against their twins and timed here once all have run, with the card
+    to this process.  With a `failed` list, a query that raises is
+    named there with its error (its traceback printed) and the next one
+    runs; without one, the first error ends the run."""
     import traceback
     out = {}
-    for q in queries:
+
+    def here(q: str) -> dict:
         try:
-            out[q] = ds_query(q, tables, torch, dev, GW, K, cases, wl)
-            del out[q]["frame"]
-        except Exception as e:  # noqa: BLE001 -- named in `failed`
-            if failed is None:
-                raise
-            traceback.print_exc()
-            failed.append(f"{wl.name} {q}: {type(e).__name__}: {e}")
-            print(f"{wl.name} {q} FAILED: {type(e).__name__}: {e}",
-                  flush=True)
-        gc.collect()
-        torch.cuda.empty_cache()
-    return out
+            res = ds_query(q, tables, torch, dev, GW, K,
+                           None if pool is not None else cases, wl)
+            del res["frame"]
+            return res
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    def done(q: str, res, err) -> None:
+        if err is None:
+            out[q] = res
+            return
+        if failed is None:
+            raise err
+        traceback.print_exception(err)
+        failed.append(f"{wl.name} {q}: {type(err).__name__}: {err}")
+        print(f"{wl.name} {q} FAILED: {type(err).__name__}: {err}",
+              flush=True)
+
+    spread(slow_first(queries) if pool is not None else list(queries),
+           here, lambda q: (helper_ds, wl.name, spec, q, dev.type), pool,
+           done)
+    if pool is not None:
+        for q in [q for q in queries if q in out]:
+            call_cases(torch, dev, out[q], f"{wl.name} {q}", q, cases,
+                       out[q].pop("window_call", None),
+                       out[q].pop("grouped_call", None))
+    return {q: out[q] for q in queries if q in out}
 
 
 def ds_phase(torch, dev, seed: int, GW, K, scale: Optional[int] = None,
              queries: Optional[list] = None,
              failed: Optional[list] = None,
-             tables: Optional[dict] = None) -> dict:
+             tables: Optional[dict] = None, pool=None,
+             spec: Optional[tuple] = None) -> dict:
     """Phase 11b: the 18 queries of DS_SLICE (or `queries`, in
     query_order) over `tables`, or else `tpcds_bench.sf10_tables(seed,
     scale)` (SF10's 28,800,991 store_sales rows by default), 16
-    partitions, one new plan each, with ds_query's measures and
-    checks."""
+    partitions, one new plan each, with ds_query's measures and checks;
+    with a `pool`, spread over it (run_queries; `spec` makes the same
+    tables there)."""
     from spark_rapids_tpu_torch.models import tpcds_bench as DB
     cases = kernel_cases(torch, dev, GW, K)
     if tables is None:
@@ -2792,7 +3062,7 @@ def ds_phase(torch, dev, seed: int, GW, K, scale: Optional[int] = None,
               + f" rows, {time.perf_counter() - t0:.1f} s", flush=True)
     return run_queries(torch, dev, workload("tpcds"), tables,
                        sorted(queries or DS_SLICE, key=query_order), GW, K,
-                       cases, failed)
+                       cases, failed, pool, spec)
 
 
 def ds_rest() -> list:
@@ -2809,26 +3079,27 @@ def ds_rest_cut() -> list:
     return sorted([q for q in QUERIES if q in rest][::2], key=query_order)
 
 
-def workloads_check_phase(torch, dev, seed: int) -> dict:
+def workloads_check_phase(torch, dev, seed: int, pool=None) -> dict:
     """Phase 13a: all 103 TPC-DS queries (phase 11's 18 with them) and
     the 28 TPCx-BB queries over workload_tables(WL_CHECK_SEED, WL_CHECK_SCALE),
     Mortgage's two plans over WL_CHECK_LOANS x MORTGAGE_MONTHS from
-    `seed`, on the card against the CPU engine (check_queries)."""
+    `seed`, on the card against the CPU engine (check_queries; with a
+    `pool` of card helpers, spread over them and this process)."""
     from spark_rapids_tpu_torch.models import tpcxbb as X
     spec = ("workload", WL_CHECK_SEED, WL_CHECK_SCALE)
     label = f"{WL_CHECK_SCALE} store_sales rows"
     out = {"tpcds": check_queries(
         torch, dev, workload("tpcds"), spec,
-        sorted(DS_SLICE + tuple(ds_rest()), key=query_order), label)}
+        sorted(DS_SLICE + tuple(ds_rest()), key=query_order), label, pool)}
     require(len(out["tpcds"]["subqueries"].get("q9", ())) == 5,
             "q9's five scalar subqueries did not each collect on the card")
     out["tpcxbb"] = check_queries(torch, dev, workload("tpcxbb"), spec,
-                                  sorted(X.QUERIES), label)
+                                  sorted(X.QUERIES), label, pool)
     out["mortgage"] = check_queries(
         torch, dev, workload("mortgage"),
         ("mortgage", seed, WL_CHECK_LOANS, MORTGAGE_MONTHS),
         ("etl_plan", "summary_plan"),
-        f"{WL_CHECK_LOANS} loans x {MORTGAGE_MONTHS} months")
+        f"{WL_CHECK_LOANS} loans x {MORTGAGE_MONTHS} months", pool)
     return out
 
 
@@ -4361,6 +4632,608 @@ def shuffle_phase(torch, dev, tables: dict, gold: dict, GW, K, cases,
     return out
 
 
+# -- phase 17: the observability layer -------------------------------------
+#: phase 17's profiled settings: the query profile, kernel attribution
+#: with every entry timed (so a catalog mean is the mean of every
+#: launch) and telemetry
+PROFILE_KEYS = {"spark.rapids.sql.profile.enabled": True,
+                "spark.rapids.sql.profile.kernels.enabled": True,
+                "spark.rapids.sql.profile.kernels.sampleRate": 1,
+                "spark.rapids.sql.telemetry.enabled": True,
+                "spark.rapids.sql.telemetry.samplePeriodMs": 20.0}
+#: where phase 17's profiles write their Chrome traces and event log
+#: (git-ignored, emptied at the phase's start and end)
+PROFILE_DIR = Path(__file__).resolve().parent / ".profile_smoke"
+#: the relative gap allowed between a hand kernel's warm catalog mean
+#: (CUDA events around each launch, queued behind a spin) and the kernel
+#: alone timed as the phases after 3 time it, at the same shape
+CATALOG_RTOL = 0.25
+#: 17d's two streams (Q1, Q3 and Q5 between them)
+PROFILE_STREAMS = [[1, 3], [5]]
+#: the threads telemetry runs while it is on (utils/telemetry.py)
+TELEMETRY_THREADS = ("tpu-telemetry", "tpu-telemetry-http")
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def profile_conf(q: int, **extra):
+    """tpch_conf with phase 17's profiled settings and sinks."""
+    return tpch_conf(q, **PROFILE_KEYS, **{
+        "spark.rapids.sql.profile.chromeTrace.path":
+            str(PROFILE_DIR / "trace-{query_id}.json"),
+        "spark.rapids.sql.profile.eventLog.path":
+            str(PROFILE_DIR / "events.jsonl")}, **extra)
+
+
+def process_rss() -> int:
+    """The process's resident set, in bytes."""
+    import os
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def check_profile(prof, plans: list, label: str, card: str = "") -> dict:
+    """A QueryProfile's checks: its Chrome trace parses (in memory and
+    as written), every TpuExec of `plans` has a span, no share of a
+    roofline is above 100%, the residency verdict is clean."""
+    from spark_rapids_tpu_torch.exec.base import TpuExec
+    require(prof is not None, f"{label}: no QueryProfile")
+    trace = json.loads(json.dumps(prof.chrome_trace()))
+    written = json.loads((PROFILE_DIR / f"trace-{prof.query_id}.json")
+                         .read_text())
+    require(written["otherData"]["query_id"] == prof.query_id
+            and len(written["traceEvents"]) == len(trace["traceEvents"]),
+            f"{label}: the written Chrome trace is not the profile's")
+    spanned = {s.name.split("[")[0] for s in prof.spans if s.cat == "exec"}
+    ops = {type(n).__name__ for p in plans for n in walk(p)
+           if isinstance(n, TpuExec)}
+    require(ops <= spanned, f"{label}: operators without a span: "
+            f"{sorted(ops - spanned)}")
+    shares = [r["roofline_pct"] for r in prof.kernels or ()
+              if "roofline_pct" in r]
+    require(all(s <= 100.0 for s in shares),
+            f"{label}: a kernel above its roofline: {max(shares)}%")
+    util = [e["roofline_utilization"]
+            for e in prof.movement["edges"].values()]
+    require(all(u <= 1.0 for u in util),
+            f"{label}: an edge above its roofline: {util}")
+    res = prof.residency
+    require(res is not None and res["leaks"] == 0
+            and res["live_end_bytes"] == 0,
+            f"{label}: residency {res}")
+    edges = {e: v["bytes"] for e, v in prof.movement["edges"].items()}
+    print(f"profile {label}: {len(prof.spans)} spans, "
+          f"{len(prof.events)} events, {len(trace['traceEvents'])} trace "
+          f"events, depth {prof.span_depth()}, wall "
+          f"{prof.wall_s * 1e3:.1f} ms, breakdown {prof.breakdown}, "
+          f"movement {edges}, residency high water "
+          f"{res['hbm_high_water']} bytes, {len(prof.kernels or ())} "
+          f"kernels, max roofline share "
+          f"{max(shares) if shares else 0.0:.3g}% [{card}]", flush=True)
+    return {"spans": len(prof.spans), "events": len(prof.events),
+            "wall_s": prof.wall_s, "breakdown": prof.breakdown,
+            "movement": edges, "hbm_high_water": res["hbm_high_water"],
+            "kernels": len(prof.kernels or ())}
+
+
+def profiled_pair(torch, dev, q: int, tables: dict, gold: dict, label: str,
+                  conf_plain, conf_prof, source_fn=None,
+                  plain_run: Optional[tuple] = None) -> tuple:
+    """Query q unprofiled (or `plain_run`, its (frame, seconds) from a run
+    already made), then profiled: the same bits, the golden, and the
+    profile.  Returns (profile, plans, unprofiled seconds, profiled
+    seconds)."""
+    from spark_rapids_tpu_torch.utils import profile as P
+    if plain_run is None:
+        plain, _, sec0 = submit_tpch(torch, dev, q, tables, conf_plain,
+                                     f"{label} plain", source=source_fn()
+                                     if source_fn else None)
+    else:
+        plain, sec0 = plain_run
+    P.clear_history()
+    held: list = []
+    df, sub, sec1 = submit_tpch(torch, dev, q, tables, conf_prof, label,
+                                source=source_fn() if source_fn else None,
+                                keep=held)
+    prof = P.last_profile()
+    same_result(plain, df, f"{label} profiled")
+    rel = check_tpch(q, df, gold, sub)
+    print(f"profile {label}: unprofiled collect {sec0['collect']:.3f} s, "
+          f"profiled {sec1['collect']:.3f} s (x"
+          f"{sec1['collect'] / sec0['collect']:.3f}), same bits, rel err "
+          f"{rel:.3g}", flush=True)
+    return prof, held, sec0["collect"], sec1["collect"]
+
+
+def profile_phase(torch, dev, tables: dict, gold: dict, GW, K,
+                  kernels: dict, seed: int, keep: str = "") -> dict:
+    """Phase 17 (see the module docstring): 17a-17e over phases 7-9's
+    tables and goldens and 14b's files.  Returns each part's figures and
+    each hand kernel's catalog figures.  `keep` names a directory the
+    Chrome traces and the event log are copied to before PROFILE_DIR is
+    removed."""
+    import shutil
+    import threading
+    import urllib.request
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.exec import aggregate as AGG
+    from spark_rapids_tpu_torch.exec import scheduler as S
+    from spark_rapids_tpu_torch.exec.basic import LocalBatchSource
+    from spark_rapids_tpu_torch.memory import ResourceEnv
+    from spark_rapids_tpu_torch.memory import oocore as OC
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.shuffle.manager import TpuShuffleManager
+    from spark_rapids_tpu_torch.utils import kernelprof as KP
+    from spark_rapids_tpu_torch.utils import movement as MV
+    from spark_rapids_tpu_torch.utils import profile as P
+    from spark_rapids_tpu_torch.utils import residency as RS
+    from spark_rapids_tpu_torch.utils import telemetry as T
+    out: dict = {"laps": {}, "launches": {}}
+    on_card = dev.type == "cuda"  # the wrappers launch on the card only
+    card = TB.card() if on_card else "cpu"
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    PROFILE_DIR.mkdir(parents=True)
+
+    def part_done(name: str, t0: float) -> None:
+        out["laps"][name] = time.perf_counter() - t0
+        print(f"phase {name}: {out['laps'][name]:.1f} s", flush=True)
+
+    def files():
+        return file_sources(TD.SCHEMAS, TD.SCHEMAS)
+
+    def q5_unprofiled(label: str) -> tuple:
+        gc.collect()
+        df, _, sec = submit_tpch(torch, dev, 5, tables, tpch_conf(5),
+                                 label, source=files())
+        check_tpch(5, df, gold, [])
+        gc.collect()
+        rec = {"collect_s": sec["collect"], "rss": process_rss(),
+               "gc_count": gc.get_count()}
+        print(f"profile {label}: Q5 unprofiled collect "
+              f"{sec['collect']:.3f} s, rss {rec['rss']} bytes, "
+              f"gc.get_count() {rec['gc_count']}", flush=True)
+        return rec, (df, sec)
+
+    # 17e's first half: Q5 unprofiled, before anything is on; 17a's
+    # profiled Q5 is held against this run
+    t_part = time.perf_counter()
+    out["17e_before"], q5_plain = q5_unprofiled("17e before")
+    part_done("17e (before)", t_part)
+
+    # telemetry with its HTTP endpoint on a free port of 127.0.0.1, for
+    # the whole phase (17d reads it); kernel attribution from a clean
+    # catalog
+    P.clear_history()
+    KP.reset()
+    RS.reset()
+    MV.reset_process_edge_totals()
+    telem = T.start(profile_conf(1), http_port=0)
+    KP.enable(profile_conf(1))
+
+    # 17a: planner Q1 and Q5 over 14b's files, the exec-tree Q1 and the
+    # stacked Q1 step over one SF1-sized lineitem batch, and
+    # window_group_sums at phase 3's main-path shape
+    t_part = time.perf_counter()
+    launches0 = launch_counts(GW, K)
+    cat0 = {n: KP.hand_kernel_totals(n)["launches"]
+            for n in ("q1_fused", "grouped_sum", "window_group_sums")}
+    out["17a"] = {}
+    for q in (1, 5):
+        prof, plans, s0, s1 = profiled_pair(
+            torch, dev, q, tables, gold, f"17a q{q}", tpch_conf(q),
+            profile_conf(q), files, q5_plain if q == 5 else None)
+        info = check_profile(prof, plans, f"17a q{q}", card)
+        require(info["movement"]["upload"] > 0
+                and info["movement"]["readback"] > 0,
+                f"17a q{q}: upload or readback moved no bytes: "
+                f"{info['movement']}")
+        require(info["hbm_high_water"] > 0,
+                f"17a q{q}: no residency high-water mark")
+        info.update(unprofiled_s=s0, profiled_s=s1)
+        out["17a"][f"q{q}"] = info
+        del prof, plans
+    del q5_plain
+    # the exec-tree Q1 and the stacked step over one batch of SF1's
+    # 6,001,215 lineitem rows at capacity 2^23 (phase 3's grouped_sum
+    # shape: 2^23 rows, G=26, M=14)
+    rows = len(tables["lineitem"])
+    arrays = tpch.gen_lineitem_arrays(np.random.default_rng(seed), rows)
+    batch = ColumnarBatch.from_numpy(arrays, tpch.LINEITEM_SCHEMA,
+                                     capacity=TB.BATCH_CAP, device=dev)
+    gold1 = golden_q1([arrays])
+    conf1 = C.RapidsConf({**TB.BENCH_CONF, **PROFILE_KEYS, **{
+        "spark.rapids.sql.profile.chromeTrace.path":
+            str(PROFILE_DIR / "trace-{query_id}.json")}})
+    # each kernel's catalog mean is taken over its warm samples: those
+    # after a first call at its shape (marks)
+    shapes = {"q1_fused": (TB.BATCH_CAP, TB.BATCH_CAP),
+              "grouped_sum": (TB.BATCH_CAP, 26, 14, "A"),
+              "window_group_sums": (1 << 14, 1 << 14, 17)}
+
+    def entry_totals(name: str) -> tuple:
+        want = repr(((KP.HAND_SCOPE, name), (name,) + shapes[name]))
+        rows_ = [e for e in KP.hand_kernel_totals(name)["entries"]
+                 if e["identity"] == want]
+        return (rows_[0]["sampled"], rows_[0]["device_ns"],
+                rows_[0]["cost"], rows_[0]["hist"]) if rows_ \
+            else (0, 0, None, [0] * (len(KP.TIME_BUCKETS) + 1))
+
+    marks = {}
+    # the unprofiled exec-tree Q1 keeps its grouped_sum call's inputs,
+    # which are timed alone below
+    gcalls: list = []
+    AGG.grouped_sum = recording_grouped(gcalls, K)
+    try:
+        with C.session(C.RapidsConf(dict(TB.BENCH_CONF))):
+            plain = tpch.q1_plan(LocalBatchSource([[batch]], device=dev)) \
+                .collect().to_pandas()
+    finally:
+        AGG.grouped_sum = K.grouped_sum
+    require(bool(gcalls) or not on_card,
+            "17a exec-tree q1: no grouped_sum call on the card")
+    marks["grouped_sum"] = entry_totals("grouped_sum")
+    P.clear_history()
+    with C.session(conf1):
+        plan = tpch.q1_plan(LocalBatchSource([[batch]], device=dev))
+        df = plan.collect().to_pandas()
+    same_result(plain, df, "17a exec-tree q1 profiled")
+    require(list(df["count_order"]) == [int(c) for c in gold1["count"]
+                                        if c],
+            "17a exec-tree q1 counts differ from the golden")
+    out["17a"]["exec_q1"] = check_profile(P.last_profile(), [plan],
+                                          "17a exec-tree q1", card)
+    # five more profiled collects: grouped_sum's warm samples
+    with C.session(conf1):
+        for _ in range(5):
+            again = tpch.q1_plan(LocalBatchSource([[batch]], device=dev)) \
+                .collect().to_pandas()
+            same_result(plain, again, "17a exec-tree q1 profiled again")
+    del plan, plain, df, again
+    stacked, nums = TB.stacked_columns([batch], [rows], dev)
+    step = tpch.build_q1_fused_kernel(TB.BATCH_CAP, TB.BATCH_CAP,
+                                      device=dev)
+    plain = step(*stacked, nums).cpu()
+    marks["q1_fused"] = entry_totals("q1_fused")
+    scope = S.QueryScope(conf1, device=dev)
+    try:
+        outs = [step(*stacked, nums).cpu() for _ in range(5)]
+    finally:
+        scope.close()
+    require(all(torch.equal(t, plain) for t in outs),
+            "17a stacked step: a profiled call gave other bits")
+    step_prof = P.last_profile()
+    # window_group_sums at phase 3's main-path shape (Q1's merge: 8
+    # partials x 6 groups sorted into 2^14 rows, 17 measures)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    merge_cap, live = 1 << 14, TB.N_BATCHES * 6
+    gid = torch.clamp(torch.arange(merge_cap, device=dev) // TB.N_BATCHES,
+                      max=5).to(torch.int32)
+    row_live = torch.arange(merge_cap, device=dev) < live
+    mvals = [torch.where(row_live, torch.rand(
+        merge_cap, generator=g, device=dev) * 1e6, 0.0) for _ in range(17)]
+    GW.window_group_sums(gid, mvals, out_cap=merge_cap, capacity=merge_cap)
+    sync(torch, dev)
+    marks["window_group_sums"] = entry_totals("window_group_sums")
+    scope = S.QueryScope(conf1, device=dev)
+    try:
+        for _ in range(20):
+            GW.window_group_sums(gid, mvals, out_cap=merge_cap,
+                                 capacity=merge_cap)
+    finally:
+        scope.close()
+    sync(torch, dev)
+    a_launches = {k: v - launches0[k]
+                  for k, v in launch_counts(GW, K).items()}
+    catalog = {n: KP.hand_kernel_totals(n)
+               for n in ("q1_fused", "grouped_sum", "window_group_sums")}
+    for name, tot in catalog.items():
+        got = tot["launches"] - cat0[name]
+        require(got == a_launches[name] and (got > 0 or not on_card),
+                f"17a {name}: catalog launches {got}, wrapper launches "
+                f"{a_launches[name]}")
+    KP.disable()  # the reference timings below are not the main path's
+
+    def entry(name: str) -> dict:
+        # the warm samples: those after the mark, with their histogram
+        n1, ns1, cost, h1 = entry_totals(name)
+        n0, ns0, _, h0 = marks[name]
+        require(n1 - n0 >= 3 or not on_card,
+                f"17a {name}: {n1 - n0} warm samples at {shapes[name]}")
+        hist = {f"<={b * 1e3:g}ms" if i < len(KP.TIME_BUCKETS)
+                else "more": y - x
+                for i, (b, x, y) in enumerate(zip(
+                    KP.TIME_BUCKETS + (None,), h0, h1)) if y - x}
+        if n1 - n0 < 1:
+            return {"mean_ms": float("nan"), "sampled": 0, "cost": None,
+                    "hist": hist}
+        return {"mean_ms": (ns1 - ns0) / (n1 - n0) / 1e6,
+                "sampled": n1 - n0, "cost": cost, "hist": hist}
+
+    # each kernel alone, timed as the phases after 3 time it, on the
+    # inputs of the calls the catalog sampled: the stacked step's, the
+    # exec-tree Q1's dictionary-lane call (recorded above), and the merge
+    # shape's
+    def alone(fn, reps: int) -> float:
+        # CUDA events queued behind a sleep kernel, as every phase after
+        # phase 7 times a kernel (the profiler records no device
+        # activity there)
+        return event_ms(torch, fn, reps) if on_card else float("nan")
+
+    refs = {
+        "q1_fused": alone(lambda: K.q1_fused(
+            *stacked, nums, capacity=TB.BATCH_CAP, cutoff=10471,
+            batch_rows=TB.BATCH_CAP), 10),
+        "grouped_sum": alone(lambda: K.grouped_sum(
+            gcalls[0], gcalls[1], gcalls[2], n_groups=gcalls[3],
+            capacity=gcalls[0].numel()), 10) if gcalls else float("nan"),
+        "window_group_sums": alone(lambda: GW.window_group_sums(
+            gid, mvals, out_cap=merge_cap, capacity=merge_cap), 20)}
+    del gcalls
+
+    def phase3(name: str) -> str:
+        k = kernels.get(name) or {}
+        return (f"phase 3: {k['device_ms']:.4f} ms at {k['shape']}"
+                if k.get("device_ms") else "phase 3 not run")
+
+    compared = {
+        "q1_fused": (entry("q1_fused"), refs["q1_fused"],
+                     f"alone at 1x2^23; {phase3('q1_fused')}"),
+        "grouped_sum": (entry("grouped_sum"), refs["grouped_sum"],
+                        f"alone at 2^23 rows, G=26, M=14; "
+                        f"{phase3('grouped_sum')}"),
+        "window_group_sums": (entry("window_group_sums"),
+                              refs["window_group_sums"],
+                              f"alone at phase 3's merge shape; "
+                              f"{phase3('window_group_sums')}")}
+    out["catalog"] = {}
+    gaps = []
+    for name, (e, ref_ms, what) in compared.items():
+        gap = abs(e["mean_ms"] - ref_ms) / ref_ms if ref_ms == ref_ms \
+            else float("nan")
+        share = ""
+        if e["cost"]:
+            t = e["mean_ms"] / 1e3
+            gbs = e["cost"]["bytes_accessed"] / t / 1e9
+            gfs = e["cost"]["flops"] / t / 1e9
+            pct = 100 * max(gbs / 3350.0, gfs / 66900.0)
+            share = f", {pct:.1f}% of the H100 roofline"
+            require(pct <= 100.0, f"17a {name}: above its roofline")
+        within = gap <= CATALOG_RTOL
+        print(f"profile 17a catalog {name} [{card}]: warm sampled mean "
+              f"{e['mean_ms']:.4f} ms over {e['sampled']} launches{share};"
+              f" kernel alone {ref_ms:.4f} ms ({what}), gap "
+              f"{gap * 100:.1f}%; samples by bucket {e['hist']}",
+              flush=True)
+        if on_card and not within:
+            gaps.append(f"{name}: catalog mean {e['mean_ms']:.4f} ms is "
+                        f"{gap * 100:.1f}% from the kernel alone")
+        out["catalog"][name] = {**e, "reference_ms": ref_ms, "gap": gap,
+                                "within": within, "reference": what,
+                                "launches_17a": a_launches[name]}
+    KP.enable(profile_conf(1))
+    out["launches"]["17a"] = a_launches
+    out["17a"]["stacked_step_kernels"] = [
+        {k: r[k] for k in ("label", "dispatches", "sampled", "device_ms")}
+        for r in step_prof.kernels]
+    del stacked, nums, step, batch, arrays, gid, mvals, row_live, outs
+    part_done("17a (profiled Q1 three ways, Q5; the catalog)", t_part)
+
+    # 17c: Q3 over four executors of the card, profiled
+    t_part = time.perf_counter()
+    try:
+        P.clear_history()
+        held = []
+        df, sub, sec = submit_tpch(
+            torch, dev, 3, tables, shuffle_conf(3, **PROFILE_KEYS, **{
+                "spark.rapids.sql.profile.chromeTrace.path":
+                    str(PROFILE_DIR / "trace-{query_id}.json")}),
+            "17c q3", keep=held)
+        rel = check_tpch(3, df, gold, sub)
+        prof = P.last_profile()
+        info = check_profile(prof, held, "17c q3", card)
+        wire = prof.movement["edges"]["wire"]["sites"]
+        sent = sum(v["bytes"] for s, v in wire.items()
+                   if s.startswith("send"))
+        recv = sum(v["bytes"] for s, v in wire.items()
+                   if s.startswith("recv"))
+        require(sent == recv > 0, f"17c: wire sent {sent}, received {recv}")
+        by_id = {s.sid: s for s in prof.spans}
+        fetch = [s for s in prof.spans
+                 if s.name.startswith("shuffle-fetch:")]
+        require(fetch, "17c: no shuffle-fetch span")
+        for s in fetch:
+            cur = s
+            while cur.parent_id is not None:
+                cur = by_id[cur.parent_id]
+            require(cur.cat == "query" and cur is not s,
+                    f"17c: {s.name} does not parent under its query")
+        print(f"profile 17c q3 over {SHUFFLE_EXECUTORS} executors: collect "
+              f"{sec['collect']:.3f} s, rel err {rel:.3g}; wire sent "
+              f"{sent} = received {recv} bytes; {len(fetch)} shuffle-fetch "
+              f"spans under the query (threads "
+              f"{sorted({s.thread_name for s in fetch})})", flush=True)
+        out["17c"] = {"wire_bytes": sent, "fetch_spans": len(fetch),
+                      "collect_s": sec["collect"], **info}
+        del df, sub, held, prof
+    finally:
+        TpuShuffleManager.close_all()
+    part_done("17c (Q3 over four executors, profiled)", t_part)
+
+    # 17b: the same Q3 over four executors under phase 12's OOM
+    # injection and a device budget cut from its peak (17c's residency
+    # high-water mark), profiled, twice: with the out-of-core lanes
+    # (a quarter of the peak: their runs spill), and without them (a
+    # 32nd: the retry harness's pressure spills the device store, where
+    # the manager lane parks its map output; with the lanes on, they
+    # take the pressure first and the store never spills, and at a 16th
+    # no reservation met the parked output on an H100)
+    t_part = time.perf_counter()
+    out["17b"] = {}
+    for leg, share, oocore in (("out-of-core", 4, True),
+                               ("device store", 32, False)):
+        budget = max(1, out["17c"]["hbm_high_water"] // share)
+        conf_b, env = memory_env(dev, {
+            C.HBM_BUDGET_BYTES.key: budget, C.OOCORE_ENABLED.key: oocore,
+            **MEM_INJECT})
+        try:
+            conf_b = conf_b.set(C.RAPIDS_SHUFFLE_ENABLED.key, True)
+            conf_b = conf_b.set(C.SHUFFLE_LOCAL_EXECUTORS.key,
+                                SHUFFLE_EXECUTORS)
+            for k, v in PROFILE_KEYS.items():
+                conf_b = conf_b.set(k, v)
+            conf_b = conf_b.set(
+                "spark.rapids.sql.profile.chromeTrace.path",
+                str(PROFILE_DIR / "trace-{query_id}.json"))
+            cb0 = env.spill_callback.bytes_spilled
+            P.clear_history()
+            held: list = []
+            df, sub, sec = submit_tpch(torch, dev, 3, tables, conf_b,
+                                       f"17b q3 {leg}", keep=held)
+            rel = check_tpch(3, df, gold, sub)
+            prof = P.last_profile()
+            info = check_profile(prof, held, f"17b q3 {leg}", card)
+            metric = {n: sum(node.metrics.value(n)
+                             for node in walk(held[0])
+                             if hasattr(node, "metrics"))
+                      for n in ("numRetries", "numSplitRetries",
+                                "spillBytes", "spillRunBytes")}
+            kinds = [e["kind"] for e in prof.events]
+            ev = {"oom_retry": kinds.count("oom_retry"),
+                  "oom_split_retry": kinds.count("oom_split_retry")}
+            require(ev["oom_retry"] == metric["numRetries"]
+                    and ev["oom_split_retry"] == metric["numSplitRetries"],
+                    f"17b {leg}: events {ev} against metrics {metric}")
+            require(ev["oom_retry"] + ev["oom_split_retry"] > 0,
+                    f"17b {leg}: no retry under injection: {ev}")
+            # the spill edge three ways: the device store's device->*
+            # hops against the spill callback and the plan's spillBytes,
+            # and the out-of-core runs' hops against the run accounting
+            # and spillRunBytes; this leg's must be above 0
+            sites = prof.movement["edges"]["spill"]["sites"]
+            hops = sum(v["bytes"] for s, v in sites.items()
+                       if s.startswith("device->"))
+            spilled = env.spill_callback.bytes_spilled - cb0
+            runs = sum(v["bytes"] for s, v in sites.items()
+                       if s.startswith(OC.SITE_PREFIX))
+            require(hops == spilled == metric["spillBytes"],
+                    f"17b {leg}: spill hops {hops}, callback {spilled}, "
+                    f"spillBytes {metric['spillBytes']}")
+            require(runs == OC.run_bytes_spilled()
+                    == metric["spillRunBytes"],
+                    f"17b {leg}: run hops {runs}, run accounting "
+                    f"{OC.run_bytes_spilled()}, spillRunBytes "
+                    f"{metric['spillRunBytes']}")
+            require((runs if oocore else hops) > 0,
+                    f"17b {leg}: nothing of this leg spilled: sites "
+                    f"{sorted(sites)}")
+            print(f"profile 17b q3 {sf_of(tables)} over "
+                  f"{SHUFFLE_EXECUTORS} executors, out-of-core lanes "
+                  f"{'on' if oocore else 'off'}, under budget {budget} "
+                  f"bytes (1/{share} of the peak) and oomRate 0.05: "
+                  f"collect {sec['collect']:.3f} s, rel err {rel:.3g}; "
+                  f"events {ev} = metrics (numRetries "
+                  f"{metric['numRetries']:g}, numSplitRetries "
+                  f"{metric['numSplitRetries']:g}); spill device->* hops "
+                  f"{hops} = callback {spilled} = spillBytes "
+                  f"{metric['spillBytes']:g} bytes; out-of-core hops "
+                  f"{runs} = run accounting = spillRunBytes "
+                  f"{metric['spillRunBytes']:g} bytes; sites "
+                  f"{sorted(sites)}", flush=True)
+            out["17b"][leg] = {**info, "budget": budget, "events": ev,
+                               "metrics": metric, "spill_hops": hops,
+                               "run_hops": runs,
+                               "collect_s": sec["collect"]}
+            del df, sub, held, prof
+        finally:
+            TpuShuffleManager.close_all()
+            ResourceEnv.shutdown()
+    part_done("17b (Q3 over four executors under budgets and OOM "
+              "injection, the out-of-core lanes on and off, profiled)",
+              t_part)
+
+    # 17d: two streams over the files (Q1 and Q3, and Q5), the sampler on
+    t_part = time.perf_counter()
+    mark = telem.utilization_counts()
+    streams = throughput_test(torch, dev, tables, gold, 2, GW, K,
+                              orders=PROFILE_STREAMS, extra=PROFILE_KEYS)
+    summary = telem.utilization_summary(baseline=mark)
+    total = sum(v for k, v in summary.items() if k != "samples")
+    require(summary["samples"] > 0 and 99.0 <= total <= 101.0,
+            f"17d: cause shares {summary}")
+    text = T.prometheus_text()
+    samples = {}
+    for ln in text.splitlines():
+        if ln and not ln.startswith("#"):
+            name, val = ln.rsplit(" ", 1)
+            samples[name] = float(val)
+    require(samples.get("tpu_rapids_hbm_budget_bytes", 0) > 0,
+            "17d: the Prometheus text has no device budget")
+    body = urllib.request.urlopen(
+        f"http://127.0.0.1:{telem.http_port}/metrics", timeout=10).read()
+    require(b"tpu_rapids_utilization_samples_total" in body,
+            "17d: the HTTP endpoint did not serve the registry")
+    slow = telem.slow_query_log()
+    print(f"profile 17d two streams {PROFILE_STREAMS}: wall "
+          f"{streams['wall']:.3f} s; cause shares {summary} (sum "
+          f"{total:.1f}%); {len(samples)} Prometheus samples parsed; "
+          f"/metrics on 127.0.0.1:{telem.http_port} served {len(body)} "
+          f"bytes; slow-query log {[(e['count'], e['p50_ms'], e['top_idle_cause']) for e in slow]}",
+          flush=True)
+    out["17d"] = {"wall_s": streams["wall"], "causes": summary,
+                  "prometheus_samples": len(samples),
+                  "slow_queries": len(slow)}
+    part_done("17d (two streams, the sampler, Prometheus)", t_part)
+
+    # every part's launches, and the event log
+    out["launches"]["17"] = {k: v - launches0[k]
+                             for k, v in launch_counts(GW, K).items()}
+    recs = [json.loads(ln) for ln in
+            (PROFILE_DIR / "events.jsonl").read_text().splitlines()]
+    snaps = [r for r in recs if r.get("kind") == P.EV_TELEMETRY_SNAPSHOT]
+    events = [r for r in recs if r.get("kind") != P.EV_TELEMETRY_SNAPSHOT]
+    require(events and all("query_id" in r and r.get("kind") in
+                           P.EVENT_KINDS for r in events),
+            "the event log is not JSONL of the queries' events")
+    print(f"profile event log: {len(events)} records of "
+          f"{len({r['query_id'] for r in events})} queries, kinds "
+          f"{sorted({r['kind'] for r in events})}, and {len(snaps)} "
+          f"telemetry snapshots", flush=True)
+    T.stop()
+    KP.disable()
+    RS.disable()
+    P.clear_history()
+
+    # 17e's second half: Q5 unprofiled after 17a-d, twice (a one-time
+    # cost of the first run after shows in the first alone); nothing of
+    # the layer may stay on: no telemetry instance or thread, kernel
+    # attribution and residency tracking off
+    t_part = time.perf_counter()
+    alive = sorted(t.name for t in threading.enumerate())
+    require(T.live() is None and not KP.enabled() and not RS.enabled()
+            and not set(TELEMETRY_THREADS) & set(alive),
+            f"17e: the observability layer stayed on: telemetry "
+            f"{T.live()}, kernel attribution {KP.enabled()}, residency "
+            f"{RS.enabled()}, threads {alive}")
+    print(f"profile 17e: telemetry, kernel attribution and residency "
+          f"tracking off; threads {alive}", flush=True)
+    out["17e_after"] = [q5_unprofiled(f"17e after ({i})")[0]
+                        for i in (1, 2)]
+    part_done("17e (after)", t_part)
+    if keep:
+        shutil.copytree(PROFILE_DIR, keep, dirs_exist_ok=True)
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    # 17a's catalog gate, raised once the other parts have run
+    require(not gaps, f"17a: past {CATALOG_RTOL:.0%}: {gaps}")
+    return out
+
+
 def kernel_cases(torch, dev, GW, K):
     """(grouped_case, window_case): a kernel's call on `dev` held
     against its plain twin, its second call's bits, and its times (the
@@ -4875,7 +5748,7 @@ def main() -> int:
         torch, dev, tables, {1: gold_q1, 6: gold_q6, **gold, **gold_parts,
                              **gold_rest},
         GW, K, (grouped_case, window_case), single_s, orders=HALF_STREAMS)
-    io_reset()
+    # 14b's files stay for phase 17
     lap("15 (the runtime: TPC-H throughput test, admission, result cache, "
         "watchdog, AQE, wrappers under threads)")
 
@@ -4886,10 +5759,23 @@ def main() -> int:
         torch, dev, tables, {1: gold_q1, 6: gold_q6, **gold, **gold_parts,
                              **gold_rest},
         GW, K, (grouped_case, window_case), args.seed)
-    del tables
     lap("16 (the shuffle manager lane: Q3, Q5, Q9, Q18 over four "
         "executors, TCP with zstd, peer kill, speculation, a second "
         "process, the brute-force joins)")
+
+    # 17. the observability layer over the same tables and 14b's files:
+    # profiled Q1 three ways and Q5, the kernel catalog against phase 3's
+    # timings, Q5 under a budget and OOM injection, Q3 over four
+    # executors, two streams under the telemetry sampler
+    obs = profile_phase(
+        torch, dev, tables, {1: gold_q1, 6: gold_q6, **gold, **gold_parts,
+                             **gold_rest},
+        GW, K, kernels, args.seed)
+    io_reset()
+    del tables
+    lap("17 (the observability layer: profiled Q1 and Q5, the kernel "
+        "catalog, Q3 over four executors, unbudgeted and under budgets "
+        "and OOM injection, two streams under the sampler)")
     io_more = {i["label"]: i for i in list(io_b["queries"].values())
                + list(gaps.values())}
     for name, cases in plan_cases("14b and 14c", io_more, window_case,
@@ -4908,21 +5794,31 @@ def main() -> int:
     gc.collect()
     gc.freeze()
     torch.cuda.empty_cache()
-    workloads_check_phase(torch, dev, args.seed)
-    lap(f"13a (TPC-DS 103 with 11a's 18, TPCx-BB 28 at {WL_CHECK_SCALE} "
-        f"store_sales rows and Mortgage at {WL_CHECK_LOANS} loans against "
-        f"the CPU engine)")
-    t0 = time.perf_counter()
-    tables = workload_tables(args.seed, WL_SCALE)
-    print("workload data: " + ", ".join(f"{k} {len(v)}" for k, v in
-                                        tables.items())
-          + f" rows, {time.perf_counter() - t0:.1f} s", flush=True)
-    ds = ds_phase(torch, dev, args.seed, GW, K, tables=tables)
-    lap(f"11b (TPC-DS 18 queries at {WL_SCALE} store_sales rows)")
-    # 13b: TPC-DS's other 85 and Mortgage; TPCx-BB's 28 run by
-    # scripts/torch_workloads_phase.py (the docstring's Cuts)
-    ds_more = ds_phase(torch, dev, args.seed, GW, K, queries=ds_rest_cut(),
-                       tables=tables)
+    # CARD_HELPERS processes run 13a's, 11b's and 13b's queries on the
+    # card beside this one (spread); 11b's and 13b's kernel calls are
+    # timed here after their queries, with the card to this process
+    spec = ("workload", args.seed, WL_SCALE)
+    with card_pool(dev) as pool:
+        workloads_check_phase(torch, dev, args.seed, pool)
+        lap(f"13a (TPC-DS 103 with 11a's 18, TPCx-BB 28 at "
+            f"{WL_CHECK_SCALE} store_sales rows and Mortgage at "
+            f"{WL_CHECK_LOANS} loans against the CPU engine, in this "
+            f"process and {CARD_HELPERS} more on the card)")
+        t0 = time.perf_counter()
+        tables = workload_tables(*spec[1:])
+        print("workload data: " + ", ".join(f"{k} {len(v)}" for k, v in
+                                            tables.items())
+              + f" rows, {time.perf_counter() - t0:.1f} s", flush=True)
+        ds = ds_phase(torch, dev, args.seed, GW, K, queries=list(DS_SLICE),
+                      tables=tables, pool=pool, spec=spec)
+        lap(f"11b (TPC-DS's 18 queries at {WL_SCALE} store_sales rows, in "
+            f"this process and {CARD_HELPERS} more on the card)")
+        # 13b: every second one of TPC-DS's other 85, then Mortgage
+        # here; TPCx-BB's 28 run by scripts/torch_workloads_phase.py (the
+        # docstring's Cuts)
+        ds_more = ds_phase(torch, dev, args.seed, GW, K,
+                           queries=ds_rest_cut(), tables=tables, pool=pool,
+                           spec=spec)
     del tables
     wl = workloads_scale_phase(torch, dev, args.seed, GW, K, WL_SCALE,
                                MORTGAGE_LOANS, xbb_queries=())
@@ -4932,8 +5828,9 @@ def main() -> int:
                     for v in suite.values()),
                 f"{name} never launched in phase 13b")
     lap(f"13b (TPC-DS {len(ds_rest_cut())} of the 85 at {WL_SCALE} "
-        f"store_sales rows, Mortgage at "
-        f"{MORTGAGE_LOANS} loans x {MORTGAGE_MONTHS} months)")
+        f"store_sales rows, in this process and {CARD_HELPERS} more on the "
+        f"card, Mortgage at {MORTGAGE_LOANS} loans x {MORTGAGE_MONTHS} "
+        f"months)")
 
     kernels["q1_fused"]["launches"] = step_launches
     kernels["grouped_sum"]["launches"] = engine_launches["grouped_sum"]
@@ -4988,6 +5885,12 @@ def main() -> int:
             {k: c["cases"][name][k] for k in case_keys
              if k in c["cases"][name]}
             for c in shuffle["16a"].values() if name in c["cases"]]
+    for name in kernels:
+        kernels[name]["observability_launches"] = {
+            part: v[name] for part, v in obs["launches"].items()}
+        kernels[name]["catalog_device_ms"] = obs["catalog"][name]["mean_ms"]
+        kernels[name]["catalog_reference_ms"] = \
+            obs["catalog"][name]["reference_ms"]
     for name in ("window_group_sums", "grouped_sum"):
         kernels[name]["runtime_cases"] = [
             {k: runtime["15a"]["cases"][name][k] for k in case_keys
@@ -5013,7 +5916,8 @@ def main() -> int:
             "memory_cases", "tpcxbb_launches", "mortgage_launches",
             "workload_cases", "io_launches", "io_cases",
             "runtime_launches", "runtime_cases", "shuffle_launches",
-            "shuffle_cases")
+            "shuffle_cases", "observability_launches", "catalog_device_ms",
+            "catalog_reference_ms")
     line = {"kernels": [{k: v[k] for k in keys if k in v}
                         for v in kernels.values()]}
     print(json.dumps(line), flush=True)

@@ -66,6 +66,8 @@ class ColumnarBatch:
     def num_rows(self) -> int:
         """Host row count — SYNCS if the count is still a device scalar."""
         if not isinstance(self._rows, int):
+            from spark_rapids_tpu_torch.utils import checks as CK
+            CK.note_host_sync("batch.num_rows", nbytes=4)
             self._rows = int(self._rows.item())
         return self._rows
 
@@ -147,6 +149,7 @@ class ColumnarBatch:
                                         device=dev)
             cols.append(c)
             fields.append(T.Field(name, c.dtype))
+        _note_upload(cols, "batch.from_numpy", n)
         return ColumnarBatch(schema or T.Schema(tuple(fields)), cols, n)
 
     @staticmethod
@@ -177,7 +180,16 @@ class ColumnarBatch:
                 vec.dtype = want
             cols.append(vec)
             fields.append(T.Field(name, vec.dtype))
+        _note_upload(cols, "batch.from_arrow", n)
         return ColumnarBatch(schema or T.Schema(tuple(fields)), cols, n)
+
+    def _note_readback(self, site: str) -> None:
+        """Ledger hook of the host-conversion sinks: the device
+        footprint of the batch is what they pull to the host."""
+        from spark_rapids_tpu_torch.utils import movement as MV
+        if MV.ledger() is not None:
+            MV.record(MV.EDGE_READBACK, self.device_size_bytes(),
+                      site=site)
 
     def to_arrow(self):
         """Device batch -> pyarrow Table (what the writers encode).
@@ -186,6 +198,7 @@ class ColumnarBatch:
         import pyarrow as pa
         if self.sparse is not None:
             return self.dense().to_arrow()
+        self._note_readback("collect.to_arrow")
         self.verify_checks()
         n = self.num_rows
         arrays = []
@@ -215,6 +228,7 @@ class ColumnarBatch:
         import pandas as pd
         if self.sparse is not None:
             return self.dense().to_pandas()
+        self._note_readback("collect.to_pandas")
         self.verify_checks()
         out = {}
         n = self.num_rows
@@ -287,6 +301,16 @@ class ColumnarBatch:
         return ColumnarBatch(
             self.schema, [c.with_capacity(capacity) for c in self.columns],
             rows, self.checks)
+
+
+def _note_upload(cols: list, site: str, rows: int) -> None:
+    """Ledger hook of the host->device construction points: one upload
+    record per batch, the device footprint of its columns."""
+    from spark_rapids_tpu_torch.utils import movement as MV
+    if cols and MV.ledger() is not None:
+        MV.record(MV.EDGE_UPLOAD,
+                  sum(MV.vector_device_bytes(c) for c in cols),
+                  site=site, rows=rows)
 
 
 def _validity_buffer(valid: np.ndarray):

@@ -65,6 +65,13 @@ def serialize_batch(batch: ColumnarBatch) -> bytes:
     copy; the strings are cut to their longest one and the validity
     packed on the host."""
     batch = batch.dense()
+    # movement ledger: serialization pulls the batch host-side (spill /
+    # shuffle-serve readback); the bytes are its device footprint, as
+    # the reference counts them
+    from spark_rapids_tpu_torch.utils import movement as MV
+    if MV.ledger() is not None:
+        MV.record(MV.EDGE_READBACK, batch.device_size_bytes(),
+                  site="serde.serialize")
     batch.verify_checks()
     n = batch.num_rows
     pieces = []
@@ -190,4 +197,11 @@ def deserialize_batch(blob: bytes, device,
                                else None)
         cols.append(col)
         fields.append(T.Field(fm["name"], dt, fm.get("nullable", True)))
-    return ColumnarBatch(T.Schema(tuple(fields)), cols, n)
+    out = ColumnarBatch(T.Schema(tuple(fields)), cols, n)
+    # movement ledger: deserialization re-uploads the padded arrays
+    # (spill re-read / shuffle-receive materialization)
+    from spark_rapids_tpu_torch.utils import movement as MV
+    if MV.ledger() is not None:
+        MV.record(MV.EDGE_UPLOAD, out.device_size_bytes(),
+                  site="serde.deserialize")
+    return out

@@ -488,6 +488,235 @@ SLOW_INJECT_UNIT_MS = conf(
     "TEST ONLY: nominal per-unit work time (ms) the slowFactor "
     "multiplies.")
 
+# --- query profiles (utils/profile.py) ---------------------------------------
+PROFILE_ENABLED = conf(
+    "spark.rapids.sql.profile.enabled", False,
+    "Record a per-query observability profile: a span tree (query -> "
+    "stage/exchange -> operator -> batch/compile/shuffle-fetch/retry) "
+    "with thread-propagated parenting, each span also pushed as an NVTX "
+    "range on a CUDA query (torch.profiler.record_function on the CPU) so "
+    "profiler captures line up, plus a structured event log (retries, "
+    "fetch failures, blacklists, watchdog dumps, cancellations — all "
+    "carrying the query id).  On collect() the spans, events, an "
+    "EXPLAIN-with-metrics plan report, and a wall-clock breakdown "
+    "(compute vs pipeline wait vs shuffle vs compile vs retry-block) "
+    "assemble into a QueryProfile kept in a bounded history.  Disabled "
+    "(default) the batch hot loop allocates no tracer objects.")
+PROFILE_HISTORY_SIZE = conf(
+    "spark.rapids.sql.profile.historySize", 16,
+    "How many completed QueryProfiles to retain in the in-process "
+    "history (utils.profile.profile_history), queryable from tests and "
+    "bench harnesses.  Oldest profiles are dropped first.")
+PROFILE_EVENT_LOG_PATH = conf(
+    "spark.rapids.sql.profile.eventLog.path", "",
+    "When set, every profiled query appends its structured event "
+    "records (span open/close, retries, fetch failures, blacklists, "
+    "watchdog dumps, cancellations) to this file as JSON lines, each "
+    "carrying the query id.  Empty disables the file sink; the "
+    "in-process QueryProfile.events view is always available.")
+PROFILE_CHROME_TRACE_PATH = conf(
+    "spark.rapids.sql.profile.chromeTrace.path", "",
+    "When set, every profiled query writes its span tree to this path "
+    "as Chrome trace-event JSON (loadable in Perfetto / "
+    "chrome://tracing).  A '{query_id}' placeholder in the path is "
+    "substituted so consecutive queries do not overwrite each other.  "
+    "Empty disables the file sink; QueryProfile.chrome_trace() always "
+    "serves the same payload in-process.")
+MOVEMENT_ENABLED = conf(
+    "spark.rapids.sql.profile.movement.enabled", True,
+    "When profiling is on, additionally record the per-query "
+    "data-movement ledger (utils/movement.py): bytes + duration on "
+    "every edge where data crosses a boundary — host->device uploads, "
+    "device->host readbacks, spill tier migrations, shuffle wire "
+    "bytes (compressed AND uncompressed), and collective payloads.  "
+    "The QueryProfile then carries a movement report (per-edge totals, "
+    "effective GB/s vs roofline, compression ratios), Chrome-trace "
+    "counter tracks, and data_movement event records.  Off: the "
+    "profiler records time only.")
+MOVEMENT_ROOFLINE_GBPS = conf(
+    "spark.rapids.sql.profile.movement.rooflineGBps", 0.0,
+    "Bandwidth ceiling (GB/s) the movement report computes "
+    "utilization against, for every edge.  0 (default) resolves the "
+    "per-edge ceilings through the shared roofline table "
+    "(spark.rapids.sql.profile.roofline.*, utils/roofline.py — the "
+    "same source kernelprof judges kernels against); a non-zero "
+    "value overrides ALL edges at once, e.g. with a probed number.")
+MOVEMENT_MIN_EVENT_BYTES = conf(
+    "spark.rapids.sql.profile.movement.minEventBytes", 65536,
+    "Movement records at or above this many bytes also land in the "
+    "structured event log as data_movement records (correlatable with "
+    "retries, fetch failures, and watchdog dumps by query id); "
+    "smaller records are aggregated into the ledger only, keeping the "
+    "event ring for interesting transfers.  0 logs every record.")
+RESIDENCY_ENABLED = conf(
+    "spark.rapids.sql.profile.residency.enabled", True,
+    "When profiling is on, additionally run the device-memory residency "
+    "ledger (utils/residency.py): every tracked device-resident "
+    "allocation — tiered-store buffers (including shuffle catalog "
+    "buffers) and OOM-harness reservations — registers per-buffer "
+    "provenance (query id, operator site, size, tier) on creation and "
+    "retires it on free/spill.  Profiled queries get a '-- residency --' "
+    "section (high-water mark, peak-instant composition by site/tier, "
+    "leak verdict), Perfetto residency:<site> counter tracks, and an "
+    "end-of-query leak check that dumps still-resident buffers with "
+    "provenance; the slow-query log aggregates observed high-water "
+    "marks per plan fingerprint and telemetry exports "
+    "hbm_resident_bytes{tier} plus per-site gauges.  Tracking is "
+    "process-sticky once the first residency-enabled query runs; off "
+    "(default until then) every hook is one global read and allocates "
+    "nothing.")
+RESIDENCY_TIMELINE_SIZE = conf(
+    "spark.rapids.sql.profile.residency.timelineSize", 4096,
+    "Bound on per-query residency timeline samples (one per tracked "
+    "alloc/free) backing the Perfetto residency:<site> counter "
+    "tracks; oldest samples are dropped first.  The high-water mark "
+    "and peak composition are exact regardless of this bound.")
+RESIDENCY_LEAK_DUMP = conf(
+    "spark.rapids.sql.profile.residency.leakDump", 8,
+    "How many leaked buffers (still resident at query end) the "
+    "residency report and event log render with full provenance "
+    "(site, tier, kind, size, age); the leak COUNT is always exact.")
+KERNELPROF_ENABLED = conf(
+    "spark.rapids.sql.profile.kernels.enabled", False,
+    "Per-kernel performance attribution (utils/kernelprof.py): every "
+    "device step at a kernel-cache site of the reference and every "
+    "hand-written CUDA kernel launch is counted in a process-wide "
+    "catalog, and a sampled fraction is timed with a pair of CUDA "
+    "events on the current stream (resolved at query end, so sampling "
+    "adds no host sync per launch) and joined with the step's analytic "
+    "cost (bytes of its inputs and outputs; FLOPs for the hand "
+    "kernels) into achieved GFLOP/s and GB/s vs the conf-overridable "
+    "roofline table (spark.rapids.sql.profile.roofline.*).  Profiled "
+    "queries additionally get a '-- kernels --' section in their "
+    "QueryProfile plus Perfetto kernel tracks, and the slow-query log "
+    "names each fingerprint's hottest kernel.  Off (default): one "
+    "global read per step, bit-exact.")
+KERNELPROF_SAMPLE_RATE = conf(
+    "spark.rapids.sql.profile.kernels.sampleRate", 8,
+    "Time every Nth entry of each kernel (1 = every entry) with a pair "
+    "of CUDA events; unsampled entries are estimated by scaling the "
+    "sampled mean.  The events are read at query end, so a lower rate "
+    "costs event records on the stream, not host syncs.")
+KERNELPROF_COST_ANALYSIS = conf(
+    "spark.rapids.sql.profile.kernels.costAnalysis", True,
+    "Capture each kernel's analytic cost (bytes read and written; "
+    "FLOPs for the hand kernels) once, at its first entry, enabling "
+    "the achieved-GFLOP/s / GB/s roofline join; off keeps timing-only "
+    "attribution.")
+KERNELPROF_TOP_N = conf(
+    "spark.rapids.sql.profile.kernels.topN", 12,
+    "How many kernels (by cumulative attributed device time) the "
+    "QueryProfile's '-- kernels --' section renders; the full "
+    "per-fingerprint table stays queryable via "
+    "QueryProfile.kernels and utils.kernelprof.catalog().")
+
+# --- shared roofline table (utils/roofline.py) --------------------------------
+# ONE conf-overridable source for every bandwidth/compute ceiling the
+# instruments judge against.  Defaults are NVIDIA H100 SXM5 datasheet
+# figures.
+ROOFLINE_UPLOAD_GBPS = conf(
+    "spark.rapids.sql.profile.roofline.uploadGBps", 64.0,
+    "Nominal host->device bandwidth ceiling (GB/s) for the movement "
+    "report's upload edge; the default is the H100 SXM5 datasheet's "
+    "host interface, PCIe Gen5 x16 (128 GB/s both ways), per "
+    "direction.")
+ROOFLINE_READBACK_GBPS = conf(
+    "spark.rapids.sql.profile.roofline.readbackGBps", 64.0,
+    "Nominal device->host bandwidth ceiling (GB/s) for the movement "
+    "report's readback edge; the default is the H100 SXM5 datasheet's "
+    "PCIe Gen5 x16 line, per direction.")
+ROOFLINE_SPILL_GBPS = conf(
+    "spark.rapids.sql.profile.roofline.spillGBps", 64.0,
+    "Nominal bandwidth ceiling (GB/s) for spill tier migrations "
+    "(device->host->disk hops share the host link); the default is the "
+    "H100 SXM5 datasheet's PCIe Gen5 x16 line, per direction.")
+ROOFLINE_WIRE_GBPS = conf(
+    "spark.rapids.sql.profile.roofline.wireGBps", 12.5,
+    "Nominal shuffle-wire bandwidth ceiling (GB/s); the default models "
+    "a 100 Gb/s NIC (not a line of the card's datasheet).")
+ROOFLINE_COLLECTIVE_GBPS = conf(
+    "spark.rapids.sql.profile.roofline.collectiveGBps", 450.0,
+    "Nominal collective bandwidth ceiling (GB/s); the default is the "
+    "H100 SXM5 datasheet's NVLink line (900 GB/s), per direction.")
+ROOFLINE_HBM_GBPS = conf(
+    "spark.rapids.sql.profile.roofline.hbmGBps", 3350.0,
+    "Device-memory bandwidth ceiling (GB/s) kernelprof judges each "
+    "kernel's achieved GB/s (analytic bytes / device time) against; "
+    "the default is the H100 SXM5 datasheet's GPU memory bandwidth "
+    "line (3.35 TB/s, HBM3).")
+ROOFLINE_PEAK_GFLOPS = conf(
+    "spark.rapids.sql.profile.roofline.peakGflops", 66900.0,
+    "Compute ceiling (GFLOP/s) kernelprof judges each kernel's "
+    "achieved GFLOP/s against; the default is the H100 SXM5 "
+    "datasheet's FP32 line (67 TFLOP/s on CUDA cores): the engine's "
+    "kernels add in f32/f64 and use no tensor cores.  A kernel's "
+    "roofline utilization is the max of its compute fraction and its "
+    "memory-bandwidth fraction — whichever resource binds.")
+
+PROFILE_EVENT_LOG_MAX_BYTES = conf(
+    "spark.rapids.sql.profile.eventLog.maxBytes", 134217728,
+    "Size-based rotation bound for the profile event-log JSONL sink "
+    "(and the telemetry snapshot records riding it): when an append "
+    "would push the file past this many bytes it is rotated to "
+    "<path>.1 (older rotations shift to .2, .3, ...).  0 disables "
+    "rotation.")
+PROFILE_EVENT_LOG_KEEP_FILES = conf(
+    "spark.rapids.sql.profile.eventLog.keepFiles", 4,
+    "How many rotated event-log files (<path>.1 .. <path>.N) to "
+    "retain; the oldest is dropped at each rotation.  0 discards the "
+    "full file at rotation instead of keeping any history.")
+
+# --- engine-wide telemetry (utils/telemetry.py) -------------------------------
+TELEMETRY_ENABLED = conf(
+    "spark.rapids.sql.telemetry.enabled", False,
+    "Run the process-wide telemetry layer: a live metrics registry "
+    "(device budget/in-use and the admission ledger, semaphore "
+    "holds/waiters, scheduler queue depth and admission counters, "
+    "prefetch hits/stalls, in-flight shuffle fetches, "
+    "speculation/recovery counters, spill tier sizes, cumulative "
+    "data-movement edge bytes) plus a low-rate background sampler that "
+    "builds a device-utilization timeline — each sample attributed to "
+    "busy-compute or a named idle cause (queue wait, semaphore wait, "
+    "pipeline stall, host sync, compile, shuffle wait, truly idle).  "
+    "Surfaced as a Prometheus text endpoint (telemetry.port), periodic "
+    "JSONL snapshots on the profile event-log sink, and a slow-query "
+    "log aggregated by plan fingerprint.  Disabled (default) every "
+    "hook is a single module-global read and allocates nothing.")
+TELEMETRY_PORT = conf(
+    "spark.rapids.sql.telemetry.port", 0,
+    "TCP port for the opt-in HTTP exporter (binds 127.0.0.1): GET "
+    "/metrics serves Prometheus text exposition format, GET "
+    "/telemetry a JSON snapshot (gauges + utilization summary + "
+    "slow-query log).  0 (default) starts no server; the in-process "
+    "views (utils.telemetry.prometheus_text / snapshot) are always "
+    "available while telemetry is enabled.")
+TELEMETRY_SAMPLE_PERIOD_MS = conf(
+    "spark.rapids.sql.telemetry.samplePeriodMs", 100.0,
+    "Period of the utilization sampler: each tick attributes the "
+    "instant to busy-compute or a named idle cause using the "
+    "already-instrumented heartbeats, semaphore, scheduler queue, "
+    "prefetch queues, and in-flight fetches.")
+TELEMETRY_TIMELINE_SIZE = conf(
+    "spark.rapids.sql.telemetry.timelineSize", 4096,
+    "Bound on retained utilization-timeline samples (a ring buffer; "
+    "cause PERCENTAGES aggregate over the whole process lifetime "
+    "regardless).")
+TELEMETRY_SNAPSHOT_PERIOD_S = conf(
+    "spark.rapids.sql.telemetry.snapshotPeriodS", 10.0,
+    "Period of the JSONL telemetry snapshots (gauges + utilization "
+    "summary) appended to the profile event-log sink "
+    "(spark.rapids.sql.profile.eventLog.path) with kind="
+    "'telemetry_snapshot'.  0 disables periodic snapshots; snapshots "
+    "also require the event-log path to be set.")
+TELEMETRY_SLOW_QUERY_LOG_SIZE = conf(
+    "spark.rapids.sql.telemetry.slowQueryLog.size", 64,
+    "How many distinct plan fingerprints the slow-query log retains "
+    "(least-recently-updated dropped first).  Each entry aggregates "
+    "the completed QueryProfiles of one plan shape: run count, "
+    "p50/p95/max wall clock, and the top idle cause from the "
+    "wall-clock breakdown.  Requires spark.rapids.sql.profile.enabled "
+    "on the queries to be aggregated.")
+
 # --- concurrent multi-query serving (exec/scheduler.py) ----------------------
 SCHED_ENABLED = conf(
     "spark.rapids.sql.scheduler.enabled", True,

@@ -53,7 +53,7 @@ from spark_rapids_tpu_torch.columnar.vector import (MIN_CAPACITY,
                                                     bucket_capacity,
                                                     gather_columns_grouped)
 from spark_rapids_tpu_torch.exec.base import (SchemaOnlyExec, TpuExec,
-                                              UnaryExecBase,
+                                              UnaryExecBase, kp_site,
                                               make_eval_context)
 from spark_rapids_tpu_torch.exprs.aggregates import (AggAlias, AggContext,
                                                      run_agg_phase)
@@ -67,6 +67,7 @@ from spark_rapids_tpu_torch.ops.sort_encode import (
     sort_with_bounds, wide_key_set)
 from spark_rapids_tpu_torch.utils import checks as CK
 from spark_rapids_tpu_torch.utils import metrics as M
+from spark_rapids_tpu_torch.utils import profile as P
 
 log = logging.getLogger(__name__)
 
@@ -107,6 +108,7 @@ class HashAggregateExec(UnaryExecBase):
         self.group_exprs = list(group_exprs)
         self.aggregates = [_to_alias(a, i) for i, a in enumerate(aggregates)]
         self._pre_stage = pre_stage
+        self._fused_event_done = False
         child_schema = (pre_stage.schema if pre_stage is not None
                         else child.output_schema())
         self._child_schema = child_schema
@@ -189,10 +191,17 @@ class HashAggregateExec(UnaryExecBase):
 
     @property
     def fused_members(self) -> list:
-        """describe() of each fused member op; empty when unfused."""
+        """(describe, MetricSet) per fused member op, for the
+        EXPLAIN-with-metrics breakdown; empty when unfused."""
         if self._pre_stage is None:
             return []
-        return [m.describe() for m in self._pre_stage.members]
+        return [(m.describe(), m.metrics) for m in self._pre_stage.members]
+
+    def _kp_members(self) -> Optional[list]:
+        """The fused pre-stage's member names, which the kernel table
+        attributes to this exec's update-lane steps too."""
+        return (self._pre_stage.member_names()
+                if self._pre_stage is not None else None)
 
     def _make_ctx(self, batch: ColumnarBatch):
         """Update-lane evaluation context: with a fused pre-stage the raw
@@ -287,6 +296,7 @@ class HashAggregateExec(UnaryExecBase):
         return checks + (chk,)
 
     # -- sort lane and banded lane -------------------------------------------
+    @kp_site(lambda batch, phase, *a: f"agg-{phase}")
     def _groupby_sorted(self, batch: ColumnarBatch, phase: str,
                         wcap: Optional[int]):
         """phase: 'update' (raw inputs) or 'merge' (intermediates).
@@ -455,6 +465,7 @@ class HashAggregateExec(UnaryExecBase):
                     T.INT64, torch.round(col(fi)).to(_I64), grp_valid))
         return out_cols, first_idx, cert
 
+    @kp_site("agg-eval")
     def _evaluate_one(self, merged: ColumnarBatch) -> ColumnarBatch:
         """Final projection: intermediates -> results (no regrouping)."""
         out = list(merged.columns[:len(self._group_fields)])
@@ -562,6 +573,7 @@ class HashAggregateExec(UnaryExecBase):
     def _disable_dict_path(self) -> None:
         self._dict_range_misses = 1 << 20
 
+    @kp_site("agg-dict-probe")
     def _dict_probe(self, batch: ColumnarBatch) -> list:
         """Per-key value spans of the first batch (one host readback)."""
         ctx = self._make_ctx(batch)
@@ -573,6 +585,7 @@ class HashAggregateExec(UnaryExecBase):
             kd = k.data.to(_I64)
             mins.append(torch.where(ok, kd, i64.max).min())
             maxs.append(torch.where(ok, kd, i64.min).max())
+        CK.note_host_sync("agg.dict_probe", nbytes=16 * len(mins))
         lo_hi = torch.stack([torch.stack(mins), torch.stack(maxs)]).cpu()
         return [max(int(hi) - int(lo) + 1, 1) if hi >= lo else 1
                 for lo, hi in zip(lo_hi[0].tolist(), lo_hi[1].tolist())]
@@ -652,6 +665,7 @@ class HashAggregateExec(UnaryExecBase):
                                          good_o[oi].to(_I64)), valid_out))
         return out, inexact
 
+    @kp_site("agg-dict-fused")
     def _dict_fused(self, batch: ColumnarBatch, g_pad: int):
         """Single-key dictionary lane: the key window (anchored at this
         batch's own device-side minimum), one grouped_sum launch, the
@@ -718,6 +732,7 @@ class HashAggregateExec(UnaryExecBase):
         out.extend(cols_m)
         return out, n_out, excess | inexact
 
+    @kp_site("agg-dict-fused-multi")
     def _dict_fused_multi(self, batch: ColumnarBatch, pads: list):
         """Composite-key variant of `_dict_fused`: each integral key gets
         a dense window of `pads[i]` value slots + 1 null slot, anchored at
@@ -841,6 +856,8 @@ class HashAggregateExec(UnaryExecBase):
                 if not external and OC.should_go_external(pending_bytes,
                                                           conf):
                     external = True
+                    P.event(P.EV_OOCORE_DEGRADE, op=self.name(),
+                            est_bytes=pending_bytes, algo="agg-spill")
                 if external and pending_bytes > run_target:
                     flush_state()
             if not partials and not runs:
@@ -874,6 +891,13 @@ class HashAggregateExec(UnaryExecBase):
 
     def _groupby_one(self, batch: ColumnarBatch) -> ColumnarBatch:
         """One batch through a grouping lane -> partial-layout batch."""
+        if self._pre_stage is not None and not self._fused_event_done:
+            # the profiler's stage_fused event, once per exec
+            self._fused_event_done = True
+            P.event(P.EV_STAGE_FUSED,
+                    members=self._pre_stage.member_names()
+                    + [type(self).__name__],
+                    exprs=self._pre_stage.expr_count)
         fast = self._dict_groupby_batch(batch)
         if fast is not None:
             return fast
@@ -978,6 +1002,7 @@ class HashAggregateExec(UnaryExecBase):
         return ColumnarBatch(inter_schema, self._reduce_kernel(batch, phase),
                              1, batch.checks)
 
+    @kp_site(lambda batch, phase: f"agg-reduce-{phase}")
     def _reduce_kernel(self, batch: ColumnarBatch, phase: str) -> list:
         """Whole-batch reduction of every aggregate: one segment over all
         rows, read at the last row.  Outputs are MIN_CAPACITY long, the

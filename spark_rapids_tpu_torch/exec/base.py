@@ -6,10 +6,19 @@ the batch's device.  PyTorch runs eagerly, so the reference's compile
 cache has no counterpart here.  Each exec carries its `metrics`
 (utils/metrics.py) and routes its materializations through the OOM
 retry harness with `oom_retry_batches` (memory/retry.py).
+
+Observability: every subclass's `execute_partitions` returns its
+partition iterators through `profile.wrap_operator` (an `Exec[pN]` span
+per batch pull of a profiled query, the iterators themselves otherwise);
+`kp_step` opens the kernel-attribution entry of one eager device step at
+a counterpart of the reference's kernel-cache sites (utils/kernelprof.py);
+`collect` emits the deopt event and, for the query it owns, assembles
+the QueryProfile last.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import threading
 from typing import Iterator, Optional, Sequence
@@ -23,7 +32,9 @@ from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch,
 from spark_rapids_tpu_torch.columnar.vector import ColumnVector
 from spark_rapids_tpu_torch.exprs.base import EvalContext, Expression
 from spark_rapids_tpu_torch.utils import checks as CK
+from spark_rapids_tpu_torch.utils import kernelprof as KP
 from spark_rapids_tpu_torch.utils import metrics as M
+from spark_rapids_tpu_torch.utils import profile as P
 
 
 # -- coalesce goals ----------------------------------------------------------
@@ -75,8 +86,60 @@ def new_execution() -> None:
         qc.epoch = S.new_epoch()
 
 
+def _profiled_partitions(fn):
+    """`execute_partitions` returning its iterators through
+    `profile.wrap_operator`: only the most derived class's definition
+    wraps (an override that calls super() gets one span per pull)."""
+
+    @functools.wraps(fn)
+    def execute_partitions(self):
+        its = fn(self)
+        if P.tracer() is None \
+                or type(self).execute_partitions is not execute_partitions:
+            return its
+        return [P.wrap_operator(self, i, it) for i, it in enumerate(its)]
+
+    execute_partitions._profiled = True
+    return execute_partitions
+
+
+def kp_site(label, batch_arg: int = 0):
+    """Decorate an exec method that runs one eager device step at a
+    counterpart of a reference kernel-cache site: with kernel
+    attribution on, the call runs in `self.kp_step(label, capacity)`
+    (the capacity of positional argument `batch_arg`, a ColumnarBatch),
+    its analytic cost the bytes of its arguments and result.  `label`
+    is a string or a function of the call's arguments; an exec with a
+    `_kp_members()` method names its fused members so.  Off: one global
+    read, then the method."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def site(self, *args, **kwargs):
+            if not KP.enabled():
+                return fn(self, *args, **kwargs)
+            batch = args[batch_arg]
+            lab = label(*args) if callable(label) else label
+            members = getattr(self, "_kp_members", None)
+            with self.kp_step(lab, batch.capacity, device=batch.device,
+                              members=members() if members else None
+                              ) as kw:
+                out = fn(self, *args, **kwargs)
+                if kw.wants_cost():
+                    kw.cost(args, out)
+            return out
+        return site
+    return deco
+
+
 class TpuExec:
     """Base physical operator."""
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        fn = cls.__dict__.get("execute_partitions")
+        if fn is not None and not getattr(fn, "_profiled", False):
+            cls.execute_partitions = _profiled_partitions(fn)
 
     def __init__(self, *children: "TpuExec"):
         self._children = list(children)
@@ -86,6 +149,37 @@ class TpuExec:
         #: CollectScope): its shared-subplan caches and metrics are
         #: instance state; distinct instances run concurrently
         self._plan_lock = threading.Lock()
+
+    def _kp_scope(self) -> tuple:
+        """(exec class, description): the catalog scope of this exec's
+        steps, made once per instance."""
+        scope = self.__dict__.get("_kp_scope_cache")
+        if scope is None:
+            scope = self.__dict__["_kp_scope_cache"] = (
+                type(self).__name__, self.describe()[:120])
+        return scope
+
+    def kp_meta(self, label: str, members=None) -> Optional[dict]:
+        """Dispatch-site metadata for the kernel catalog: a label, the
+        owning exec and fused member names.  None (nothing allocated)
+        while kernel attribution is off."""
+        if not KP.enabled():
+            return None
+        return {"label": label, "owner_id": self.exec_id,
+                "owner": self._kp_scope()[1],
+                "members": list(members) if members else None}
+
+    def kp_step(self, label: str, *key, device=None, members=None):
+        """The kernel-attribution entry of one eager device step of this
+        exec (utils/kernelprof.py): identity (exec class and
+        description, the reference's kernel label and `key`), timed on
+        `device` (the exec's own by default).  The shared null context
+        while attribution is off."""
+        if not KP.enabled():
+            return KP.NULL_WATCH
+        return KP.watch((self._kp_scope(), (label,) + tuple(key)),
+                        self.kp_meta(label, members),
+                        device if device is not None else self.device())
 
     @property
     def children(self) -> list["TpuExec"]:
@@ -148,8 +242,13 @@ class TpuExec:
             # must not bleed in
             W.begin_query()
         scope = S.CollectScope(self)
+        prof_owner = scope.prof_owner if scope.owns_qc else None
+        prof_error: Optional[BaseException] = None
         try:
             return self._collect_attempts()
+        except BaseException as e:
+            prof_error = e
+            raise
         finally:
             if scope.finish_collect():
                 # only the OUTERMOST collect drops shared-subtree caches:
@@ -166,6 +265,9 @@ class TpuExec:
                     self.metrics.add(M.WATCHDOG_DUMPS, qs["dumps"])
                     self.metrics.set_max(M.SLOWEST_HEARTBEAT,
                                          qs["slowest_heartbeat_ms"])
+                # assemble the QueryProfile LAST so the plan report sees
+                # every metric this query charged
+                P.end_query(prof_owner, self, error=prof_error)
             scope.close()
 
     def _collect_attempts(self) -> ColumnarBatch:
@@ -192,6 +294,8 @@ class TpuExec:
                 if final:
                     raise
                 e.recover_all()
+                P.event(P.EV_DEOPT_RETRY, origin=", ".join(
+                    c.origin for c in e.checks))
                 CK.drain_since(mark)  # discard this attempt's rest
             finally:
                 if attempt:
@@ -206,7 +310,9 @@ class TpuExec:
             # nested collect (a range exchange's sample sort) must not
             # bump the epoch of the enclosing query
             new_execution()
-        batches = list(self.execute_columnar())
+        # through execute_partitions, so a profiled root gets its span
+        # even where it overrides execute_columnar
+        batches = [b for it in self.execute_partitions() for b in it]
         if not batches:
             return empty_batch(self.output_schema(), self.device())
         return concat_batches(batches, sparse_ok=True)

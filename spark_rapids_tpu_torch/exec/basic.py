@@ -52,12 +52,16 @@ class ProjectExec(UnaryExecBase):
 
     def process_partition(self, batches) -> Iterator[ColumnarBatch]:
         for batch in batches:
-            ctx = make_eval_context(batch.columns, batch.capacity,
-                                    batch.num_rows_i32, batch.sparse)
-            out_cols = [e.eval(ctx) for e in self._bound]
-            out = ColumnarBatch(self._schema, out_cols, batch._rows,
-                                batch.checks + _register_ansi(ctx),
-                                batch.sparse)
+            with self.kp_step("project", batch.capacity,
+                              device=batch.device) as kw:
+                ctx = make_eval_context(batch.columns, batch.capacity,
+                                        batch.num_rows_i32, batch.sparse)
+                out_cols = [e.eval(ctx) for e in self._bound]
+                out = ColumnarBatch(self._schema, out_cols, batch._rows,
+                                    batch.checks + _register_ansi(ctx),
+                                    batch.sparse)
+                if kw.wants_cost():
+                    kw.cost(batch, out_cols)
             self.update_output_metrics(out)
             yield out
 
@@ -81,14 +85,19 @@ class FilterExec(UnaryExecBase):
 
     def process_partition(self, batches) -> Iterator[ColumnarBatch]:
         for batch in batches:
-            ctx = make_eval_context(batch.columns, batch.capacity,
-                                    batch.num_rows_i32, batch.sparse)
-            pred = self._bound.eval(ctx)
-            keep = pred.validity & pred.data.to(torch.bool) & ctx.row_mask
-            out = ColumnarBatch(self._schema, batch.columns,
-                                keep.sum().to(torch.int32),
-                                batch.checks + _register_ansi(ctx),
-                                sparse=keep)
+            with self.kp_step("filter", batch.capacity,
+                              device=batch.device) as kw:
+                ctx = make_eval_context(batch.columns, batch.capacity,
+                                        batch.num_rows_i32, batch.sparse)
+                pred = self._bound.eval(ctx)
+                keep = (pred.validity & pred.data.to(torch.bool)
+                        & ctx.row_mask)
+                out = ColumnarBatch(self._schema, batch.columns,
+                                    keep.sum().to(torch.int32),
+                                    batch.checks + _register_ansi(ctx),
+                                    sparse=keep)
+                if kw.wants_cost():
+                    kw.cost(batch, keep)
             self.update_output_metrics(out)
             yield out
 

@@ -19,7 +19,7 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.vector import ColumnVector, _pad_chars
 from spark_rapids_tpu_torch.exec.base import (TpuExec, UnaryExecBase,
-                                              make_eval_context)
+                                              make_eval_context, kp_site)
 from spark_rapids_tpu_torch.exprs.base import (AttributeReference,
                                                Expression, Literal, promote)
 from spark_rapids_tpu_torch.plan.nodes import _common_types
@@ -54,6 +54,7 @@ class ExpandExec(UnaryExecBase):
     def describe(self):
         return f"ExpandExec({len(self.projections)} projections)"
 
+    @kp_site("expand")
     def expand_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
         nproj = len(self._bound)
         ctx = make_eval_context(batch.columns, batch.capacity,

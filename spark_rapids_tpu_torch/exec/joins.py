@@ -63,7 +63,7 @@ from spark_rapids_tpu_torch.columnar.vector import (ColumnVector, _pad_chars,
                                                     validity_bit_assignment)
 from spark_rapids_tpu_torch.exec.base import (RequireSingleBatch,
                                               SchemaOnlyExec, TpuExec,
-                                              make_eval_context)
+                                              make_eval_context, kp_site)
 from spark_rapids_tpu_torch.exprs.base import (BoundReference, Expression,
                                                Literal, promote)
 from spark_rapids_tpu_torch.memory import oocore as OC
@@ -73,7 +73,9 @@ from spark_rapids_tpu_torch.ops.sort_encode import (encode_key_bits,
                                                     masked_positions,
                                                     packed_lexsort,
                                                     segment_boundaries)
+from spark_rapids_tpu_torch.utils import checks as CK
 from spark_rapids_tpu_torch.utils import metrics as M
+from spark_rapids_tpu_torch.utils import profile as P
 from spark_rapids_tpu_torch.utils import watchdog as W
 
 
@@ -210,6 +212,7 @@ class HashJoinExec(TpuExec):
         return [self.execute_columnar()]
 
     # -- the sort-merge lane ----------------------------------------------
+    @kp_site("join-match", batch_arg=1)
     def _match(self, build: ColumnarBatch, probe: ColumnarBatch,
                want_bmatched: bool):
         """Per probe row its match count and the sorted position of its
@@ -274,8 +277,8 @@ class HashJoinExec(TpuExec):
             probe_live.sum()])
         return counts_p, start_p, perm, bmatched, stats
 
-    @staticmethod
-    def _expand(build: ColumnarBatch, probe: ColumnarBatch,
+    @kp_site("join-expand", batch_arg=1)
+    def _expand(self, build: ColumnarBatch, probe: ColumnarBatch,
                 counts_p: torch.Tensor, start_p: torch.Tensor,
                 perm: torch.Tensor, out_cap: int, outer_probe: bool):
         """Gather the (probe, build) pairs into `out_cap` rows: output row
@@ -306,6 +309,7 @@ class HashJoinExec(TpuExec):
         bout = [c.gather(build_sel, bvalid) for c in build.columns]
         return pout, bout
 
+    @kp_site("join-semi")
     def _semi(self, probe: ColumnarBatch, counts_p: torch.Tensor,
               anti: bool) -> ColumnarBatch:
         """The probe rows with (semi) or without (anti) a match, compacted
@@ -344,6 +348,7 @@ class HashJoinExec(TpuExec):
                 return self._semi(pb, counts_p, jt == JoinType.LEFT_ANTI)
             # the one host read of a probe batch: the pair total sizes
             # the output
+            CK.note_host_sync("join.expand", nbytes=8 * stats.numel())
             total_inner, unmatched, live = stats.tolist()
             bound = total_inner + (live if outer_probe else 0)
             out_cap = bucket_capacity(max(bound, 1))
@@ -417,19 +422,33 @@ class HashJoinExec(TpuExec):
         if build.capacity >= (1 << 24) or build.capacity % 128:
             return None
         key = self._build_keys[0]
-        ctx = make_eval_context(build.columns, build.capacity,
-                                build.num_rows_i32)
-        k = key.eval(ctx)
-        ok = k.validity & ctx.row_mask
-        kd = (k.narrow if k.narrow is not None else k.data).to(torch.int64)
-        big = torch.iinfo(torch.int64)
-        kmin, kmax = torch.stack([
-            torch.where(ok, kd, big.max).min(),
-            torch.where(ok, kd, big.min).max()]).tolist()
+        with self.kp_step("join-dense-probe", build.capacity,
+                          device=build.device) as kw:
+            ctx = make_eval_context(build.columns, build.capacity,
+                                    build.num_rows_i32)
+            k = key.eval(ctx)
+            ok = k.validity & ctx.row_mask
+            kd = (k.narrow if k.narrow is not None else k.data).to(
+                torch.int64)
+            big = torch.iinfo(torch.int64)
+            kmin, kmax = torch.stack([
+                torch.where(ok, kd, big.max).min(),
+                torch.where(ok, kd, big.min).max()]).tolist()
+            kw.cost(build, nbytes=16)
         span = kmax - kmin + 1 if kmax >= kmin else 0
         if span > int(conf[C.DENSE_JOIN_MAX_SPAN]):
             return None
         g = bucket_capacity(max(span, 1))
+        with self.kp_step("join-dense-table", build.capacity, g,
+                          device=build.device) as kw:
+            out = self._dense_table(build, kd, ok, kmin, g)
+            kw.cost(build, out)
+        return out
+
+    def _dense_table(self, build: ColumnarBatch, kd: torch.Tensor,
+                     ok: torch.Tensor, kmin: int, g: int):
+        """The direct-address tables of `_try_dense_table` (None on
+        duplicate build keys)."""
         off = kd - kmin
         in_t = ok & (off >= 0) & (off < g)
         # masked rows go to the sentinel slot g, which is cut off
@@ -459,6 +478,7 @@ class HashJoinExec(TpuExec):
         bk = self._build_keys[0]
         return bk.ordinal if isinstance(bk, BoundReference) else None
 
+    @kp_site("join-dense", batch_arg=1)
     def _dense_probe(self, build: ColumnarBatch, pb: ColumnarBatch,
                      tab, narrow_ok: bool) -> ColumnarBatch:
         kmin, g, bidx1, vmask = tab
@@ -553,6 +573,8 @@ class HashJoinExec(TpuExec):
         est = 2 * sum(b.device_size_bytes() for b in batches)
         if self._grace_eligible() and OC.should_go_external(est, conf):
             self.lane = "grace-hash"
+            P.event(P.EV_OOCORE_DEGRADE, op=self.name(), est_bytes=est,
+                    algo="grace-hash")
             probe_src = (pb for it in self._probe.execute_partitions()
                          for pb in it if pb.maybe_nonempty())
             yield from self._grace_join(_drain(batches), probe_src, 0,
@@ -637,6 +659,8 @@ class HashJoinExec(TpuExec):
         max_depth = max(1, int(conf[C.OOCORE_MAX_RECURSION]))
         window = OC.window_bytes(conf)
         self.metrics.add(M.NUM_GRACE_PARTITIONS, nparts)
+        P.event(P.EV_OOCORE_GRACE_PARTITION, op=self.name(),
+                num_partitions=nparts, depth=depth)
         build_parts = self._grace_partition_side(
             build_src, self._build_keys, nparts, depth, conf)
         try:
@@ -677,6 +701,8 @@ class HashJoinExec(TpuExec):
                             f"raise the device memory budget, "
                             f"oocore.windowFraction, or "
                             f"maxRecursionDepth")
+                    P.event(P.EV_OOCORE_RECURSE, op=self.name(),
+                            depth=depth + 1, partition=p)
                     yield from self._grace_join(
                         self._read_runs(bruns), self._read_runs(pruns),
                         depth + 1, conf)
@@ -754,6 +780,7 @@ class NestedLoopJoinExec(TpuExec):
         cond = "" if self.condition is None else f", {self.condition!r}"
         return f"NestedLoopJoinExec({self.join_type.value}{cond})"
 
+    @kp_site("join-nlj")
     def _pairs(self, lb: ColumnarBatch, rb: ColumnarBatch) -> ColumnarBatch:
         """Every (left row, right row) pair of two dense batches."""
         ln, rn = lb.num_rows, rb.num_rows

@@ -155,6 +155,11 @@ class PrefetchIterator:
             with self._qc._lock:
                 self._qc.producers.add(self)
         self._token = W.current_token()
+        #: the creator's span context (None unless its query is
+        #: profiled): the producer thread attaches here, so its spans
+        #: parent under the pipeline break that started it
+        from spark_rapids_tpu_torch.utils import profile as P
+        self._span_ref = P.current_ref()
         self._stream = _cuda_stream_of_caller()
         self._hb = None
         self._closed = threading.Event()
@@ -191,13 +196,18 @@ class PrefetchIterator:
         return item
 
     def _wait_for_item(self):
+        from spark_rapids_tpu_torch.utils import profile as P
         from spark_rapids_tpu_torch.utils import watchdog as W
         t0 = time.perf_counter_ns()
+        # a stalled pull is the overlap loss the profile's breakdown
+        # names (a no-op unprofiled)
+        sp = P.span(f"pipeline-wait:{self._label}", cat=P.CAT_WAIT) \
+            if P.tracer() is not None else P._NULL_SPAN
         _bump_live("stalled_consumers", 1)
         try:
             # the wait is the producer's to answer for: a consumer that
             # is itself a watched producer pauses its own heartbeat
-            with W.waiting_on_other():
+            with sp, W.waiting_on_other():
                 return self._poll_queue()
         finally:
             _bump_live("stalled_consumers", -1)
@@ -295,6 +305,7 @@ class PrefetchIterator:
         from spark_rapids_tpu_torch.exec import scheduler as S
         from spark_rapids_tpu_torch.memory.semaphore import TaskContext
         from spark_rapids_tpu_torch.utils import checks as CK
+        from spark_rapids_tpu_torch.utils import profile as P
         from spark_rapids_tpu_torch.utils import watchdog as W
         if self._retrying:
             CK.set_retrying(True)
@@ -313,7 +324,8 @@ class PrefetchIterator:
             cur.query_ctx = self._qc
         try:
             with S.scoped(self._qc), C.session(self._conf), \
-                    self._stream_scope():
+                    self._stream_scope(), P.attach(self._span_ref), \
+                    P.span(f"producer:{self._label}", cat=P.CAT_PIPELINE):
                 hb = W.heartbeat(f"producer:{self._label}", kind="task",
                                  details=lambda: f"queue depth "
                                  f"{self._q.qsize()}/{self._q.maxsize}")

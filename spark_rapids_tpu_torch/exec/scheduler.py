@@ -29,8 +29,14 @@ admits it, and serializes on the PLAN INSTANCE lock (two sessions
 sharing one plan object would race its CommonSubplanExec caches and
 metrics; distinct plan instances run concurrently).
 
-Not ported: the reference's profile, telemetry and kernel-attribution
-hooks (observability) and the whole-mesh dispatch gate (multi-device).
+Observability: a query's profile (utils/profile.py) begins in
+`QueryScope` BEFORE admission, so queue wait is a span of the query's
+own breakdown; admission decisions are events of its log; telemetry and
+kernel attribution start lazily on the first query whose conf enables
+them (utils/telemetry.py, utils/kernelprof.py), and the in-flight query
+count feeds the telemetry sampler.
+
+Not ported: the whole-mesh dispatch gate (multi-device).
 """
 from __future__ import annotations
 
@@ -92,8 +98,8 @@ class QueryContext:
     """Everything one in-flight query owns."""
 
     __slots__ = ("query_id", "conf", "token", "stats", "pending_checks",
-                 "epoch", "budget_bytes", "admitted", "dm", "producers",
-                 "_depth", "_lock")
+                 "tracer", "epoch", "budget_bytes", "admitted", "dm",
+                 "producers", "device", "report_plan", "_depth", "_lock")
 
     def __init__(self, conf: Optional[C.RapidsConf] = None):
         from spark_rapids_tpu_torch.utils import watchdog as W
@@ -105,6 +111,7 @@ class QueryContext:
                       "slowest_heartbeat_ms": 0}
         #: per-query deferred-check registry (utils/checks.py)
         self.pending_checks: list = []
+        self.tracer = None           # utils/profile.QueryTracer or None
         self.epoch = 0               # minted per top-level attempt
         self.budget_bytes = 0        # declared admission budget
         self.admitted = False        # holds an admission-ledger slot
@@ -114,6 +121,10 @@ class QueryContext:
         #: otherwise leave its producer parked on a full queue, holding
         #: device batches
         self.producers = weakref.WeakSet()
+        #: the device the query's plan runs on (None: not known), which
+        #: decides how its spans annotate (utils/tracing.py)
+        self.device = None
+        self.report_plan = None      # outermost plan, for the profile
         self._depth = 0              # collect() nesting within this query
         self._lock = threading.Lock()
 
@@ -242,16 +253,21 @@ class QueryScheduler:
         dm = _device_manager(device)
         if dm is None:
             return False
+        from spark_rapids_tpu_torch.utils import profile as P
         budget = self._budget_for(conf, dm)
         maxq = max(1, int(conf[C.SCHED_MAX_CONCURRENT]))
         qc.budget_bytes = budget
         with self._cv:
             if self._try_admit_locked(qc, budget, maxq, dm):
+                P.event(P.EV_QUERY_ADMITTED, query=qc.query_id,
+                        budget_bytes=budget, queued_ms=0)
                 return True
             depth = int(conf[C.SCHED_QUEUE_DEPTH])
             if len(self._queue) >= max(0, depth):
                 self._stats["rejected"] += 1
                 snap = self._snapshot_locked(dm)
+                P.event(P.EV_QUERY_REJECTED, query=qc.query_id,
+                        budget_bytes=budget, **snap)
                 raise TpuQueryRejected(
                     f"query {qc.query_id} rejected: admission queue is "
                     f"full ({len(self._queue)}/{depth} waiting, "
@@ -266,6 +282,8 @@ class QueryScheduler:
             self._stats["queued"] += 1
             self._stats["max_queue_depth"] = max(
                 self._stats["max_queue_depth"], len(self._queue))
+            P.event(P.EV_QUERY_QUEUED, query=qc.query_id,
+                    budget_bytes=budget, position=len(self._queue))
         return self._wait_admitted(entry, conf, dm)
 
     def _wait_admitted(self, entry: _QueueEntry, conf: C.RapidsConf,
@@ -273,6 +291,7 @@ class QueryScheduler:
         """Park in the admission queue: bounded polls so cancellation is
         honored, a task-class heartbeat that beats as the queue drains,
         and the explicit `queueTimeout` bound."""
+        from spark_rapids_tpu_torch.utils import profile as P
         from spark_rapids_tpu_torch.utils import watchdog as W
         qc = entry.qc
         timeout = float(conf[C.SCHED_QUEUE_TIMEOUT])
@@ -281,13 +300,17 @@ class QueryScheduler:
         hb = W.heartbeat(f"query-queue:{qc.query_id}", kind="task",
                          conf=conf, details=lambda: self.describe())
         try:
-            with self._cv:
+            with P.span(f"admission-queue:{qc.query_id}",
+                        cat=P.CAT_QUEUE), self._cv:
                 while True:
                     if entry.admitted:
                         waited = (time.monotonic() - entry.enqueued) * 1e3
                         self._stats["longest_queue_wait_ms"] = max(
                             self._stats["longest_queue_wait_ms"],
                             int(waited))
+                        P.event(P.EV_QUERY_ADMITTED, query=qc.query_id,
+                                budget_bytes=entry.budget,
+                                queued_ms=int(waited))
                         return True
                     try:
                         pos = self._queue.index(entry) + 1
@@ -304,6 +327,9 @@ class QueryScheduler:
                         self._stats["queue_timeouts"] += 1
                         self._stats["rejected"] += 1
                         snap = self._snapshot_locked(dm)
+                        P.event(P.EV_QUERY_REJECTED, query=qc.query_id,
+                                budget_bytes=entry.budget,
+                                timeout_s=timeout, **snap)
                         raise TpuQueryRejected(
                             f"query {qc.query_id} rejected: spent "
                             f"{timeout:.1f}s ({C.SCHED_QUEUE_TIMEOUT.key})"
@@ -396,60 +422,85 @@ class QueryScheduler:
 # ---------------------------------------------------------------------------
 class QueryScope:
     """Query ownership for a user-facing entry point: if the calling
-    thread has no live QueryContext, creates one and admits it (on the
-    DeviceManager of `device`); otherwise a no-op that defers to the
-    enclosing scope.  `plan/overrides.collect` holds one around the whole
-    drive (deopt retries, the AQE stage loop, partly accelerated plans)
-    and `TpuExec.collect` holds one per direct collect."""
+    thread has no live QueryContext, creates one, begins its profile
+    (BEFORE admission, so queue wait is a first-class span/category in
+    the query's own breakdown) and admits it (on the DeviceManager of
+    `device`); otherwise a no-op that defers to the enclosing scope.
+    `plan/overrides.collect` holds one around the whole drive (deopt
+    retries, the AQE stage loop, partly accelerated plans) and
+    `TpuExec.collect` holds one per direct collect."""
 
-    __slots__ = ("qc", "owns", "_prev_tls")
+    __slots__ = ("qc", "owns", "prof_owner", "_prev_tls")
 
     def __init__(self, conf: Optional[C.RapidsConf] = None, device=None):
+        from spark_rapids_tpu_torch.utils import kernelprof as KP
+        from spark_rapids_tpu_torch.utils import profile as P
+        from spark_rapids_tpu_torch.utils import telemetry as T
         self.qc = current()
         self.owns = self.qc is None
+        self.prof_owner = None
         self._prev_tls = None
         if not self.owns:
             return
         conf = conf if conf is not None else C.get_active_conf()
         self.qc = QueryContext(conf)
+        self.qc.device = device
         self._prev_tls = getattr(_TLS, "qc", None)
         _TLS.qc = self.qc
+        # engine-wide telemetry: lazy-started on the first collect whose
+        # conf enables it; the in-flight query count feeds the
+        # utilization sampler's idle/host attribution
+        T.maybe_start(conf)
+        T.note_query_begin()
+        # kernel attribution: the same lazy, sticky start
+        KP.maybe_enable(conf)
         try:
+            self.prof_owner = P.begin_query(conf)
             QueryScheduler.get().admit(self.qc, conf, device)
-        except BaseException:
-            self.close()
+        except BaseException as e:
+            self.close(error=e)
             raise
 
-    def close(self) -> None:
-        """Close the query's producers and release its admission and the
-        thread-local installation (owner only)."""
+    def close(self, error: Optional[BaseException] = None,
+              end_profile: bool = True) -> None:
+        """Close the query's producers, assemble its profile (unless the
+        caller already did: TpuExec.collect orders it after its metrics
+        charge) and release its admission and the thread-local
+        installation (owner only)."""
         if not self.owns:
             return
         self.owns = False
+        from spark_rapids_tpu_torch.utils import profile as P
+        from spark_rapids_tpu_torch.utils import telemetry as T
         try:
             self.qc.close_producers()
             # the query's unresolved checks died with it: free their flags
             self.qc.pending_checks.clear()
+            if end_profile:
+                P.end_query(self.prof_owner, self.qc.report_plan,
+                            error=error)
         finally:
             try:
                 QueryScheduler.get().release(self.qc)
             finally:
+                T.note_query_end()
                 _TLS.qc = self._prev_tls
 
 
 class CollectScope:
     """The per-collect handshake `TpuExec.collect` drives.  Not a context
-    manager: collect needs the outermost flag between its own finally
-    steps."""
+    manager: collect needs the outermost flag and the profile owner
+    between its own finally steps."""
 
-    __slots__ = ("plan", "qc", "owns_qc", "outermost", "_qscope",
-                 "_plan_locked")
+    __slots__ = ("plan", "qc", "owns_qc", "prof_owner", "outermost",
+                 "_qscope", "_plan_locked")
 
     def __init__(self, plan):
         self.plan = plan
         self._qscope = QueryScope(device=_plan_device(plan))
         self.qc = self._qscope.qc
         self.owns_qc = self._qscope.owns
+        self.prof_owner = self._qscope.prof_owner
         self._plan_locked = False
         entered = False
         try:
@@ -459,12 +510,14 @@ class CollectScope:
                 # serialize collects over the SAME plan instance: its
                 # CommonSubplanExec caches and metrics are instance state
                 self._lock_plan()
-        except BaseException:
+                if self.qc.report_plan is None:
+                    self.qc.report_plan = plan
+        except BaseException as e:
             if entered:
                 # a cancelled plan-lock wait must not leave the depth
                 # bumped
                 self.qc.exit_collect()
-            self._qscope.close()
+            self._qscope.close(error=e)
             raise
 
     def _lock_plan(self) -> None:
@@ -477,16 +530,18 @@ class CollectScope:
 
     def finish_collect(self) -> bool:
         """Decrement the query's collect depth; True = this was the
-        outermost collect."""
+        outermost collect (the caller releases plan state and assembles
+        the profile before `close`)."""
         return self.qc.exit_collect()
 
     def close(self) -> None:
         """Release the plan lock and, for the qc owner, the admission slot
-        and the thread-local installation."""
+        and the thread-local installation (the profile was ended by
+        collect itself, ordered after the metrics charge)."""
         if self._plan_locked:
             self.plan._plan_lock.release()
             self._plan_locked = False
-        self._qscope.close()
+        self._qscope.close(end_profile=False)
 
 
 def _plan_device(plan):

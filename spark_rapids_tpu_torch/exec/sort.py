@@ -25,7 +25,7 @@ from spark_rapids_tpu_torch.exec.base import (CoalesceGoal,
                                               RequireSingleBatch,
                                               SchemaOnlyExec, TpuExec,
                                               UnaryExecBase,
-                                              make_eval_context)
+                                              make_eval_context, kp_site)
 from spark_rapids_tpu_torch.exprs.base import Expression
 from spark_rapids_tpu_torch.ops.sort_encode import multi_key_argsort
 
@@ -124,6 +124,9 @@ class SortExec(UnaryExecBase):
                 if not external and OC.should_go_external(pending_bytes,
                                                           conf):
                     external = True
+                    from spark_rapids_tpu_torch.utils import profile as P
+                    P.event(P.EV_OOCORE_DEGRADE, op=self.name(),
+                            est_bytes=pending_bytes, algo="external-sort")
                 if external and pending_bytes > run_target:
                     flush_run()
             if not external:
@@ -162,6 +165,7 @@ class SortExec(UnaryExecBase):
             label=f"{self.name()}.mergeRuns"))
         return out
 
+    @kp_site("sort")
     def _sort_one(self, batch: ColumnarBatch) -> ColumnarBatch:
         cap = batch.capacity
         ctx = make_eval_context(batch.columns, cap, batch.num_rows_i32,
@@ -215,6 +219,7 @@ class SortedTopNExec(TpuExec):
             return self._sorter._sort_one(batch).take_head(self.n)
         return self._topk(batch)
 
+    @kp_site("topn-k")
     def _topk(self, batch: ColumnarBatch) -> ColumnarBatch:
         """The n best rows of a batch by one numeric key, through
         torch.topk over an exact float64 score: ascending order negates

@@ -37,6 +37,7 @@ from contextlib import nullcontext
 from typing import Callable, Optional
 
 from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch.utils import profile as P
 from spark_rapids_tpu_torch.utils import metrics as M
 
 log = logging.getLogger("spark_rapids_tpu_torch.speculation")
@@ -134,6 +135,7 @@ class SpeculationManager:
         # taken on the driver thread: a duplicate carries the query's
         # context, cancellation and CUDA stream
         self._qc = S.current()
+        self._span_ref = P.current_ref()
         self._query_token = W.current_token()
         self._stream = PL._cuda_stream_of_caller()
         self._threads: list[threading.Thread] = []
@@ -166,8 +168,8 @@ class SpeculationManager:
             if backup is None:
                 return
             t = threading.Thread(
-                target=self._run_speculative, args=(state, backup),
-                daemon=True,
+                target=self._run_speculative,
+                args=(state, backup, elapsed, med), daemon=True,
                 name=f"tpu-speculate-s{self.shuffle_id}m{state.map_id}")
             state.spec_thread = t
             self._threads.append(t)
@@ -183,7 +185,8 @@ class SpeculationManager:
         return torch.cuda.stream(stream)
 
     # -- the duplicate attempt ----------------------------------------------
-    def _run_speculative(self, state: _Task, backup) -> None:
+    def _run_speculative(self, state: _Task, backup, elapsed: float,
+                         median: float) -> None:
         from spark_rapids_tpu_torch.exec import scheduler as S
         from spark_rapids_tpu_torch.shuffle.manager import (
             StaleMapStatusError)
@@ -192,9 +195,15 @@ class SpeculationManager:
         state.spec_token = stok
         self.metrics.add(M.NUM_SPECULATIVE_TASKS, 1)
         _note("launched")
+        with S.scoped(self._qc):
+            P.event(P.EV_SPECULATION_LAUNCHED, shuffle_id=self.shuffle_id,
+                    map_id=state.map_id, backup=backup.executor_id,
+                    elapsed_ms=round(elapsed * 1e3, 1),
+                    stage_median_ms=round(median * 1e3, 1))
         try:
             with S.scoped(self._qc), C.session(self.spec_conf), \
-                    W.attempt_scope(stok), self._stream_scope():
+                    P.attach(self._span_ref), W.attempt_scope(stok), \
+                    self._stream_scope():
                 it = self.lineage_fn(state.map_id)
                 try:
                     self.write_fn(state.map_id, it, backup, state.epoch0,
@@ -205,6 +214,9 @@ class SpeculationManager:
             state.commit_time = time.monotonic()
             self.metrics.add(M.NUM_SPECULATIVE_WINS, 1)
             _note("wins")
+            with S.scoped(self._qc):
+                P.event(P.EV_SPECULATION_WIN, shuffle_id=self.shuffle_id,
+                        map_id=state.map_id, backup=backup.executor_id)
             if state.orig_token is not None:
                 state.orig_token.cancel_race_lost(
                     f"speculation: duplicate attempt on "

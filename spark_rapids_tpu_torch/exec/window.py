@@ -39,7 +39,7 @@ from spark_rapids_tpu_torch.columnar.vector import ColumnVector
 from spark_rapids_tpu_torch.exec.base import (CoalesceGoal,
                                               RequireSingleBatch, TpuExec,
                                               UnaryExecBase,
-                                              make_eval_context)
+                                              make_eval_context, kp_site)
 from spark_rapids_tpu_torch.exec.sort import SortOrder
 from spark_rapids_tpu_torch.exprs.base import Expression
 from spark_rapids_tpu_torch.ops.sort_encode import (hash_prefix_sort_bounds,
@@ -248,6 +248,7 @@ class WindowExec(UnaryExecBase):
         self._hash_parts_disabled = True
 
     # -- one batch ---------------------------------------------------------
+    @kp_site("window")
     def window_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
         """The window functions over one whole (dense) batch: the child's
         columns and one column per function, in the input row order."""

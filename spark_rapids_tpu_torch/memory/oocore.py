@@ -40,6 +40,11 @@ from spark_rapids_tpu_torch.columnar.serde import (deserialize_batch,
 from spark_rapids_tpu_torch.memory.buffer import BufferId, TableMeta
 from spark_rapids_tpu_torch.memory.stores import SpillCorruption
 from spark_rapids_tpu_torch.utils import metrics as M
+from spark_rapids_tpu_torch.utils import movement as MV
+from spark_rapids_tpu_torch.utils import profile as P
+
+#: movement-ledger site prefix of out-of-core run spills
+SITE_PREFIX = "oocore:"
 
 log = logging.getLogger("spark_rapids_tpu_torch.oocore")
 
@@ -157,14 +162,20 @@ class SpilledRun:
                     batch = buf.get_columnar_batch()
                 if corrupt and metrics is not None:
                     metrics.add(M.NUM_SPILL_CORRUPTIONS_RECOVERED, 1)
+                if corrupt:
+                    P.event(P.EV_OOCORE_CORRUPT_RECOVERED,
+                            op=self.label, via=f"replica{i}")
                 return batch
             except SpillCorruption as e:
                 corrupt += 1
                 self._quarantine(env, bid, e)
         if self.recompute is not None:
             batch = self.recompute()
-            if corrupt and metrics is not None:
-                metrics.add(M.NUM_SPILL_CORRUPTIONS_RECOVERED, 1)
+            if corrupt:
+                if metrics is not None:
+                    metrics.add(M.NUM_SPILL_CORRUPTIONS_RECOVERED, 1)
+                P.event(P.EV_OOCORE_CORRUPT_RECOVERED,
+                        op=self.label, via="recompute")
             return batch
         raise SpillCorruption(
             f"out-of-core run {self.label} ({self.num_rows} rows, "
@@ -178,6 +189,8 @@ class SpilledRun:
         """Logged quarantine of a corrupt copy: the poisoned file is set
         aside (never unlinked, never re-readable) and the buffer leaves
         the catalog."""
+        from spark_rapids_tpu_torch.utils import residency as RES
+        site = RES.buffer_site(bid)
         qpath = None
         if hasattr(env.disk_store, "quarantine"):
             qpath = env.disk_store.quarantine(bid)
@@ -185,7 +198,10 @@ class SpilledRun:
             env.catalog.remove(bid)  # not at disk tier: just drop it
         log.warning(
             "quarantined corrupt spill of out-of-core run %s "
-            "(buffer %s) at %s: %s", self.label, bid, qpath, err)
+            "(buffer %s, provenance %s) at %s: %s", self.label, bid, site,
+            qpath, err)
+        P.event(P.EV_OOCORE_CORRUPT_QUARANTINE, op=self.label,
+                site=site, path=str(qpath))
 
     def free(self) -> None:
         """Drop every copy from whatever tier holds it (and its spill
@@ -207,9 +223,11 @@ def spill_run(batch: ColumnarBatch, *, label: str, metrics=None,
               ) -> SpilledRun:
     """Serialize `batch` and push it down the host→disk spill chain as
     one out-of-core run (plus `oocore.runReplicas - 1` replica copies),
-    charging the exec's `spillRunBytes`.  The environment is made on the
-    batch's device if there is none yet.
+    charging the exec's `spillRunBytes`.  Records one movement-ledger
+    spill edge per copy (site `oocore:device->host|disk`).  The
+    environment is made on the batch's device if there is none yet.
     """
+    import time
     from spark_rapids_tpu_torch.memory.buffer import meta_for_batch
     from spark_rapids_tpu_torch.memory.env import ResourceEnv
     conf = conf or C.get_active_conf()
@@ -220,15 +238,25 @@ def spill_run(batch: ColumnarBatch, *, label: str, metrics=None,
     bids = []
     for _ in range(copies):
         bid = BufferId(env.catalog.next_table_id())
+        t0 = time.perf_counter_ns()
         # spill_priority 0 keeps runs ahead of hot shuffle buffers in
         # the host arena's eviction order — they are cold by design
-        env.host_store.add_blob(bid, blob, meta, spill_priority=0.0)
+        buf = env.host_store.add_blob(bid, blob, meta, spill_priority=0.0)
+        # add_blob records no ledger edge (shuffle receives reuse it); an
+        # out-of-core run IS a spill hop: record the one that happened
+        if MV.ledger() is not None:
+            MV.record(MV.EDGE_SPILL, len(blob),
+                      site=f"{SITE_PREFIX}device->{buf.tier.name.lower()}",
+                      raw_bytes=len(blob),
+                      dur_ns=time.perf_counter_ns() - t0)
         bids.append(bid)
         with _ACCT_LOCK:
             _RUN_BYTES[0] += len(blob)
             _RUN_COUNT[0] += 1
         if metrics is not None:
             metrics.add(M.SPILL_RUN_BYTES, len(blob))
+    P.event(P.EV_OOCORE_SPILL_RUN, op=label, nbytes=len(blob) * copies,
+            rows=batch.num_rows, copies=copies)
     return SpilledRun(bids, meta, len(blob), batch.num_rows, label,
                       recompute)
 
@@ -281,6 +309,7 @@ def merge_spilled(runs: list, merge: Callable[[list], ColumnarBatch], *,
             passes += 1
             if metrics is not None:
                 metrics.add(M.NUM_EXTERNAL_MERGE_PASSES, 1)
+            P.event(P.EV_OOCORE_MERGE_PASS, op=label, num_runs=len(runs))
             groups = merge_groups(runs, window)
             next_runs = []
             for group in groups:

@@ -42,6 +42,8 @@ from typing import Callable, Iterator, Optional
 
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch.utils import metrics as M
+from spark_rapids_tpu_torch.utils import profile as P
+from spark_rapids_tpu_torch.utils import residency as RES
 
 log = logging.getLogger(__name__)
 
@@ -169,7 +171,7 @@ def _blocked_spill(dm, nbytes: int, metrics) -> None:
     cb = dm.spill_callback
     if cb is not None:
         cb.take_thread_freed()  # discard any stale thread residue
-    with _sem_yielded():
+    with _sem_yielded(), P.span("retry-block:spill", cat=P.CAT_RETRY):
         if cb is not None:
             cb.on_alloc_pressure(nbytes, dm.budget, dm.reserved_bytes)
     if cb is not None:
@@ -190,7 +192,7 @@ def _blocked_reserve(dm, nbytes: int, metrics) -> bool:
     cb = dm.spill_callback
     if cb is not None:
         cb.take_thread_freed()
-    with _sem_yielded():
+    with _sem_yielded(), P.span("retry-block:reserve", cat=P.CAT_RETRY):
         ok = dm.reserve(nbytes)
     if cb is not None:
         _madd(metrics, M.SPILL_BYTES, cb.take_thread_freed())
@@ -200,7 +202,8 @@ def _blocked_reserve(dm, nbytes: int, metrics) -> bool:
     return ok
 
 
-def _acquire(nbytes: int, dm, inj, metrics, escalate: bool) -> None:
+def _acquire(nbytes: int, dm, inj, metrics, escalate: bool,
+             label: str = "op") -> None:
     """One reservation attempt.  Raises TpuRetryOOM (spill made room —
     try again) or TpuSplitAndRetryOOM (shrink the input).  On return the
     caller owns an `nbytes` reservation."""
@@ -216,8 +219,11 @@ def _acquire(nbytes: int, dm, inj, metrics, escalate: bool) -> None:
         return
     if _blocked_reserve(dm, nbytes, metrics):
         # pressure resolved by spilling: count it as a retry event and
-        # proceed with the reservation held
+        # proceed with the reservation held (the event too, so the log's
+        # oom_retry records and numRetries tell one story)
         _madd(metrics, M.NUM_RETRIES, 1)
+        P.event(P.EV_OOM_RETRY, label=label, bytes=nbytes, retries=0,
+                cause="pressure")
         return
     raise TpuSplitAndRetryOOM(
         f"cannot reserve {nbytes} bytes within budget {dm.budget} "
@@ -242,17 +248,29 @@ def _run_reserved(thunk: Callable[[], object], nbytes: int, metrics,
     while True:
         try:
             _acquire(nbytes, dm, inj, metrics,
-                     escalate=retries >= _MAX_RETRIES_PER_ATTEMPT)
+                     escalate=retries >= _MAX_RETRIES_PER_ATTEMPT,
+                     label=label)
         except TpuSplitAndRetryOOM:
             raise
         except TpuRetryOOM:
             _madd(metrics, M.NUM_RETRIES, 1)
+            P.event(P.EV_OOM_RETRY, label=label, bytes=nbytes,
+                    retries=retries + 1)
             retries += 1
             continue
+        # residency provenance for the held reservation: the exec's
+        # label names the site, so the ledger's peak composition says
+        # which operator's working set drove the high-water mark
+        res_token = None
+        if RES.enabled():
+            res_token = RES.track(
+                nbytes, site=f"reserve:{label.split('[', 1)[0]}",
+                tier=RES.TIER_DEVICE, kind=RES.KIND_RESERVATION)
         try:
             return thunk()
         finally:
             dm.release_reservation(nbytes)
+            RES.retire(res_token)
 
 
 def _floor_fallback(thunk: Callable[[], object], metrics, label: str,
@@ -272,6 +290,7 @@ def _floor_fallback(thunk: Callable[[], object], metrics, label: str,
             f"{C.RETRY_FALLBACK.key}=bestEffort to run the batch "
             "unreserved (the caching allocator then has the final word).")
     _madd(metrics, M.NUM_OOM_FALLBACKS, 1)
+    P.event(P.EV_OOM_FALLBACK, label=label, rows=str(rows))
     log.warning(
         "%s: OOM retry floor reached (%s rows); running the batch "
         "unreserved (best effort) — a true device OOM will surface as "
@@ -320,6 +339,8 @@ def with_split_retry(batch, body: Callable[[object], object], *,
                                       rows=b.num_rows)
             else:
                 _madd(metrics, M.NUM_SPLIT_RETRIES, 1)
+                P.event(P.EV_OOM_SPLIT_RETRY, label=label,
+                        rows=b.num_rows)
                 pending[:0] = pieces
 
 

@@ -159,6 +159,10 @@ class TpuSemaphore:
                 self._wait_count += 1
                 if waited_ms > self._longest_wait_ms:
                     self._longest_wait_ms = waited_ms
+        if blocked:
+            from spark_rapids_tpu_torch.utils import profile as P
+            P.event(P.EV_SEMAPHORE_WAIT, group=str(group),
+                    wait_ms=waited_ms, reacquire=reacquire)
 
     def _return_permit(self, group) -> None:
         with self._cv:

@@ -25,6 +25,7 @@ from spark_rapids_tpu_torch.columnar.serde import (deserialize_batch,
 from spark_rapids_tpu_torch.columnar.vector import resolve_device
 from spark_rapids_tpu_torch.memory.buffer import (
     BufferId, SpillableBuffer, StorageTier, TableMeta)
+from spark_rapids_tpu_torch.utils import residency as RES
 from spark_rapids_tpu_torch.memory.native import (HashedPriorityQueue,
                                                   HostArena,
                                                   SpillCorruptionError)
@@ -123,6 +124,13 @@ class BufferStore:
                 self._spill_queue.offer(h, buf.spill_priority)
             if self.catalog is not None:
                 self.catalog.register(buf)
+            # residency ledger (utils/residency.py): every tracked buffer
+            # carries provenance (query id, site, tier) from birth to
+            # free/spill
+            if RES.enabled():
+                buf._res_token = RES.track(
+                    buf.size_bytes, site=RES.buffer_site(buf.id),
+                    tier=self.tier.name.lower(), kind=RES.KIND_STORE)
 
     def remove(self, bid: BufferId) -> None:
         with self._lock:
@@ -136,6 +144,8 @@ class BufferStore:
                 self._handle_of.pop(h, None)
             self._on_remove(buf)
             buf.free()
+            RES.retire(getattr(buf, "_res_token", None))
+            buf._res_token = None
             if self.catalog is not None:
                 self.catalog.unregister(bid)
 
@@ -180,6 +190,9 @@ class BufferStore:
     def synchronous_spill(self, target_size: int) -> int:
         """Spill lowest-priority buffers until `current_size <= target_size`.
         Returns bytes freed (reference RapidsBufferStore.synchronousSpill)."""
+        import time
+
+        from spark_rapids_tpu_torch.utils import movement as MV
         freed = 0
         while True:
             with self._lock:
@@ -195,7 +208,23 @@ class BufferStore:
                 if buf is None or not buf.try_mark_spilling():
                     continue
             if self.spill_store is not None:
-                self.spill_store.copy_buffer(buf)
+                t0 = time.perf_counter_ns()
+                # the next-tier copy inherits the ORIGINAL owner's
+                # provenance: a pressure spill triggered by query B never
+                # re-attributes query A's bytes
+                with RES.inherit_scope(getattr(buf, "_res_token", None)):
+                    dst = self.spill_store.copy_buffer(buf)
+                # one ledger record PER HOP, the hop that happened (a
+                # host pool that is full falls through: device->disk);
+                # bytes = this tier's accounted size (what spillBytes and
+                # bytes_spilled count), raw = the blob that landed
+                if MV.ledger() is not None:
+                    MV.record(
+                        MV.EDGE_SPILL, buf.size_bytes,
+                        site=f"{self.tier.name.lower()}->"
+                             f"{dst.tier.name.lower()}",
+                        raw_bytes=dst.size_bytes,
+                        dur_ns=time.perf_counter_ns() - t0)
             freed += buf.size_bytes
             self.remove_from_tier_only(buf)
         return freed
@@ -211,6 +240,8 @@ class BufferStore:
             if h is not None:
                 self._handle_of.pop(h, None)
             buf.free()
+            RES.retire(getattr(buf, "_res_token", None))
+            buf._res_token = None
 
     def copy_buffer(self, buf: SpillableBuffer) -> SpillableBuffer:
         """Materialize `buf`'s payload at this tier (spill receive path)."""
@@ -388,8 +419,16 @@ class DiskBuffer(SpillableBuffer):
     def get_host_bytes(self) -> bytes:
         # CRC-verified read: corruption surfaces as SpillCorruptionError
         # instead of a poisoned batch (memory/native spill framing)
+        import time
+
         from spark_rapids_tpu_torch.memory.native import spill_read
-        return spill_read(self._path)
+        from spark_rapids_tpu_torch.utils import movement as MV
+        t0 = time.perf_counter_ns()
+        blob = spill_read(self._path)
+        if MV.ledger() is not None:
+            MV.record(MV.EDGE_SPILL, len(blob), site="disk->host",
+                      dur_ns=time.perf_counter_ns() - t0)
+        return blob
 
     def get_columnar_batch(self) -> ColumnarBatch:
         return deserialize_batch(self.get_host_bytes(), self.store.device)
@@ -463,6 +502,8 @@ class DiskStore(BufferStore):
         # mark closed WITHOUT DiskBuffer.free()'s unlink — the
         # quarantined file must survive until close()
         SpillableBuffer.free(buf)
+        RES.retire(getattr(buf, "_res_token", None))
+        buf._res_token = None
         if self.catalog is not None:
             self.catalog.unregister(bid)
         return qpath

@@ -31,6 +31,21 @@ _LOCK = threading.Lock()
 _POLL_S = 0.05
 _LIBS: dict = {}
 _FNS: dict = {}  # (source, symbol) -> loaded ctypes function
+#: [nvcc builds, their wall nanoseconds] since start (telemetry)
+_BUILD_STATS = [0, 0]
+
+
+def loaded_count() -> int:
+    """Kernel libraries loaded in this process."""
+    return len(_LIBS)
+
+
+def build_count() -> int:
+    return _BUILD_STATS[0]
+
+
+def build_ms() -> float:
+    return _BUILD_STATS[1] / 1e6
 
 
 def nvcc_path() -> str:
@@ -81,13 +96,33 @@ def build(names=SOURCES) -> dict:
                         "deadline on another thread's build; building "
                         "here", todo)
         # the builds are watched under the compile deadline; the
-        # "compile" hang site stands for the reference's XLA compile
-        with W.heartbeat(f"compile:{','.join(todo)}", kind="compile"):
+        # "compile" hang site stands for the reference's XLA compile.  A
+        # profiled query records the build as a compile span, and with
+        # kernel attribution on its time is charged to the kernels built
+        from spark_rapids_tpu_torch.utils import profile as P
+        label = f"compile:{','.join(todo)}"
+        with W.heartbeat(label, kind="compile"), \
+                P.span(label, cat=P.CAT_COMPILE):
             W.maybe_hang("compile")
-            return _run_nvcc(todo)
+            t0 = time.perf_counter_ns()
+            try:
+                return _run_nvcc(todo)
+            finally:
+                record_builds(todo, time.perf_counter_ns() - t0)
     finally:
         if locked:
             _LOCK.release()
+
+
+def record_builds(names, ns: int) -> None:
+    """Count the builds of `names`, which took `ns` nanoseconds in all,
+    and with kernel attribution on charge each its share."""
+    from spark_rapids_tpu_torch.utils import kernelprof as KP
+    _BUILD_STATS[0] += len(names)
+    _BUILD_STATS[1] += ns
+    if KP.enabled():
+        for n in names:
+            KP.note_build(n, ns // len(names))
 
 
 def _run_nvcc(todo: list) -> dict:

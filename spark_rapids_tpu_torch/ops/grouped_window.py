@@ -7,7 +7,9 @@ group's rows are one contiguous run.  The CUDA kernel
 stores it once; a run that crosses tiles is summed, in tile order, by the
 tile where it ends, from partials that the earlier tiles flag as ready.
 Absent ids are written as 0, so no cell is zero-filled first or added to
-with an atomic.  The plain twin uses index_add_.
+with an atomic.  The plain twin uses index_add_.  With kernel attribution on
+(utils/kernelprof.py) each launch runs in its catalog entry, with the
+analytic cost `chip_smoke.py`'s `bound()` uses.
 Accumulation is f32: callers gate exactness the dictionary lane's way
 (|v| certificate for integers, variableFloatAgg for floats) and recover
 group keys from 11-bit first-row-index limb measures, which are exact by
@@ -21,6 +23,7 @@ from spark_rapids_tpu_torch.ops import cuda_build
 from spark_rapids_tpu_torch.ops.kernels import (
     _INT, _VP, MAX_MEASURES, _chunks, _column_pointers, _device_scope,
     _on_cuda, _pointer_array, _raw_stream, count_launch, launch_lock)
+from spark_rapids_tpu_torch.utils import kernelprof as KP
 
 #: rows per block of csrc/window_group_sums.cu (kTileRows)
 WINDOW_TILE_ROWS = 1024
@@ -79,10 +82,17 @@ def window_group_sums(gid, vals, *, out_cap: int, capacity: int
         for chunk in _chunks(ptrs[1:], MAX_MEASURES):
             ptr_array = _pointer_array(chunk)
             flags, tail, epoch = _tile_state(dev, tiles, stream)
-            err = launch(ptrs[0], ptr_array.buffer_info()[0], len(chunk),
-                         capacity, out_cap, out_ptr + 4 * off, m,
-                         tail.data_ptr(), flags.data_ptr(), epoch, int(vec),
-                         stream)
+            mc = len(chunk)
+            kw = KP.hand_watch("window_group_sums",
+                               (capacity, out_cap, mc), dev)
+            if kw.wants_cost():
+                kw.cost(nbytes=capacity * 4 + capacity * mc * 4
+                        + out_cap * mc * 4, flops=capacity * mc)
+            with kw:
+                err = launch(ptrs[0], ptr_array.buffer_info()[0], mc,
+                             capacity, out_cap, out_ptr + 4 * off, m,
+                             tail.data_ptr(), flags.data_ptr(), epoch,
+                             int(vec), stream)
             cuda_build.check(err, "window_group_sums launch")
             count_launch(window_group_sums)
             off += len(chunk)

@@ -15,6 +15,11 @@ stream, and taking it and enqueuing the launch happen under the device's
 launch lock (`launch_lock`), so no other thread can grow and free a
 scratch block between a launch's pointer and its enqueue.  Launch counts
 are bumped under a lock too (`count_launch`).
+
+With kernel attribution on (utils/kernelprof.py), each launch runs in
+its kernel's catalog entry (`KP.hand_watch`, keyed by the launch's
+shape), with the analytic cost `chip_smoke.py`'s `bound()` uses: the
+bytes the launch must move and its f32 operations.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import threading
 import torch
 
 from spark_rapids_tpu_torch.ops import cuda_build
+from spark_rapids_tpu_torch.utils import kernelprof as KP
 
 #: rows per CUDA block in q1_fused.cu (256 threads x 32 rows); the plain
 #: version takes its f32 partials over the same row ranges
@@ -84,6 +90,17 @@ def count_launch(wrapper) -> None:
         wrapper.launches += 1
 
 
+def _host_rows(num_rows, capacity: int) -> int:
+    """Live rows for a launch's analytic cost: the sum of `num_rows`
+    where the host holds it, else `capacity` (reading a device count
+    would sync)."""
+    if isinstance(num_rows, torch.Tensor):
+        return capacity
+    if isinstance(num_rows, (list, tuple)):
+        return min(capacity, sum(int(n) for n in num_rows))
+    return min(capacity, int(num_rows))
+
+
 def _on_cuda(dev: torch.device, what: str) -> bool:
     """True for CUDA tensors, False for CPU ones (the plain version's
     only use); anything else raises."""
@@ -135,7 +152,13 @@ def q1_fused(flag, status, qty, price, disc, tax, ship, num_rows, *,
     n_blocks = -(-capacity // Q1_BLOCK_ROWS)
     partials = torch.empty((n_blocks, _Q1_SLOTS, _Q1_MEASURES),
                            dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    kw = KP.hand_watch("q1_fused", (capacity, batch_rows), dev)
+    if kw.wants_cost():
+        live = _host_rows(num_rows, capacity)
+        # rows past num_rows[b] are padding: the kernel reads none
+        kw.cost(nbytes=live * 28 + nums.numel() * 4
+                + n_blocks * _Q1_SLOTS * _Q1_MEASURES * 4, flops=live * 10)
+    with torch.cuda.device(dev), kw:
         err = launch(flag.data_ptr(), status.data_ptr(), qty.data_ptr(),
                      price.data_ptr(), disc.data_ptr(), tax.data_ptr(),
                      ship.data_ptr(), nums.data_ptr(), capacity,
@@ -401,13 +424,21 @@ def grouped_sum(keys, vals, num_rows, *, n_groups: int, capacity: int):
                 if counts is None:
                     cnt = counts = torch.zeros(n_groups, dtype=torch.int32,
                                                device=dev)
-            err = launch(_TIER_CODE[tier], ptrs[0],
-                         ptr_array.buffer_info()[0], mc, nrows.data_ptr(),
-                         capacity, n_groups, blocks, threads, copies, smem,
-                         int(vec), scratch.data_ptr(), stride,
-                         sums.data_ptr() + 8 * off, max(m, 1),
-                         None if cnt is None else cnt.data_ptr(),
-                         ticket.data_ptr(), stream)
+            kw = KP.hand_watch("grouped_sum",
+                               (capacity, n_groups, mc, tier), dev)
+            if kw.wants_cost():
+                rows = _host_rows(num_rows, capacity)
+                kw.cost(nbytes=capacity * 4 + rows * mc * 4
+                        + n_groups * (mc + 1) * 4, flops=rows * (mc + 1))
+            with kw:
+                err = launch(_TIER_CODE[tier], ptrs[0],
+                             ptr_array.buffer_info()[0], mc,
+                             nrows.data_ptr(), capacity, n_groups, blocks,
+                             threads, copies, smem, int(vec),
+                             scratch.data_ptr(), stride,
+                             sums.data_ptr() + 8 * off, max(m, 1),
+                             None if cnt is None else cnt.data_ptr(),
+                             ticket.data_ptr(), stream)
             cuda_build.check(err, "grouped_sum launch")
             count_launch(grouped_sum)
             tiers.append(tier)

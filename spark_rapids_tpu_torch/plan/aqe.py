@@ -119,19 +119,22 @@ class ShuffleQueryStageExec(TpuExec):
         self._acc = [[] for _ in range(n)]
         self._consumed = set()
         self._fill_error = None
-        # captured here so the fill's conf reads, cancellation and launch
-        # stream are this query's
+        # captured here so the fill's conf reads, cancellation, launch
+        # stream and span parenting are this query's
+        from spark_rapids_tpu_torch.utils import profile as P
         self._fill = threading.Thread(
             target=self._fill_run,
-            args=(conf, S.current(), PL._cuda_stream_of_caller()),
+            args=(conf, S.current(), PL._cuda_stream_of_caller(),
+                  P.current_ref()),
             daemon=True, name="tpu-aqe-stage-fill")
         self._fill.start()
         return self
 
-    def _fill_run(self, conf, qc, stream) -> None:
+    def _fill_run(self, conf, qc, stream, span_ref=None) -> None:
         from contextlib import nullcontext
 
         from spark_rapids_tpu_torch.exec import scheduler as S
+        from spark_rapids_tpu_torch.utils import profile as P
         from spark_rapids_tpu_torch.utils import watchdog as W
         try:
             if stream is not None:
@@ -140,7 +143,9 @@ class ShuffleQueryStageExec(TpuExec):
                 scope = torch.cuda.stream(stream[1])
             else:
                 scope = nullcontext()
-            with S.scoped(qc), C.session(conf), scope:
+            with S.scoped(qc), C.session(conf), scope, \
+                    P.attach(span_ref), \
+                    P.span("aqe-stage-fill", cat=P.CAT_SHUFFLE):
                 hb = W.heartbeat("aqe-stage-fill", kind="task")
                 with hb, W.watching(hb):
                     for p, it in enumerate(

@@ -37,6 +37,7 @@ from spark_rapids_tpu_torch.exec.base import (TpuExec, UnaryExecBase,
                                               make_eval_context)
 from spark_rapids_tpu_torch.exec.basic import (FilterExec, ProjectExec,
                                                _register_ansi)
+from spark_rapids_tpu_torch.utils import profile as P
 from spark_rapids_tpu_torch.exprs.base import (BoundReference, EvalContext,
                                                Expression)
 from spark_rapids_tpu_torch.exprs.simplify import (dedup_common_subexprs,
@@ -144,6 +145,7 @@ class FusedStageExec(UnaryExecBase):
         super().__init__(child)
         self.stage = stage
         self._schema = stage.schema
+        self._fused_reported = False
 
     def output_schema(self) -> T.Schema:
         return self._schema
@@ -156,6 +158,15 @@ class FusedStageExec(UnaryExecBase):
         return (f"FusedStageExec({self.stage.describe_ops()}, "
                 f"exprs={self.stage.expr_count})")
 
+    @property
+    def fused_members(self) -> list:
+        """(describe, MetricSet) per member: the EXPLAIN-with-metrics
+        breakdown (utils/profile.py renders these under the node)."""
+        return [(m.describe(), m.metrics) for m in self.stage.members]
+
+    def _kp_members(self) -> list:
+        return self.stage.member_names()
+
     def tree_string(self, indent: int = 0) -> str:
         s = "  " * indent + self.describe()
         for m in self.stage.members:
@@ -166,10 +177,20 @@ class FusedStageExec(UnaryExecBase):
 
     def process_partition(self, batches) -> Iterator[ColumnarBatch]:
         for batch in batches:
-            ctx = make_eval_context(batch.columns, batch.capacity,
-                                    batch.num_rows_i32, batch.sparse)
-            cols, keep = _eval_stage(self.stage, ctx)
-            checks = batch.checks + _register_ansi(ctx)
+            if not self._fused_reported:
+                # the profiler's stage_fused event, once per exec
+                self._fused_reported = True
+                P.event(P.EV_STAGE_FUSED, members=self.stage.member_names(),
+                        exprs=self.stage.expr_count)
+            with self.kp_step("fused-stage", batch.capacity,
+                              device=batch.device,
+                              members=self.stage.member_names()) as kw:
+                ctx = make_eval_context(batch.columns, batch.capacity,
+                                        batch.num_rows_i32, batch.sparse)
+                cols, keep = _eval_stage(self.stage, ctx)
+                checks = batch.checks + _register_ansi(ctx)
+                if kw.wants_cost():
+                    kw.cost(batch, cols, keep)
             if self.stage.preds:
                 yield ColumnarBatch(self._schema, cols,
                                     keep.sum().to(torch.int32), checks,

@@ -834,6 +834,7 @@ def _collect(plan, conf: C.RapidsConf):
     from spark_rapids_tpu_torch.exec import scheduler as S
     from spark_rapids_tpu_torch.utils import checks as CK
     scope = S.QueryScope(conf, device=_plan_device(plan))
+    error: Optional[BaseException] = None
     try:
         mark = CK.snapshot()
         try:
@@ -846,8 +847,11 @@ def _collect(plan, conf: C.RapidsConf):
                 return _collect_inner(plan, conf)
             finally:
                 CK.set_retrying(False)
+    except BaseException as e:
+        error = e
+        raise
     finally:
-        scope.close()
+        scope.close(error=error)
 
 
 def _collect_inner(plan, conf: C.RapidsConf):

@@ -83,6 +83,13 @@ def batch_from_df(df: pd.DataFrame, schema: T.Schema,
                 vals = np.where(mask, 0, vals)
         cols.append(ColumnVector.from_numpy(vals, f.dtype, ~mask, cap,
                                             device=dev))
+    # movement ledger: the host->device construction point of rows (the
+    # reference's from_pandas -> from_numpy, whose site name it keeps)
+    from spark_rapids_tpu_torch.utils import movement as MV
+    if cols and MV.ledger() is not None:
+        MV.record(MV.EDGE_UPLOAD,
+                  sum(MV.vector_device_bytes(c) for c in cols),
+                  site="batch.from_numpy", rows=n)
     return ColumnarBatch(schema, cols, n)
 
 
@@ -100,6 +107,12 @@ def df_from_batch(batch: ColumnarBatch) -> pd.DataFrame:
     days, TIMESTAMP_US int micros), after the batch's deferred checks
     verify."""
     batch = batch.dense()
+    # movement ledger: the engine's result sink pulls the batch (the
+    # collect-boundary readback)
+    from spark_rapids_tpu_torch.utils import movement as MV
+    if MV.ledger() is not None:
+        MV.record(MV.EDGE_READBACK, batch.device_size_bytes(),
+                  site="collect.df_from_batch")
     batch.verify_checks()
     out = {}
     for f, c in zip(batch.schema.fields, batch.columns):
@@ -207,7 +220,11 @@ class ColumnarToRowExec(CpuNode):
 
     def execute(self):
         def convert(it):
+            from spark_rapids_tpu_torch.utils import checks as CK
             for batch in it:
+                # the device exit blocks on the batch's readback; its
+                # bytes go to the ledger in df_from_batch
+                CK.note_host_sync("transition.device_get")
                 df = df_from_batch(batch)
                 # the device exit boundary releases the task's permit
                 TpuSemaphore.get().release_if_necessary()

@@ -192,12 +192,21 @@ class BufferReceiveState:
             # the server compressed the payload for the wire
             from spark_rapids_tpu_torch.shuffle.compression import get_codec
             blob = get_codec(codec_id).decompress(blob, raw_len)
+        # movement ledger, receive side: mirrors the sender's record, so
+        # bytes served == bytes assembled is checkable in one process;
+        # 'recv' sites are left out of edge totals
+        from spark_rapids_tpu_torch.utils import movement as MV
+        MV.record(MV.EDGE_WIRE, wire_len, site="recv", raw_bytes=len(blob))
         self.handler.buffer_received(wire_len, len(blob))
         meta_msg = self.metas[table_id]
         bid = BufferId(self.received_catalog.new_buffer_id().table_id,
                        meta_msg.shuffle_id, meta_msg.map_id,
                        meta_msg.partition)
-        self.host_store.add_blob(bid, blob, meta_msg.table_meta())
+        # provenance: received buffers land in the host tier under a
+        # reduce-side site, apart from the sender's map buffers
+        from spark_rapids_tpu_torch.utils import residency as RES
+        with RES.site_scope("shuffle-recv"):
+            self.host_store.add_blob(bid, blob, meta_msg.table_meta())
         self.received_catalog.add_received(self.task_attempt_id, bid)
         self.limiter.release(meta_msg.size_bytes)  # mirrors the acquire
         self.handler.batch_received(bid)
@@ -248,6 +257,7 @@ class ShuffleClient:
     def fetch_blocks(self, blocks: Sequence[BlockIdMsg],
                      task_attempt_id: int,
                      handler: ShuffleReceiveHandler) -> list[TableMetaMsg]:
+        from spark_rapids_tpu_torch.utils import profile as P
         from spark_rapids_tpu_torch.utils import watchdog as W
         fid = next(_INFLIGHT_IDS)
         with _INFLIGHT_LOCK:
@@ -256,7 +266,8 @@ class ShuffleClient:
                 "blocks": [str(b) for b in blocks[:8]],
                 "_t0": time.monotonic()}
         with W.heartbeat(f"shuffle-fetch:{self.address}", kind="task",
-                         conf=self.conf) as hb:
+                         conf=self.conf) as hb, \
+                P.span(f"shuffle-fetch:{self.address}", cat=P.CAT_SHUFFLE):
             t0 = time.monotonic()
             try:
                 out = self._fetch_blocks(blocks, task_attempt_id, handler,
@@ -318,8 +329,13 @@ class ShuffleClient:
                 pending = [m for m in pending
                            if m.table_id not in state.completed]
                 continue
+            from spark_rapids_tpu_torch.utils import profile as P
             if txn.corrupt:
+                # detected wire damage is first-class: metered on the
+                # exchange and correlated in the event log
                 handler.corruption_detected()
+                P.event(P.EV_WIRE_CORRUPTION, address=self.address,
+                        error=str(txn.error)[:200])
             # return the budget of the buffers that did not complete
             for m in budget_taken:
                 if m.table_id not in state.completed:
@@ -330,12 +346,16 @@ class ShuffleClient:
             attempt += 1
             if attempt > self.max_retries:
                 handler.transfer_error(txn.error or "transfer failed")
+                P.event(P.EV_FETCH_FAILURE, address=self.address,
+                        attempts=attempt, error=str(txn.error)[:200])
                 raise FetchFailedError(
                     self.address, blocks[0] if blocks else None,
                     f"transfer failed after {attempt} attempts: "
                     f"{txn.error}")
             log.warning("shuffle fetch retry %d from %s: %s", attempt,
                         self.address, txn.error)
+            P.event(P.EV_FETCH_RETRY, address=self.address,
+                    attempt=attempt, error=str(txn.error)[:200])
             self._backoff(attempt)
             # a mid-stream abort leaves the socket dead on the server
             # side: reconnect before retrying (the reference re-registers
@@ -408,16 +428,27 @@ class ShuffleServer:
         # handlers run on transport threads with no session conf; the
         # transport's own conf carries the watchdog and injection keys
         wconf = getattr(self.transport, "conf", None)
+        from spark_rapids_tpu_torch.shuffle.compression import (
+            note_compression)
+        from spark_rapids_tpu_torch.utils import movement as MV
+        from spark_rapids_tpu_torch.utils import profile as P
+        wire_site = "send:dcn" if wire else "send:loop"
         try:
+            # a handler runs on a transport thread with no captured span
+            # context: its span parents under the query root, which still
+            # names the thread and its timeline in the Chrome trace
             with W.heartbeat("shuffle-server", kind="task",
-                             conf=wconf) as hb:
+                             conf=wconf) as hb, \
+                    P.span("shuffle-server", cat=P.CAT_SHUFFLE):
                 for tid in table_ids:
+                    t0 = time.perf_counter_ns()
                     blob = self.acquire_buffer_bytes(tid)
                     raw_len = len(blob)
                     codec_id = -1
                     if codec is not None:
                         blob = codec.compress(blob)
                         codec_id = codec.codec_id
+                        note_compression(codec.name, raw_len, len(blob))
                     n = len(blob)
                     nchunks = max(1, -(-n // chunk_size))
                     for i in range(nchunks):
@@ -429,6 +460,16 @@ class ShuffleServer:
                              raw_len)
                         hb.beat()
                         total += len(chunk)
+                    # movement ledger: one wire record per served buffer,
+                    # the payload and its uncompressed size, timed over
+                    # acquire + compress + emit.  Loopback fetches run on
+                    # the client's thread, so the record lands in the
+                    # fetching query's ledger; TCP handlers fall back to
+                    # the newest tracer
+                    MV.record(MV.EDGE_WIRE, n, site=wire_site,
+                              raw_bytes=raw_len,
+                              dur_ns=time.perf_counter_ns() - t0,
+                              codec=codec.name if codec else "none")
                     # seeded slow-peer injection: a degraded server serves
                     # each buffer slowFactor x slower, after the buffer,
                     # so a hedged winner can land; cancellable

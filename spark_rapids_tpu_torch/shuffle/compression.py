@@ -120,3 +120,36 @@ def get_codec(name_or_id) -> Optional[TableCompressionCodec]:
 def codec_from_conf(conf) -> Optional[TableCompressionCodec]:
     from spark_rapids_tpu_torch import config as C
     return get_codec(str(conf[C.SHUFFLE_COMPRESSION_CODEC]).lower())
+
+
+# ---------------------------------------------------------------------------
+# per-codec wire accounting (always on, like the host-sync counter): every
+# compressed payload the shuffle server serves notes its raw and wire
+# sizes here, so codec choice shows as a measured ratio beside the
+# movement report's wire edge
+_STATS_LOCK = threading.Lock()
+_STATS: dict[str, list] = {}  # codec name -> [raw_bytes, wire_bytes, n]
+
+
+def note_compression(codec_name: str, raw_bytes: int,
+                     wire_bytes: int) -> None:
+    """Record one payload's compression outcome for `codec_name`."""
+    with _STATS_LOCK:
+        st = _STATS.setdefault(codec_name, [0, 0, 0])
+        st[0] += int(raw_bytes)
+        st[1] += int(wire_bytes)
+        st[2] += 1
+
+
+def compression_stats() -> dict:
+    """{codec: {raw_bytes, wire_bytes, payloads, ratio}} copy; ratio is
+    wire/raw (< 1.0 means the codec is earning its CPU)."""
+    with _STATS_LOCK:
+        return {name: {"raw_bytes": r, "wire_bytes": w, "payloads": n,
+                       "ratio": round(w / r, 4) if r else 1.0}
+                for name, (r, w, n) in _STATS.items()}
+
+
+def reset_compression_stats() -> None:
+    with _STATS_LOCK:
+        _STATS.clear()

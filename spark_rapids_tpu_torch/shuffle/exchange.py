@@ -43,6 +43,8 @@ from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
 from spark_rapids_tpu_torch.exec.base import TpuExec, UnaryExecBase
 from spark_rapids_tpu_torch.shuffle.partitioning import (RangePartitioning,
                                                          TpuPartitioning)
+from spark_rapids_tpu_torch.utils import checks as CK
+from spark_rapids_tpu_torch.utils import profile as P
 
 
 class ShuffleExchangeExec(UnaryExecBase):
@@ -112,7 +114,11 @@ class ShuffleExchangeExec(UnaryExecBase):
                 return
             inputs = itertools.chain(head, inputs)
         for batch in inputs:
-            for p, s in enumerate(part.partition_batch(batch)):
+            # constant label: one global read and a shared null context
+            # when the query is not profiled
+            with P.span("exchange-split", cat=P.CAT_SHUFFLE):
+                slices = part.partition_batch(batch)
+            for p, s in enumerate(slices):
                 if s is not None and s.maybe_nonempty():
                     yield p, s
 
@@ -149,8 +155,14 @@ class ShuffleExchangeExec(UnaryExecBase):
                 break
         if not samples:
             return empty_batch(self._schema, self.device())
-        return RangePartitioning.compute_bounds(
-            concat_batches(samples), part.order, part.num_partitions)
+        merged = concat_batches(samples)
+        with self.kp_step("exchange-sample-bounds", merged.capacity,
+                          device=merged.device) as kw:
+            bounds = RangePartitioning.compute_bounds(
+                merged, part.order, part.num_partitions)
+            if kw.wants_cost():
+                kw.cost(merged, bounds)
+        return bounds
 
     _SHUFFLE_IDS = itertools.count(1)
     _SHUFFLE_IDS_LOCK = threading.Lock()
@@ -221,29 +233,37 @@ class ShuffleExchangeExec(UnaryExecBase):
                            first_wins=False):
             writer = mgr.get_writer(shuffle_id, map_id,
                                     replicas=replicas_for(mgr))
+            sp = P.span(f"shuffle-map:s{shuffle_id}m{map_id}",
+                        cat=P.CAT_SHUFFLE) \
+                if P.tracer() is not None else P._NULL_SPAN
             try:
-                for batch in batch_iter:
-                    # a batch boundary is a cancellation point: a losing
-                    # speculative attempt stops here
-                    W.check_cancelled()
-                    # seeded slow-task injection (the straggler model)
-                    W.maybe_slow("map-task", conf=conf,
-                                 executor_id=mgr.executor_id)
-                    if not batch.maybe_nonempty():
-                        continue
-                    # a map output is published only once its deferred
-                    # checks hold: an optimistic fast path that failed
-                    # raises FastPathInvalid here, on the query's thread,
-                    # for the collect's deopt retry (a reader would meet
-                    # it only in a serializing server, as a failed fetch)
-                    batch.verify_checks()
-                    with self.metrics.timed(M.TOTAL_TIME):
-                        slices = part.partition_batch(batch)
-                    for p, s in enumerate(slices):
-                        if s is not None and s.num_rows > 0:
-                            writer.write_partition(p, s)
-                            self.metrics.add("dataSize",
-                                             s.device_size_bytes())
+                with sp:
+                    for batch in batch_iter:
+                        # a batch boundary is a cancellation point: a
+                        # losing speculative attempt stops here
+                        W.check_cancelled()
+                        # seeded slow-task injection (the straggler
+                        # model)
+                        W.maybe_slow("map-task", conf=conf,
+                                     executor_id=mgr.executor_id)
+                        if not batch.maybe_nonempty():
+                            continue
+                        # a map output is published only once its
+                        # deferred checks hold: an optimistic fast path
+                        # that failed raises FastPathInvalid here, on the
+                        # query's thread, for the collect's deopt retry
+                        # (a reader would meet it only in a serializing
+                        # server, as a failed fetch)
+                        batch.verify_checks()
+                        with self.metrics.timed(M.TOTAL_TIME), \
+                                P.span("exchange-split",
+                                       cat=P.CAT_SHUFFLE):
+                            slices = part.partition_batch(batch)
+                        for p, s in enumerate(slices):
+                            if s is not None and s.num_rows > 0:
+                                writer.write_partition(p, s)
+                                self.metrics.add("dataSize",
+                                                 s.device_size_bytes())
             except BaseException:
                 writer.abort()
                 raise
@@ -348,14 +368,20 @@ class ShuffleExchangeExec(UnaryExecBase):
             dense = [b.dense() for b in group]
             unknown = [b for b in dense if not b.num_rows_known]
             if unknown:
+                CK.note_host_sync("exchange.merge", nbytes=4 * len(unknown))
                 vals = iter(torch.stack([b.num_rows_i32 for b in unknown])
                             .cpu().tolist())
                 dense = [b if b.num_rows_known else
                          ColumnarBatch(b.schema, list(b.columns),
                                        int(next(vals)), b.checks)
                          for b in dense]
-            return concat_batches([b for b in dense if b.num_rows > 0]
-                                  or dense[:1])
+            live = [b for b in dense if b.num_rows > 0] or dense[:1]
+            with self.kp_step("exchange-merge", live[0].capacity,
+                              len(live), device=live[0].device) as kw:
+                out = concat_batches(live)
+                if kw.wants_cost():
+                    kw.cost(live, out)
+            return out
 
         for b in bs:
             if group and cap_sum + b.capacity > target_cap:

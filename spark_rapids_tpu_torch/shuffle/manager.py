@@ -398,14 +398,22 @@ class CachingShuffleWriter:
         host store (serialized once)."""
         from spark_rapids_tpu_torch.columnar.serde import serialize_batch
         from spark_rapids_tpu_torch.memory.buffer import meta_for_batch
+        from spark_rapids_tpu_torch.utils import movement as MV
+        from spark_rapids_tpu_torch.utils import residency as RES
         blob = serialize_batch(batch)
         meta = meta_for_batch(batch)
         for r in self.replicas:
             rbid = r.shuffle_catalog.next_shuffle_buffer_id(
                 self.shuffle_id, self.map_id, partition)
-            r.env.host_store.add_blob(rbid, blob, meta)
+            # provenance: replica copies are not the primary map output;
+            # their residency shows under a site of their own
+            with RES.site_scope("shuffle-replica"):
+                r.env.host_store.add_blob(rbid, blob, meta)
             self._written.append((r.shuffle_catalog, rbid))
             self.replicated_bytes += len(blob)
+        if MV.ledger() is not None:
+            MV.record(MV.EDGE_WIRE, len(blob) * len(self.replicas),
+                      site="replicate")
 
     def commit(self, num_partitions: int, epoch: Optional[int] = None,
                first_wins: bool = False) -> MapStatus:
@@ -628,13 +636,17 @@ class CachingShuffleReader:
         handler = _IteratorHandler(q, current, self.wire_stats)
         errors: list[BaseException] = []
         done = threading.Event()
-        # the consuming thread's query: its conf, cancellation and epoch
-        # reach the fetch worker
+        # the consuming thread's query: its conf, cancellation, epoch and
+        # span context reach the fetch worker (its fetch spans parent
+        # under this reader's scope)
+        from spark_rapids_tpu_torch.utils import profile as P
         qc = S.current()
+        span_ref = P.current_ref()
 
         def fetch_all():
             try:
-                with S.scoped(qc), C.session(self.conf):
+                with S.scoped(qc), C.session(self.conf), \
+                        P.attach(span_ref):
                     for (address, hedge_addr), blocks in remote.items():
                         current["addr"] = address
                         if hedge_addr is not None:
@@ -680,6 +692,8 @@ class CachingShuffleReader:
         from spark_rapids_tpu_torch.shuffle.client_server import (
             hedge_delay_s)
         from spark_rapids_tpu_torch.utils import metrics as M
+        from spark_rapids_tpu_torch.utils import movement as MV
+        from spark_rapids_tpu_torch.utils import profile as P
         from spark_rapids_tpu_torch.utils import watchdog as W
         addrs = {"primary": address, "hedge": hedge_addr}
         staging = {n: _StagingHandler() for n in addrs}
@@ -691,11 +705,12 @@ class CachingShuffleReader:
         results: dict = {}
         threads: dict = {}
         qc = S.current()
+        span_ref = P.current_ref()
 
         def run(name):
             try:
                 with S.scoped(qc), C.session(self.conf), \
-                        W.attempt_scope(tokens[name]):
+                        P.attach(span_ref), W.attempt_scope(tokens[name]):
                     self._fetch_one(addrs[name], blocks, staging[name],
                                     attempt_ids[name])
                 results[name] = None
@@ -711,7 +726,8 @@ class CachingShuffleReader:
             t.start()
 
         start("primary")
-        deadline = time.monotonic() + hedge_delay_s(self.conf)
+        delay = hedge_delay_s(self.conf)
+        deadline = time.monotonic() + delay
         while not done["primary"].is_set():
             parent_tok.check()
             left = deadline - time.monotonic()
@@ -724,6 +740,8 @@ class CachingShuffleReader:
             # race the replica for the same blocks
             if self.metrics is not None:
                 self.metrics.add(M.NUM_HEDGED_FETCHES, 1)
+            P.event(P.EV_HEDGE_FIRED, address=address, replica=hedge_addr,
+                    blocks=len(blocks), delay_ms=round(delay * 1e3, 1))
             start("hedge")
         winner = None
         while winner is None:
@@ -766,8 +784,17 @@ class CachingShuffleReader:
                             "cancellation; its buffers stay until the "
                             "shuffle is unregistered", addrs[loser])
             else:
+                lst = staging[loser]
                 self.manager.received_catalog.release_task(
                     attempt_ids[loser])
+                # the loser's bytes crossed the wire but the query did
+                # not consume them: reclassify them as wasted
+                if lst.wire and MV.ledger() is not None:
+                    site = ("send:loop"
+                            if addrs[loser].startswith("loop://")
+                            else "send:dcn")
+                    MV.move(MV.EDGE_WIRE, lst.wire, site, MV.SITE_WASTED,
+                            raw_bytes=lst.raw)
 
     def _consume(self, q, current, errors, done, first_block, hb,
                  sem) -> Iterator:

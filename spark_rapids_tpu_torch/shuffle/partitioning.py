@@ -23,6 +23,8 @@ from spark_rapids_tpu_torch.columnar.vector import (ColumnVector,
 from spark_rapids_tpu_torch.exec.base import make_eval_context
 from spark_rapids_tpu_torch.exprs.base import Expression
 from spark_rapids_tpu_torch.ops.murmur3 import partition_ids
+from spark_rapids_tpu_torch.utils import checks as CK
+from spark_rapids_tpu_torch.utils import kernelprof as KP
 
 
 class TpuPartitioning:
@@ -43,29 +45,48 @@ def _eval_ctx(batch: ColumnarBatch):
                              batch.num_rows_i32, batch.sparse)
 
 
+def _kp_watch(label: str, n: int, batch: ColumnarBatch):
+    """The kernel-attribution entry of one partitioning step (the shared
+    null context while attribution is off)."""
+    if not KP.enabled():
+        return KP.NULL_WATCH
+    return KP.watch((("partitioning",), (label, n, batch.capacity)),
+                    {"label": f"partition-{label}"}, batch.device)
+
+
 def _split(batch: ColumnarBatch, pids: torch.Tensor, n: int
            ) -> list[Optional[ColumnarBatch]]:
     """Cut `batch` by per-row partition ids: live rows sorted stably by
     id (padding and filtered rows last), then one gather per partition
     at its tight bucketed capacity.  Works on sparse batches as they
-    are: the row mask decides which rows are live."""
-    pids = torch.where(batch.row_mask(), pids.to(torch.int64), n)
-    order = torch.sort(pids, stable=True).indices
-    counts = torch.bincount(pids, minlength=n + 1)[:n].cpu().tolist()
+    are: the row mask decides which rows are live.  The sort and the
+    cut are the reference's two partitioning kernel-cache sites (kernel
+    attribution keys them "split" and "cut")."""
+    with _kp_watch("split", n, batch) as kw:
+        pids = torch.where(batch.row_mask(), pids.to(torch.int64), n)
+        order = torch.sort(pids, stable=True).indices
+        counts_t = torch.bincount(pids, minlength=n + 1)[:n]
+        if kw.wants_cost():
+            kw.cost(pids, order, counts_t)
+    CK.note_host_sync("partition.cut", nbytes=8 * n)
+    counts = counts_t.cpu().tolist()
     out: list = []
     off = 0
-    for cnt in counts:
-        if cnt == 0:
-            out.append(None)
-            continue
-        cap = bucket_capacity(cnt)
-        i = torch.arange(cap, device=pids.device)
-        valid = i < cnt
-        idx = order[(i + off).clamp(max=order.shape[0] - 1)]
-        out.append(ColumnarBatch(
-            batch.schema, [c.gather(idx, valid) for c in batch.columns],
-            cnt, batch.checks))
-        off += cnt
+    with _kp_watch("cut", n, batch) as kw:
+        for cnt in counts:
+            if cnt == 0:
+                out.append(None)
+                continue
+            cap = bucket_capacity(cnt)
+            i = torch.arange(cap, device=pids.device)
+            valid = i < cnt
+            idx = order[(i + off).clamp(max=order.shape[0] - 1)]
+            out.append(ColumnarBatch(
+                batch.schema, [c.gather(idx, valid) for c in batch.columns],
+                cnt, batch.checks))
+            off += cnt
+        if kw.wants_cost():
+            kw.cost(batch, out)
     return out
 
 

@@ -32,6 +32,7 @@ from spark_rapids_tpu_torch.shuffle.manager import (MapOutputRegistry,
                                                     MapStatus,
                                                     StaleMapStatusError)
 from spark_rapids_tpu_torch.utils import metrics as M
+from spark_rapids_tpu_torch.utils import profile as P
 
 log = logging.getLogger("spark_rapids_tpu_torch.shuffle.recovery")
 
@@ -79,6 +80,8 @@ class PeerHealth:
                 self.blacklist_events += 1
                 log.warning("shuffle peer %s blacklisted after %d "
                             "consecutive failures", address, st[0])
+                P.event(P.EV_PEER_BLACKLISTED, address=address,
+                        consecutive_failures=st[0])
                 return True
             return False
 
@@ -148,7 +151,13 @@ class ShuffleRecoveryDriver:
                 return [b for _, b in items]
             except FetchFailedError as e:
                 self.metrics.add(M.NUM_FETCH_FAILURES, 1)
+                P.event(P.EV_FETCH_FAILURE, shuffle_id=self.shuffle_id,
+                        partition=p, address=e.address, attempt=attempt,
+                        error=str(e)[:200])
                 if attempt >= self.max_attempts:
+                    P.event(P.EV_RECOVERY_EXHAUSTED,
+                            shuffle_id=self.shuffle_id, partition=p,
+                            attempts=attempt)
                     raise FetchFailedError(
                         e.address, e.block,
                         f"shuffle {self.shuffle_id} partition {p} still "
@@ -197,8 +206,15 @@ class ShuffleRecoveryDriver:
                         "shuffle %d recovery: recomputing map tasks %s at "
                         "epoch %d after %s", self.shuffle_id, todo, epoch,
                         e)
+                    P.event(P.EV_MAP_RECOMPUTE, shuffle_id=self.shuffle_id,
+                            map_ids=list(todo), epoch=epoch,
+                            address=e.address)
                     try:
-                        self.recompute(todo, epoch)
+                        with P.span(f"map-recompute:s{self.shuffle_id}",
+                                    cat=P.CAT_SHUFFLE) \
+                                if P.tracer() is not None \
+                                else P._NULL_SPAN:
+                            self.recompute(todo, epoch)
                     except StaleMapStatusError as stale:
                         # a racing invalidation superseded the recompute;
                         # the next attempt re-derives the missing set
@@ -206,6 +222,8 @@ class ShuffleRecoveryDriver:
                                     self.shuffle_id, stale)
                     self.metrics.add(M.NUM_MAP_RECOMPUTES, len(todo))
                 self.metrics.add(M.NUM_STAGE_RETRIES, 1)
+                P.event(P.EV_STAGE_RETRY, shuffle_id=self.shuffle_id,
+                        recomputed=len(todo))
             finally:
                 self.metrics.add(M.RECOVERY_TIME,
                                  time.perf_counter_ns() - t0)
@@ -242,4 +260,6 @@ class ShuffleRecoveryDriver:
             log.warning("shuffle %d recovery: promoted replica on %s for "
                         "map %d (no recompute)", self.shuffle_id, eid,
                         map_id)
+            P.event(P.EV_REPLICA_PROMOTED, shuffle_id=self.shuffle_id,
+                    map_id=map_id, replica_executor=eid)
         return promoted

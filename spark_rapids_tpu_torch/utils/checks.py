@@ -16,14 +16,67 @@ current query's pending list (`QueryContext.pending_checks`, shared by
 the query's prefetch producers), so a check dropped from a batch's tuple
 still fails safe at the next collect.  Work outside any query registers
 in one process-global list.
+
+The host-sync counter (`note_host_sync`) is the audit instrument of the
+reference's pipelining work: every blocking device->host readback on
+the hot path names its site, so how often the host waits on the device
+is a number a run can print and diff, and a site that knows its bytes
+feeds the current query's data-movement ledger (readback edge).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 from typing import Callable, Optional
 
 import torch
+
+# ---------------------------------------------------------------------------
+# host-sync counter: always on (a sync costs a device round trip; one
+# guarded dict increment per sync is noise)
+_SYNC_LOCK = threading.Lock()
+_SYNC_SITES: "collections.Counter" = collections.Counter()
+_SYNC_BYTES: "collections.Counter" = collections.Counter()
+
+
+def note_host_sync(site: str = "?", nbytes: int = 0) -> None:
+    """Record one device->host blocking readback attributed to `site`.
+    `nbytes` (when the site knows it) feeds the per-site byte counter
+    AND the current query's data-movement ledger (readback edge)."""
+    with _SYNC_LOCK:
+        _SYNC_SITES[site] += 1
+        if nbytes:
+            _SYNC_BYTES[site] += nbytes
+    if nbytes:
+        from spark_rapids_tpu_torch.utils import movement as MV
+        led = MV.ledger()
+        if led is not None:
+            led.record(MV.EDGE_READBACK, nbytes, site=site)
+
+
+def host_sync_count() -> int:
+    with _SYNC_LOCK:
+        return sum(_SYNC_SITES.values())
+
+
+def host_sync_sites() -> dict:
+    """Per-site sync counts (copy) — the audit view."""
+    with _SYNC_LOCK:
+        return dict(_SYNC_SITES)
+
+
+def host_sync_bytes() -> dict:
+    """Per-site readback byte counts for the sites that report them
+    (copy) — the movement-ledger companion to host_sync_sites."""
+    with _SYNC_LOCK:
+        return dict(_SYNC_BYTES)
+
+
+def reset_host_syncs() -> None:
+    with _SYNC_LOCK:
+        _SYNC_SITES.clear()
+        _SYNC_BYTES.clear()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -111,6 +164,7 @@ def verify(checks, scalars=()) -> list:
              for s in scalars]
     if vals:
         dev = vals[0].device
+        note_host_sync("checks.verify", nbytes=8 * len(vals))
         host = torch.stack([v.to(dev) for v in vals]).cpu().tolist()
     else:
         host = []

@@ -54,6 +54,10 @@ NUM_CANCELS = "numCancels"
 WATCHDOG_DUMPS = "watchdogDumps"
 SLOWEST_HEARTBEAT = "slowestHeartbeatMs"
 # the shuffle manager lane's recovery (shuffle/recovery.py, plan/aqe.py)
+# residency ledger (utils/residency.py): tracked buffers still
+# attributed to a query when it finished, charged to the collected plan
+# root by the end-of-query leak check
+NUM_RESIDENCY_LEAKS = "numResidencyLeaks"
 NUM_FETCH_FAILURES = "numFetchFailures"
 NUM_MAP_RECOMPUTES = "numMapRecomputes"
 NUM_STAGE_RETRIES = "numStageRetries"
@@ -115,7 +119,9 @@ class MetricSet:
                 continue
             t = torch.as_tensor(v).reshape(())
             groups.setdefault((t.dtype, t.device), []).append((i, t))
+        from spark_rapids_tpu_torch.utils import checks as CK
         for items in groups.values():
+            CK.note_host_sync("metrics.resolve", nbytes=8 * len(items))
             vals = torch.stack([t for _, t in items]).cpu().tolist()
             for (i, _), val in zip(items, vals):
                 resolved[i] = float(val)

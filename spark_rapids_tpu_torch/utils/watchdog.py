@@ -99,6 +99,8 @@ class CancelToken:
             self.reason = reason
             self.dump = dump
             self._ev.set()
+        from spark_rapids_tpu_torch.utils import profile as P
+        P.event(P.EV_CANCEL, reason=reason)
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         return self._ev.wait(timeout)
@@ -254,6 +256,15 @@ def cancellable_wait(ev: threading.Event, timeout: float) -> bool:
 _STATS_LOCK = threading.Lock()
 _QUERY_STATS = {"timeouts": 0, "cancels": 0, "dumps": 0,
                 "slowest_heartbeat_ms": 0}
+#: process-lifetime counters (the telemetry gauges)
+_TOTAL_STATS = {"timeouts": 0, "cancels": 0, "dumps": 0}
+
+
+def watchdog_stats() -> dict:
+    """Process-lifetime counters: timeouts declared, tokens cancelled,
+    dumps taken."""
+    with _STATS_LOCK:
+        return dict(_TOTAL_STATS)
 
 
 def query_stats() -> dict:
@@ -272,12 +283,13 @@ def _note_gap(ms: float, qc=None) -> None:
 
 
 def _note_fire(dumped: bool, qc=None) -> None:
-    stats = qc.stats if qc is not None else _QUERY_STATS
+    per_query = qc.stats if qc is not None else _QUERY_STATS
     with _STATS_LOCK:
-        stats["timeouts"] += 1
-        stats["cancels"] += 1
-        if dumped:
-            stats["dumps"] += 1
+        for stats in (per_query, _TOTAL_STATS):
+            stats["timeouts"] += 1
+            stats["cancels"] += 1
+            if dumped:
+                stats["dumps"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -538,8 +550,19 @@ def _fire(hb: Heartbeat, gap: float) -> None:
         except Exception as e:  # noqa: BLE001 — the dump must never
             dump = f"<diagnostic dump failed: {e}>"  # mask the timeout
     _note_fire(dump is not None, hb.qc)
-    log.error("watchdog timeout: %s%s", reason, "\n" + dump if dump else "")
-    hb.token.cancel(reason, dump)
+    # one correlated record (query id, site, full dump) in the STUCK
+    # query's own event log (the scanner thread belongs to no query);
+    # the token's cancel event rides the same scope
+    from spark_rapids_tpu_torch.exec import scheduler as S
+    from spark_rapids_tpu_torch.utils import profile as P
+    with S.scoped(hb.qc):
+        P.event(P.EV_WATCHDOG_TIMEOUT, heartbeat=hb.name,
+                deadline_class=hb.kind, gap_s=round(gap, 2),
+                deadline_s=hb.deadline, stuck_thread=hb.thread_name,
+                reason=reason, dump=dump)
+        log.error("watchdog timeout: %s%s", reason,
+                  "\n" + dump if dump else "")
+        hb.token.cancel(reason, dump)
 
 
 # ---------------------------------------------------------------------------
@@ -639,7 +662,21 @@ def build_dump(stuck: Optional[Heartbeat] = None) -> str:
     section("prefetch pipeline", pipeline)
     section("in-flight shuffle fetches", fetches)
     section("speculation / slow injection", speculation)
+    def residency() -> list:
+        # the holder table (utils/residency.py): a post-mortem near an
+        # OOM shows WHO owned the memory, not just how much
+        from spark_rapids_tpu_torch.utils import residency as RS
+        return [RS.describe_for_dump()]
+
+    def telemetry() -> list:
+        # engine-wide state (gauges, recent utilization samples): what
+        # the whole process was doing, not just the stuck query
+        from spark_rapids_tpu_torch.utils import telemetry as T
+        return [T.describe_for_dump()]
+
     section("device memory", _device_memory_lines)
+    section("residency", residency)
+    section("telemetry", telemetry)
     section("hang injection", injection)
     section("thread stacks", stacks)
     lines.append("==== end watchdog dump ====")

@@ -850,3 +850,140 @@ def test_shuffle_write_on_a_side_stream_fetched_over_tcp(cuda_device):
         MapOutputRegistry.clear()
         TpuShuffleManager.close_all()
         ResourceEnv.shutdown()
+
+
+# -- the observability layer on the card --------------------------------------
+@pytest.mark.gpu
+def test_nvtx_annotation_on_a_cuda_query(cuda_device):
+    """A CUDA query's spans annotate as NVTX ranges; pushing and popping
+    them raises nothing (a failing range would, nothing is caught)."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.exec import scheduler as S
+    from spark_rapids_tpu_torch.utils import profile as P
+    from spark_rapids_tpu_torch.utils import tracing as TR
+    conf = C.RapidsConf({"spark.rapids.sql.profile.enabled": True})
+    scope = S.QueryScope(conf, device=cuda_device)
+    try:
+        assert TR.query_device_is_cuda()
+        assert isinstance(TR.annotation("unit"), TR._NvtxRange)
+        tr = P.tracer()
+        assert tr is not None and tr.cuda
+        with P.span("nvtx-unit"), TR.trace_range("inner"):
+            torch.ones(4, device=cuda_device).sum()
+    finally:
+        scope.close()
+    prof = P.last_profile()
+    assert any(s.name == "nvtx-unit" for s in prof.spans)
+    P.clear_history()
+
+
+@pytest.mark.gpu
+def test_sampled_kernel_timing_adds_no_host_sync(cuda_device, monkeypatch):
+    """Every launch sampled (sampleRate 1): no host sync and no
+    torch.cuda.synchronize while the query launches; the events are read
+    once, at the query's end."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.exec import scheduler as S
+    from spark_rapids_tpu_torch.utils import checks as CK
+    from spark_rapids_tpu_torch.utils import kernelprof as KP
+    from spark_rapids_tpu_torch.utils import profile as P
+    dev = cuda_device
+    rows = 1 << 20
+    g = torch.Generator(device=dev).manual_seed(5)
+    vals = [torch.rand(rows, generator=g, device=dev) for _ in range(4)]
+    keys = torch.randint(0, 26, (rows,), generator=g, device=dev,
+                         dtype=torch.int32)
+    K.grouped_sum(keys, vals, rows, n_groups=26, capacity=rows)  # build
+    torch.cuda.synchronize()
+    syncs = []
+    real_sync = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: (syncs.append(1), real_sync(*a,
+                                                                   **k)))
+    conf = C.RapidsConf({
+        "spark.rapids.sql.profile.enabled": True,
+        "spark.rapids.sql.profile.kernels.enabled": True,
+        "spark.rapids.sql.profile.kernels.sampleRate": 1})
+    KP.reset()
+    scope = S.QueryScope(conf, device=dev)
+    try:
+        h0 = CK.host_sync_count()
+        before = K.grouped_sum.launches
+        for _ in range(20):
+            K.grouped_sum(keys, vals, rows, n_groups=26, capacity=rows)
+        assert CK.host_sync_count() == h0
+        assert syncs == []
+        launches = K.grouped_sum.launches - before
+    finally:
+        scope.close()
+    prof = P.last_profile()
+    rows_ = [r for r in prof.kernels if r["label"] == "grouped_sum"]
+    assert sum(r["dispatches"] for r in rows_) == launches == 20
+    assert sum(r["sampled"] for r in rows_) == 20
+    assert all(r["device_ms"] > 0 for r in rows_)
+    assert CK.host_sync_sites().get("kernelprof.resolve", 0) >= 1
+    KP.reset()
+    P.clear_history()
+
+
+@pytest.mark.gpu
+def test_catalog_launches_equal_wrapper_counts_under_threads(cuda_device):
+    """Eight threads calling the three hand kernels at once: each
+    kernel's catalog launches equal its wrapper's `.launches` delta."""
+    import threading
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.models.tpch import gen_lineitem_arrays
+    from spark_rapids_tpu_torch.utils import kernelprof as KP
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(9)
+    rows = 1 << 18
+    vals = [torch.rand(rows, generator=g, device=dev) for _ in range(6)]
+    keys = torch.randint(0, 26, (rows,), generator=g, device=dev,
+                         dtype=torch.int32)
+    gid = torch.clamp(torch.arange(1 << 14, device=dev) // 8,
+                      max=5).to(torch.int32)
+    mvals = [torch.rand(1 << 14, generator=g, device=dev) for _ in range(17)]
+    cols = gen_lineitem_arrays(np.random.default_rng(6), 1 << 16)
+    arrays = [torch.from_numpy(cols[n]).to(dev)
+              for n in LINEITEM_SCHEMA.names]
+    calls = [
+        lambda: K.grouped_sum(keys, vals, rows, n_groups=26, capacity=rows),
+        lambda: GW.window_group_sums(gid, mvals, out_cap=50,
+                                     capacity=1 << 14),
+        lambda: K.q1_fused(*arrays, 1 << 16, capacity=1 << 16,
+                           cutoff=Q1_CUTOFF_DAYS)]
+    for fn in calls:
+        fn()  # build outside the counted window
+    KP.reset()
+    KP.enable(C.RapidsConf({"spark.rapids.sql.profile.kernels.enabled":
+                            True,
+                            "spark.rapids.sql.profile.kernels.sampleRate":
+                            3}))
+    wrappers = (K.grouped_sum, GW.window_group_sums, K.q1_fused)
+    before = [w.launches for w in wrappers]
+    errors = []
+
+    def worker():
+        try:
+            for _ in range(10):
+                for fn in calls:
+                    fn()
+        except BaseException as e:  # noqa: BLE001 — asserted below
+            errors.append(repr(e))
+
+    ts = [threading.Thread(target=worker) for _ in range(8)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(120)
+    torch.cuda.synchronize()
+    try:
+        assert not errors, errors
+        for w, b, name in zip(wrappers, before, ("grouped_sum",
+                                                 "window_group_sums",
+                                                 "q1_fused")):
+            tot = KP.hand_kernel_totals(name)
+            assert tot["launches"] == w.launches - b > 0, name
+            assert tot["sampled"] > 0, name
+    finally:
+        KP.reset()

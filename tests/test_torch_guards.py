@@ -46,6 +46,16 @@ def test_the_import_guard_covers_the_shuffle_manager_lane():
     assert "scripts/torch_shuffle_phase.py" in names
 
 
+def test_the_import_guard_covers_the_observability_layer():
+    """The tracer, ledgers, kernel catalog, telemetry and roofline, and
+    the script that runs their phase, are under the guard."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for f in ("tracing", "roofline", "profile", "movement", "residency",
+              "kernelprof", "telemetry"):
+        assert f"spark_rapids_tpu_torch/utils/{f}.py" in names, f
+    assert "scripts/torch_profile_phase.py" in names
+
+
 def test_a_transport_class_of_the_jax_package_is_refused(monkeypatch):
     """spark.rapids.shuffle.transport.class naming a module of the JAX
     package (its own default, in a conf both packages share) raises a

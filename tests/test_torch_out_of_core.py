@@ -1,7 +1,7 @@
 """spark_rapids_tpu_torch's out-of-core lanes against spark_rapids_tpu's,
 twins of 16 of the 17 tests of tests/test_out_of_core.py (the other one,
-`test_three_way_spill_reconciliation`, needs the movement ledger,
-ROADMAP.md item 9).
+`test_three_way_spill_reconciliation`, reads the movement ledger: its
+twin is in tests/test_torch_movement.py).
 
 When the conf-capped device budget (`spark.rapids.memory.hbmBudgetBytes`)
 cannot hold an operator's working set, sort / hash join / hash aggregate

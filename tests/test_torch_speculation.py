@@ -10,9 +10,8 @@ lane with and without the injection, and hold the rows of every
 partition equal, in order (the port's reduce side merges a partition's
 batches, so rows are compared, not batches).
 
-Left out: test_losing_hedge_charged_to_wasted_site, which reads the
-movement ledger of the reference's profiler (utils/profile.py,
-utils/movement.py): the observability layer is not ported yet.
+test_losing_hedge_charged_to_wasted_site, which reads the movement
+ledger, has its twin with the ledger's in tests/test_torch_movement.py.
 
 The soaks run at the reference's sizes (TPC-H at 800 orders, four
 threads, q1 and q5) and hold the port's injected results against its
