@@ -3,13 +3,15 @@
 ETL plans of the type and expression layer, the 18 TPC-DS queries with
 a window, a ROLLUP or a UNION ALL (phase 11), the memory layer's
 out-of-core lanes and OOM retry lattice (phase 12), the rest of the
-workloads (phase 13): the other 85 TPC-DS queries, TPCx-BB's 28 without
-a UDF and Mortgage's ETL, the I/O layer with the planner's sort-merge
+workloads (phase 13): the other 85 TPC-DS queries, TPCx-BB's 30 and
+Mortgage's ETL, the I/O layer with the planner's sort-merge
 join, repartition, cached columnar scan and sort aggregate (phase 14),
 the runtime: two concurrent TPC-H streams, admission control, the
 result cache, the watchdog and AQE (phase 15), the shuffle manager
-lane with the brute-force joins (phase 16), and the observability layer
-(phase 17), on one NVIDIA card
+lane with the brute-force joins (phase 16), the observability layer
+(phase 17), and the UDF layer: TPCx-BB's q18 and q27 at SF1, the pandas
+execs through the worker daemon, the plugin, the shims, the API audit
+and the ML export (phase 18), on one NVIDIA card
 (59,986,052 lineitem rows, scale factor 10, in phases 4-6 and 14a, TPC-H
 spec 4.2.5; 50,000 TPC-DS store_sales rows in 11b and 13b, where SF1 has
 2,880,404, Table 3-2).
@@ -129,7 +131,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
  13. the rest of the workloads, as a user submits them under the TPC
      bench conf with test.enabled (no plan has a CPU node): 13a runs all
      103 TPC-DS queries (the 85 without a window or an expand, and 11a's
-     18) and TPCx-BB's 28 queries without a UDF over
+     18) and TPCx-BB's 30 queries (q18's and q27's UDFs compiled) over
      workload_tables(3, 20,000) (the reference fixture's seed and scale,
      where every query keeps support; its TPC-DS tables are
      tpcds_bench.sf10_tables(3, 20,000)'s), and Mortgage's etl_plan and
@@ -142,7 +144,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
      workload_tables(seed, WL_SCALE) and Mortgage over 1,000,000 loans
      x 24 months (24M performance rows), one new plan each, as 11b runs
      the 18 (q9's subquery collects counted and checked with its plan;
-     TPCx-BB's 28 left 13b: see the cuts); 13a's, 11b's and 13b's
+     TPCx-BB's queries left 13b: see the cuts); 13a's, 11b's and 13b's
      TPC-DS and TPCx-BB queries are spread over this process and
      CARD_HELPERS processes more on the card (card_pool, spread: the
      next query to the runner that frees first, the slowest first),
@@ -298,12 +300,43 @@ Phases, each of which raises on failure (exit code 1, no result line):
      before 17a-d and twice after, once telemetry (no instance, no
      thread), kernel attribution and residency tracking are found off:
      the collect times, the process RSS and gc.get_count() printed;
- 18. print the kernels line (all three kernels, with their launches in
+ 18. the UDF layer (udf/, pyudf/, plugin.py, shims/, api_validation.py,
+     ml/), after phase 17 over phases 7-9's SF1 tables and goldens,
+     under the TPC bench conf with test.enabled: 18a, TPCx-BB's q18 and
+     q27 at SF1 (workload_tables(seed, UDF_SCALE): 2,880,404 store_sales
+     rows, 1,440,202 product reviews), one new plan each, with the UDF
+     compiler on (no CPU node; each UDF's compiled expression printed,
+     its find() >= 0 tests simplified to Contains) and off (the UDF's
+     project the only CPU island, row-applying the Python function):
+     keys, counts and order exact, avg_rating rtol 1e-3; 18b, the six
+     pandas execs (each enabled; ArrowEvalPython's vectorized UDF in the
+     worker daemon's UDF_WORKERS processes) over SF1 lineitem's
+     6,001,215 rows at 16 partitions, under test.enabled, with an
+     aggregate on the card above the three whose output has a row per
+     input row, each against the CPU engine (keys and counts exact; the
+     card's f32 sums rtol 1e-3, the host's own sums exact); two probes
+     at once take both workers, each with CUDA_VISIBLE_DEVICES empty,
+     no torch imported and no pid among nvidia-smi's compute apps; a
+     worker killed in the middle of a batch fails its query with
+     WorkerCrash, and the pool's next query runs and equals the first;
+     18c, the API audit of the five versions (clean) and their
+     RapidsShuffleManager classes, then plugin.activate() on the card:
+     planner Q1 and Q6 through the session's columnar rules against
+     their float64 goldens (phase 6's, at SF1), Q3 over four executors,
+     each a spark301.RapidsShuffleManager, against phase 7's golden, Q6's
+     input exported by ColumnarRdd.collect_arrays as tensors on the card
+     whose revenue equals the golden (rtol 1e-9) and the collect (1e-3),
+     20 SGD steps of a torch.nn.Linear on them (the loss falls), then
+     deactivate(): torch.cuda.memory_allocated() back to its value
+     before but for the wrappers' own state; throughout, accelerate and
+     collect apart, the launches per plan, and the widest call of each
+     kernel in each plan held against its twin;
+ 19. print the kernels line (all three kernels, with their launches in
      every phase: `launches` the main path's, then per phase and per
-     part of phases 15-17, and phase 17's catalog mean beside the
+     part of phases 15-18, and phase 17's catalog mean beside the
      kernel timed alone) and, last, the device line.
 Cuts, to keep the script within 950 s of its 1,200 s limit, in this
-order: (1) TPCx-BB's 28 left 13b (13a still checks them at 20,000 rows;
+order: (1) TPCx-BB's queries left 13b (13a still checks them at 20,000 rows;
 `scripts/torch_workloads_phase.py` runs them at any scale); (2) 15a's
 two streams run the two halves of the power order, 11 queries each
 (`scripts/torch_runtime_phase.py` runs two streams of the 22, and three
@@ -2516,7 +2549,7 @@ class Workload(NamedTuple):
 
 
 def workload(name: str) -> Workload:
-    """"tpcds" (103 queries), "tpcxbb" (28) or "mortgage" (etl_plan and
+    """"tpcds" (103 queries), "tpcxbb" (30) or "mortgage" (etl_plan and
     summary_plan)."""
     if name == "tpcds":
         from spark_rapids_tpu_torch.models import tpcds_data as DD
@@ -3081,7 +3114,7 @@ def ds_rest_cut() -> list:
 
 def workloads_check_phase(torch, dev, seed: int, pool=None) -> dict:
     """Phase 13a: all 103 TPC-DS queries (phase 11's 18 with them) and
-    the 28 TPCx-BB queries over workload_tables(WL_CHECK_SEED, WL_CHECK_SCALE),
+    the 30 TPCx-BB queries over workload_tables(WL_CHECK_SEED, WL_CHECK_SCALE),
     Mortgage's two plans over WL_CHECK_LOANS x MORTGAGE_MONTHS from
     `seed`, on the card against the CPU engine (check_queries; with a
     `pool` of card helpers, spread over them and this process)."""
@@ -3108,7 +3141,7 @@ def workloads_scale_phase(torch, dev, seed: int, GW, K, scale: int,
                           mortgage: bool = True,
                           failed: Optional[list] = None,
                           tables: Optional[dict] = None) -> dict:
-    """Phase 13b: the 28 TPCx-BB queries (or `xbb_queries`) over
+    """Phase 13b: the 30 TPCx-BB queries (or `xbb_queries`) over
     `tables`, or else workload_tables(seed, scale), then Mortgage's two
     plans over `loans` x MORTGAGE_MONTHS, one new plan each, with
     ds_query's measures and checks (the 85 TPC-DS queries run by
@@ -5234,6 +5267,617 @@ def profile_phase(torch, dev, tables: dict, gold: dict, GW, K,
     return out
 
 
+# -- phase 18: the UDF layer, the plugin, the shims, the audit, the export --
+#: TPCx-BB at SF1: TPC-DS SF1's store_sales rows (TPC-DS Table 3-2);
+#: gen_tables draws scale // 2 product reviews
+UDF_SCALE = 2_880_404
+#: the daemon's worker processes in 18b
+UDF_WORKERS = 2
+#: the six pandas execs, each off by default
+PANDAS_EXECS = ("CpuArrowEvalPython", "CpuMapInPandas",
+                "CpuFlatMapGroupsInPandas", "CpuAggregateInPandas",
+                "CpuWindowInPandas", "CpuFlatMapCoGroupsInPandas")
+UDF_KEYS = ("l_returnflag", "l_linestatus")
+#: 18b's pid file of the worker it kills (git-ignored, removed after)
+UDF_DIR = Path(__file__).resolve().parent / ".udf_smoke"
+
+
+def expr_kinds(e) -> list:
+    """The class names of an expression tree, in pre-order."""
+    out = [type(e).__name__]
+    for c in e.children():
+        out += expr_kinds(c)
+    return out
+
+
+#: the tables q18 and q27 read
+UDF_TABLES = ("date_dim", "store_sales", "product_reviews")
+
+
+def udf_tables(seed: int, scale: int) -> tuple:
+    """In a spawned process: workload_tables(seed, scale)'s tables of
+    UDF_TABLES, and the seconds the whole draw took."""
+    t0 = time.perf_counter()
+    tables = workload_tables(seed, scale)
+    return {k: tables[k] for k in UDF_TABLES}, time.perf_counter() - t0
+
+
+def udf_queries_part(torch, dev, tables_future, GW, K) -> dict:
+    """18a: TPCx-BB q18 and q27 at SF1 as a user submits them, with the
+    UDF compiler on and test.enabled (no CPU node), against the same
+    plans with the compiler off, where the UDF's project is a CPU island
+    that row-applies the Python function.  `tables_future` gives the
+    tables (udf_tables, drawn in a process of its own while 18b and 18c
+    run)."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.exprs.base import col
+    from spark_rapids_tpu_torch.models import tpcds_bench as DB
+    from spark_rapids_tpu_torch.models import tpcxbb as X
+    from spark_rapids_tpu_torch.plan.nodes import CpuNode
+    from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
+    from spark_rapids_tpu_torch.udf import compile_expression
+    t0 = time.perf_counter()
+    tables, draw_s = tables_future.result()
+    n_ss, n_pr = len(tables["store_sales"]), len(tables["product_reviews"])
+    require(n_ss == UDF_SCALE and n_pr == UDF_SCALE // 2,
+            f"18a: {n_ss} store_sales and {n_pr} review rows, not SF1's")
+    print(f"18a data: TPCx-BB at SF1, {n_ss} store_sales rows, {n_pr} "
+          f"product reviews, drawn in {draw_s:.1f} s in a process of its "
+          f"own, waited for {time.perf_counter() - t0:.1f} s", flush=True)
+    on = tpch_conf(0)
+    off = tpch_conf(0, **{C.UDF_COMPILER_ENABLED.key: False,
+                          C.TEST_ALLOWED_NONGPU.key: "CpuProject"})
+    runs: dict = {}
+    for q, udf in (("q18", X.review_sentiment), ("q27", X.mentions_aspect)):
+        compiled = compile_expression(udf(col("pr_content")))
+        kinds = expr_kinds(compiled)
+        require(kinds[0] == "Cast" and "Contains" in kinds
+                and "PythonUDF" not in kinds and "StringLocate" not in kinds,
+                f"18a {q}: the UDF compiled to {compiled!r}")
+        print(f"18a {q}: {udf.__name__} compiles to {compiled!r}",
+              flush=True)
+        frames = {}
+        for label, conf in (("compiled", on), ("fallback", off)):
+            def make(conf=conf, q=q):
+                return accelerate(X.QUERIES[q](
+                    X.sources(tables, DB.SF10_PARTITIONS), lambda p: None),
+                    conf, device=dev)
+            df, plan, info = run_plan(torch, dev, GW, K, make,
+                                      lambda p, conf=conf: collect(p, conf))
+            islands = [type(n).__name__ for n in walk(plan)
+                       if isinstance(n, CpuNode)]
+            require(islands == [] if label == "compiled"
+                    else "CpuProject" in islands,
+                    f"18a {q} {label}: CPU nodes {islands}")
+            require(len(df) > 0, f"18a {q} {label}: empty result")
+            del plan
+            frames[label] = df
+            runs[f"18a {q} {label}"] = info
+            print(f"18a {q} {label} at SF1: accelerate "
+                  f"{info['accelerate_s']:.3f} s, collect "
+                  f"{info['collect_s']:.3f} s, {len(df)} rows, plan runs "
+                  f"{info['runs']}, peak device memory "
+                  f"{info['peak'] / 2**30:.2f} GiB, launches "
+                  f"{info['launches']}", flush=True)
+        rel = same_frame(frames["fallback"], frames["compiled"], 1e-3,
+                         f"18a {q}")
+        print(f"18a {q}: the compiled result equals the row-applied UDF's "
+              f"(keys, counts and order exact, max rel err {rel:.3g})",
+              flush=True)
+    del tables
+    return runs
+
+
+def _disc_price(p, d):
+    """18b's vectorized UDF (it runs in a daemon worker)."""
+    return p * (1.0 - d)
+
+
+def _map_disc(frames):
+    import pandas as pd
+    for f in frames:
+        yield pd.DataFrame({
+            "l_returnflag": f["l_returnflag"],
+            "l_linestatus": f["l_linestatus"],
+            "disc_price": f["l_extendedprice"] * (1.0 - f["l_discount"])})
+
+
+def _group_summary(g):
+    import pandas as pd
+    return pd.DataFrame({
+        "l_returnflag": g["l_returnflag"].iloc[:1].tolist(),
+        "l_linestatus": g["l_linestatus"].iloc[:1].tolist(),
+        "n": [len(g)], "qty": [float(g["l_quantity"].sum())]})
+
+
+def _cogroup(lg, rg):
+    import pandas as pd
+    first = lg.iloc[:1] if len(lg) else rg.iloc[:1].rename(columns={
+        "w_flag": "l_returnflag", "w_status": "l_linestatus"})
+    return pd.DataFrame({
+        "l_returnflag": first["l_returnflag"].tolist(),
+        "l_linestatus": first["l_linestatus"].tolist(),
+        "n": [len(lg)],
+        "w": [float(rg["w"].sum()) if len(rg) else None]})
+
+
+def _worker_probe(x):
+    """The worker's pid, its CUDA_VISIBLE_DEVICES and whether it has
+    imported torch, after a pause that makes two probes overlap."""
+    import os
+    import sys
+    import time as t
+    import pandas as pd
+    t.sleep(0.5)
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    return pd.Series([f"{os.getpid()}|{env!r}|{int('torch' in sys.modules)}"]
+                     * len(x), index=x.index)
+
+
+def _stalling_udf(path: str):
+    """A UDF that writes its worker's pid to `path`, then stalls until
+    the worker is killed."""
+    def stall(x):
+        import os
+        import time as t
+        with open(path, "w") as f:
+            f.write(str(os.getpid()))
+        t.sleep(120)
+        return x
+    return stall
+
+
+def compute_app_pids() -> list:
+    import subprocess
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return [int(s) for s in out.split() if s.strip().isdigit()]
+
+
+def udf_lineitem(lineitem) -> tuple:
+    """18b's lineitem: the columns its execs read, 16 partitions;
+    (partitions, schema)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.models.data_util import split_partitions
+    cols = list(UDF_KEYS) + ["l_quantity", "l_extendedprice", "l_discount"]
+    li = lineitem[cols]
+    schema = T.Schema(tuple(TD.SCHEMAS["lineitem"].field(c) for c in cols))
+    return split_partitions(li, 16), schema
+
+
+def udf_exec_plans(parts: list, schema) -> dict:
+    """18b's six plans over `parts`, one per pandas exec: name ->
+    (build, rtol).  ArrowEvalPython, MapInPandas and WindowInPandas
+    give a row per input row, so an aggregate on the card sums their
+    output by the keys (its f32 sums rtol 1e-3); the other three give a
+    row per key, summed on the host (exact)."""
+    import pandas as pd
+
+    from spark_rapids_tpu_torch import pyudf as P
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exprs.aggregates import Count, Sum
+    from spark_rapids_tpu_torch.exprs.base import col
+    from spark_rapids_tpu_torch.plan import nodes as N
+    keys = [col(k) for k in UDF_KEYS]
+    weights = pd.DataFrame({"w_flag": ["A", "N", "N", "R", "Z"],
+                            "w_status": ["F", "F", "O", "F", "O"],
+                            "w": [1.0, 2.0, 3.0, 4.0, 5.0]})
+
+    def source(*cols):
+        # the project narrows the upload to the columns the exec reads
+        return N.CpuProject(keys + [col(c) for c in cols],
+                            N.CpuSource(parts, schema))
+
+    def per_key(node, name):
+        return N.CpuAggregate(keys, [Sum(col(name)).alias(name),
+                                     Count(None).alias("n")], node)
+
+    s = T.STRING
+    per_group = (("l_returnflag", s), ("l_linestatus", s), ("n", T.INT64))
+    return {
+        "ArrowEvalPythonExec": (lambda: per_key(P.CpuArrowEvalPython(
+            [P.PandasUdfSpec("disc_price", _disc_price, T.FLOAT64,
+                             (col("l_extendedprice"), col("l_discount")))],
+            source("l_extendedprice", "l_discount")), "disc_price"), 1e-3),
+        "MapInPandasExec": (lambda: per_key(P.CpuMapInPandas(
+            _map_disc, T.Schema.of(("l_returnflag", s), ("l_linestatus", s),
+                                   ("disc_price", T.FLOAT64)),
+            source("l_extendedprice", "l_discount")), "disc_price"), 1e-3),
+        "FlatMapGroupsInPandasExec": (lambda: P.CpuFlatMapGroupsInPandas(
+            list(UDF_KEYS), _group_summary,
+            T.Schema.of(*per_group, ("qty", T.FLOAT64)),
+            source("l_quantity")), 0.0),
+        "AggregateInPandasExec": (lambda: P.CpuAggregateInPandas(
+            list(UDF_KEYS), [P.PandasUdfSpec(
+                "mean_disc", lambda d: float(d.mean()), T.FLOAT64,
+                (col("l_discount"),))], source("l_discount")), 0.0),
+        "WindowInPandasExec": (lambda: per_key(P.CpuWindowInPandas(
+            list(UDF_KEYS), [P.PandasUdfSpec(
+                "max_qty", lambda q: float(q.max()), T.FLOAT64,
+                (col("l_quantity"),))], source("l_quantity")), "max_qty"),
+            1e-3),
+        "FlatMapCoGroupsInPandasExec": (
+            lambda: P.CpuFlatMapCoGroupsInPandas(
+                list(UDF_KEYS), ["w_flag", "w_status"], _cogroup,
+                T.Schema.of(*per_group, ("w", T.FLOAT64)), source(),
+                N.CpuSource.from_pandas(weights)), 0.0),
+    }
+
+
+_UDF_WORKER: dict = {}
+
+
+def udf_cpu_init(seed: int, sf: float) -> None:
+    """18b's CPU worker: the same SF lineitem from the same seed."""
+    import torch
+    torch.set_num_threads(2)
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    tables, _ = TB.sf10_tables(seed, sf=sf)
+    _UDF_WORKER["parts"], _UDF_WORKER["schema"] = udf_lineitem(
+        tables["lineitem"])
+
+
+def udf_cpu_result(name: str) -> tuple:
+    """In 18b's CPU worker: exec `name`'s plan on the CPU engine; (the
+    result, seconds, the lineitem's rows and price sum)."""
+    t0 = time.perf_counter()
+    parts = _UDF_WORKER["parts"]
+    df = udf_exec_plans(parts, _UDF_WORKER["schema"])[name][0]().collect()
+    return (df, time.perf_counter() - t0, sum(len(p) for p in parts),
+            float(sum(p["l_extendedprice"].sum() for p in parts)))
+
+
+def udf_execs_part(torch, dev, tables: dict, spec: tuple, GW, K) -> dict:
+    """18b: the six pandas execs through the planner over the lineitem
+    of `spec` (seed, sf), the vectorized UDF in the daemon's UDF_WORKERS
+    worker processes, each against the CPU engine (which a spawned CPU
+    process computes meanwhile, over the same lineitem made from the
+    same seed); two workers at once, none holding a CUDA context; a
+    worker killed in the middle of a batch."""
+    import multiprocessing
+    import os
+    import shutil
+    import signal
+    import threading
+    from concurrent.futures import ProcessPoolExecutor
+
+    import pandas as pd
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch import pyudf as P
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exec.base import TpuExec
+    from spark_rapids_tpu_torch.exprs.base import col
+    from spark_rapids_tpu_torch.plan import nodes as N
+    from spark_rapids_tpu_torch.plan.overrides import accelerate, collect
+    from spark_rapids_tpu_torch.pyudf import daemon as D
+    conf = tpch_conf(0, **{f"spark.rapids.sql.exec.{e}": True
+                           for e in PANDAS_EXECS},
+                     **{C.PYTHON_DAEMON_ENABLED.key: True,
+                        C.PYTHON_CONCURRENT_WORKERS.key: UDF_WORKERS})
+    D.PythonWorkerPool.reset()
+    parts, schema = udf_lineitem(tables["lineitem"])
+    rows = sum(len(p) for p in parts)
+    price = float(sum(p["l_extendedprice"].sum() for p in parts))
+    plans = udf_exec_plans(parts, schema)
+
+    def by_keys(df):
+        return df.sort_values(list(UDF_KEYS), ignore_index=True)
+
+    out: dict = {"runs": {}, "seconds": {}}
+    with ProcessPoolExecutor(1, multiprocessing.get_context("spawn"),
+                             initializer=udf_cpu_init,
+                             initargs=spec) as cpu_pool:
+        cpu = {name: cpu_pool.submit(udf_cpu_result, name)
+               for name in plans}
+        for name, (build, rtol) in plans.items():
+            df, plan, info = run_plan(
+                torch, dev, GW, K,
+                lambda build=build: accelerate(build(), conf, device=dev),
+                lambda p: collect(p, conf))
+            execs = [type(n).__name__ for n in walk(plan)]
+            require(isinstance(plan, TpuExec) and name in execs,
+                    f"18b {name}: not in the plan's device tree: {execs}")
+            del plan
+            want, cpu_s, cpu_rows, cpu_price = cpu[name].result()
+            require(cpu_rows == rows and cpu_price == price,
+                    f"18b: the CPU worker's lineitem ({cpu_rows} rows) is "
+                    f"not this one's ({rows})")
+            rel = same_frame(by_keys(want), by_keys(df), rtol,
+                             f"18b {name}")
+            out["runs"][f"18b {name}"] = info
+            out["seconds"][name] = {"accelerate": info["accelerate_s"],
+                                    "collect": info["collect_s"],
+                                    "cpu": cpu_s}
+            print(f"18b {name} over lineitem ({rows} rows): accelerate "
+                  f"{info['accelerate_s']:.3f} s, collect "
+                  f"{info['collect_s']:.3f} s (CPU engine {cpu_s:.3f} s, "
+                  f"in a process of its own), {len(df)} rows equal to the "
+                  f"CPU engine's (max rel err {rel:.3g}), launches "
+                  f"{info['launches']}", flush=True)
+
+    # two probes at once take both workers; neither may hold a CUDA context
+    probe = P.CpuArrowEvalPython(
+        [P.PandasUdfSpec("probe", _worker_probe, T.STRING, (col("x"),))],
+        N.CpuSource.from_pandas(pd.DataFrame({"x": np.arange(64)})))
+
+    def run_probe():
+        return collect(accelerate(probe, conf, device=dev), conf)
+
+    answers: list = []
+    threads = [threading.Thread(target=lambda: answers.append(run_probe()))
+               for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    require(len(answers) == 2, "18b: a probe query failed")
+    seen = {a["probe"].iloc[0] for a in answers}
+    pids = sorted(int(v.split("|")[0]) for v in seen)
+    require(len(pids) == UDF_WORKERS and all(
+        v.split("|")[1:] == ["''", "0"] for v in seen),
+        f"18b: worker answers {seen}")
+    apps = compute_app_pids()
+    require(not set(pids) & set(apps),
+            f"18b: a UDF worker holds a CUDA context: {pids} in {apps}")
+    listed = "listed" if os.getpid() in apps else "not listed"
+    print(f"18b: {UDF_WORKERS} workers at once, pids {pids}, each with "
+          f"CUDA_VISIBLE_DEVICES='' and no torch imported; nvidia-smi's "
+          f"compute apps {apps} (this process, {os.getpid()}, {listed})",
+          flush=True)
+
+    # a worker killed in the middle of a batch fails the query; the pool's
+    # next query runs on a fresh worker
+    shutil.rmtree(UDF_DIR, ignore_errors=True)
+    UDF_DIR.mkdir()
+    pid_file = UDF_DIR / "worker.pid"
+    stall = P.CpuArrowEvalPython(
+        [P.PandasUdfSpec("x2", _stalling_udf(str(pid_file)), T.INT64,
+                         (col("x"),))],
+        N.CpuSource.from_pandas(pd.DataFrame({"x": np.arange(64)})))
+    killed: list = []
+
+    def killer():
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            text = pid_file.read_text() if pid_file.exists() else ""
+            if text:
+                os.kill(int(text), signal.SIGKILL)
+                killed.append(int(text))
+                return
+            time.sleep(0.05)
+
+    kt = threading.Thread(target=killer)
+    kt.start()
+    t0 = time.perf_counter()
+    try:
+        collect(accelerate(stall, conf, device=dev), conf)
+        crash = None
+    except D.WorkerCrash as e:
+        crash = e
+    crash_s = time.perf_counter() - t0
+    kt.join()
+    shutil.rmtree(UDF_DIR, ignore_errors=True)
+    require(crash is not None and killed,
+            f"18b: the killed worker's query did not fail with WorkerCrash "
+            f"(killed {killed})")
+    t0 = time.perf_counter()
+    after = run_probe()["probe"]
+    next_s = time.perf_counter() - t0
+    fresh = int(after.iloc[0].split("|")[0])
+    require(len(after) == 64 and fresh != killed[0]
+            and after.iloc[0].split("|")[1:] == ["''", "0"],
+            f"18b: the query after the kill: {after.iloc[0]}")
+    pids.append(fresh)
+    print(f"18b: worker {killed[0]} killed in the middle of a batch: the "
+          f"query failed with WorkerCrash after {crash_s:.2f} s ({crash}); "
+          f"the pool's next query ran on worker {fresh} in {next_s:.3f} s",
+          flush=True)
+    D.PythonWorkerPool.reset()
+    left = [p for p in pids if Path(f"/proc/{p}").exists()]
+    require(not left, f"18b: workers {left} outlived the pool")
+    return out
+
+
+def regression_steps(torch, x, y, steps: int) -> tuple:
+    """`steps` SGD steps of a torch.nn.Linear from `x` to `y` on their
+    device: (the losses, the model's device)."""
+    torch.manual_seed(0)
+    model = torch.nn.Linear(x.shape[1], 1).to(x.device)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad()
+        loss = torch.nn.functional.mse_loss(model(x), y)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.item()))
+    return losses, model.weight.device
+
+
+def plugin_part(torch, dev, tables: dict, gold: dict, GW, K,
+                cases) -> dict:
+    """18c: the API audit of the five versions, their shuffle managers,
+    then plugin.activate() on the card: planner Q1 under the session's
+    rules, Q3 through the spark301 RapidsShuffleManager over four
+    executors, Q6's input exported as tensors on the card and a
+    torch.nn.Linear regression over them; deactivate() gives the device
+    memory back."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch import plugin as P
+    from spark_rapids_tpu_torch.api_validation import audit_all_versions
+    from spark_rapids_tpu_torch.exprs.base import col
+    from spark_rapids_tpu_torch.memory.env import ResourceEnv
+    from spark_rapids_tpu_torch.ml import ColumnarRdd
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.models.tpch_queries import QUERIES
+    from spark_rapids_tpu_torch.plan import nodes as N
+    from spark_rapids_tpu_torch.plan.overrides import collect
+    from spark_rapids_tpu_torch.shims import ALL_SHIMS, spark301
+    from spark_rapids_tpu_torch.shuffle.manager import TpuShuffleManager
+    grouped_case, window_case = cases
+    runs: dict = {}
+    out: dict = {"runs": runs}
+    t0 = time.perf_counter()
+    reports = audit_all_versions()
+    for r in reports:
+        require(r.ok(), f"18c: the API audit found problems:\n{r}")
+    print(f"18c: API audit of {len(reports)} versions clean ("
+          + ", ".join(f"{r.version} {r.checked} checks" for r in reports)
+          + f", {time.perf_counter() - t0:.2f} s)", flush=True)
+    for p in ALL_SHIMS:
+        shims = p()
+        cls = shims.shuffle_manager_type()
+        require(issubclass(cls, TpuShuffleManager)
+                and shims.shuffle_manager_class().endswith(
+                    f"{cls.SPARK_VERSION}.RapidsShuffleManager"),
+                f"18c: {shims.shuffle_manager_class()} does not resolve")
+    print("18c: " + ", ".join(p().shuffle_manager_class()
+                              for p in ALL_SHIMS) + " resolve", flush=True)
+    TpuShuffleManager.close_all()
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    # the process's first regression step (its matmuls, and their
+    # backward on autograd's own thread) makes cuBLAS's and cuBLASLt's
+    # workspaces, which live as long as the process: taken before the
+    # baseline, the check below sees only what the session keeps
+    warm0 = torch.cuda.memory_allocated(dev)
+    regression_steps(torch, torch.rand(64, 2, device=dev),
+                     torch.rand(64, 1, device=dev), 1)
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    state0 = kernel_state_bytes(GW, K)
+    before = torch.cuda.memory_allocated(dev)
+    print(f"18c: the process's first regression step left cuBLAS "
+          f"workspaces of {before - warm0} bytes", flush=True)
+    settings = {**TB.BENCH_CONF, C.TEST_ENABLED.key: True,
+                C.EXPORT_COLUMNAR_RDD.key: True}
+    t0 = time.perf_counter()
+    conf = P.activate(settings, device=dev)
+    activate_s = time.perf_counter() - t0
+    try:
+        env = ResourceEnv.peek()
+        require(env is not None and env.device == dev,
+                "18c: activate() did not bring the environment up on the "
+                "card")
+        rules = P.active_extensions().columnar_rules[0](conf)
+        for q, check in ((1, lambda df: check_q1(df, gold[1], "18c q1")),
+                         (6, lambda df: check_q6(df, gold[6], "18c q6"))):
+            df, plan, info = run_plan(
+                torch, dev, GW, K, lambda q=q: rules.pre_columnar_transitions(
+                    QUERIES[q](TD.sources(tables, TB.SF10_PARTITIONS),
+                               None)), lambda p: collect(p))
+            del plan
+            rel = check(df)
+            runs[f"18c q{q} (plugin)"] = info
+            out[f"q{q}"] = df
+            print(f"18c q{q} under plugin.activate(): accelerate "
+                  f"{info['accelerate_s']:.3f} s, collect "
+                  f"{info['collect_s']:.3f} s, rel err {rel:.3g} against "
+                  f"the golden, launches {info['launches']}", flush=True)
+        # the recorded widest calls are checked, and their copies freed,
+        # before the memory reading
+        out["cases"] = plan_cases("18c", runs, window_case, grouped_case)
+        out["q3"] = shuffle_query(
+            torch, dev, 3, tables, gold,
+            shuffle_conf(3, **{C.SPARK_VERSION.key: "3.0.1"}),
+            "18c q3 (spark301)", GW, K, cases)
+        managers = list(TpuShuffleManager._managers.values())
+        require(len(managers) == SHUFFLE_EXECUTORS and all(
+            type(m) is spark301.RapidsShuffleManager for m in managers),
+            f"18c: q3's executors are {[type(m) for m in managers]}")
+        TpuShuffleManager.close_all()
+        print(f"18c q3: {len(managers)} executors, each a "
+              f"spark301.RapidsShuffleManager", flush=True)
+        # Q6's input, exported
+        t0 = time.perf_counter()
+        q6_input = N.CpuProject(
+            [col("l_quantity"), col("l_extendedprice"), col("l_discount")],
+            QUERIES[6](TD.sources(tables, TB.SF10_PARTITIONS), None).child)
+        arrays = ColumnarRdd.collect_arrays(q6_input, conf, device=dev)
+        export_s = time.perf_counter() - t0
+        require(all(a.device == dev for a in arrays.values()),
+                f"18c: exported tensors are not on {dev}")
+        revenue = float((arrays["l_extendedprice"]
+                         * arrays["l_discount"]).sum().item())
+        rel = abs(revenue - gold[6]) / abs(gold[6])
+        require(rel <= 1e-9, f"18c: exported revenue rel err {rel}")
+        rel_collect = abs(revenue - float(out.pop("q6")["revenue"][0])) \
+            / abs(revenue)
+        require(rel_collect <= 1e-3,
+                f"18c: exported revenue against the collect {rel_collect}")
+        # a few steps of a linear regression on the card: price from
+        # quantity and discount, standardized
+        x = torch.stack([arrays["l_quantity"], arrays["l_discount"]],
+                        1).float()
+        y = arrays["l_extendedprice"].float().unsqueeze(1)
+        x = (x - x.mean(0)) / x.std(0)
+        y = (y - y.mean()) / y.std()
+        t0 = time.perf_counter()
+        losses, on_dev = regression_steps(torch, x, y, 20)
+        train_s = time.perf_counter() - t0
+        require(on_dev == dev and losses[-1] < losses[0],
+                f"18c: the regression did not learn: {losses}")
+        n_rows = arrays["l_discount"].numel()
+        print(f"18c: Q6's input exported in {export_s:.3f} s as "
+              f"{len(arrays)} tensors on {dev} of {n_rows} "
+              f"rows; their revenue {revenue!r} equals the golden (rel err "
+              f"{rel:.3g}) and the collect ({rel_collect:.3g}); 20 SGD "
+              f"steps of torch.nn.Linear(2, 1) on the card in {train_s:.3f}"
+              f" s, loss {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+        del arrays, x, y
+    finally:
+        P.deactivate()
+    require(ResourceEnv.peek() is None, "18c: deactivate() left the "
+            "environment up")
+    out["memory"] = settled_memory(torch, dev, GW, K, before, state0,
+                                   "18c plugin.deactivate()")
+    out["activate_s"] = activate_s
+    return out
+
+
+def udf_phase(torch, dev, tables: dict, gold: dict, spec: tuple, GW, K,
+              cases) -> dict:
+    """Phase 18 over `tables` (the TPC-H tables of `spec`, (seed, sf)):
+    18a, 18b and 18c, each part's wall printed; the widest call of each
+    kernel in each of its plans against its twin."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    grouped_case, window_case = cases
+    out: dict = {}
+    runs: dict = {}
+    with ProcessPoolExecutor(1, multiprocessing.get_context(
+            "spawn")) as draw:
+        # 18a's tables are drawn meanwhile
+        tables_future = draw.submit(udf_tables, spec[0], UDF_SCALE)
+        t_part = time.perf_counter()
+        execs = udf_execs_part(torch, dev, tables, spec, GW, K)
+        runs.update(execs["runs"])
+        print(f"phase 18b: {time.perf_counter() - t_part:.1f} s wall",
+              flush=True)
+        t_part = time.perf_counter()
+        plugin = plugin_part(torch, dev, tables, gold, GW, K, cases)
+        print(f"phase 18c: {time.perf_counter() - t_part:.1f} s wall",
+              flush=True)
+        t_part = time.perf_counter()
+        runs.update(udf_queries_part(torch, dev, tables_future, GW, K))
+        print(f"phase 18a: {time.perf_counter() - t_part:.1f} s wall",
+              flush=True)
+    out["launches"] = {label: info["launches"] for label, info in
+                       {**runs, **plugin["runs"]}.items()}
+    out["launches"]["18c q3 (spark301)"] = plugin["q3"]["launches"]
+    out["cases"] = plan_cases("18", runs, window_case, grouped_case)
+    for name, cases18c in plugin["cases"].items():
+        out["cases"][name] += cases18c
+    for name, case in plugin["q3"].get("cases", {}).items():
+        out["cases"][name].append({**case, "plan": "18c q3 (spark301)"})
+    out["execs_seconds"] = execs["seconds"]
+    return out
+
+
 def kernel_cases(torch, dev, GW, K):
     """(grouped_case, window_case): a kernel's call on `dev` held
     against its plain twin, its second call's bits, and its times (the
@@ -5772,10 +6416,21 @@ def main() -> int:
                              **gold_rest},
         GW, K, kernels, args.seed)
     io_reset()
-    del tables
     lap("17 (the observability layer: profiled Q1 and Q5, the kernel "
         "catalog, Q3 over four executors, unbudgeted and under budgets "
         "and OOM injection, two streams under the sampler)")
+
+    # 18. the UDF layer: TPCx-BB q18 and q27 at SF1 compiled and not, the
+    # pandas execs through the worker daemon over SF1 lineitem, the
+    # plugin's lifecycle on the card, the shims, the audit, the export
+    udf = udf_phase(
+        torch, dev, tables, {1: gold_q1, 6: gold_q6, **gold, **gold_parts,
+                             **gold_rest},
+        (args.seed, JOIN_SF), GW, K, (grouped_case, window_case))
+    del tables
+    lap("18 (the UDF layer: TPCx-BB q18 and q27 at SF1, the pandas execs "
+        "through the worker daemon, plugin.activate(), the shims, the API "
+        "audit, the ML export)")
     io_more = {i["label"]: i for i in list(io_b["queries"].values())
                + list(gaps.values())}
     for name, cases in plan_cases("14b and 14c", io_more, window_case,
@@ -5800,7 +6455,7 @@ def main() -> int:
     spec = ("workload", args.seed, WL_SCALE)
     with card_pool(dev) as pool:
         workloads_check_phase(torch, dev, args.seed, pool)
-        lap(f"13a (TPC-DS 103 with 11a's 18, TPCx-BB 28 at "
+        lap(f"13a (TPC-DS 103 with 11a's 18, TPCx-BB 30 at "
             f"{WL_CHECK_SCALE} store_sales rows and Mortgage at "
             f"{WL_CHECK_LOANS} loans against the CPU engine, in this "
             f"process and {CARD_HELPERS} more on the card)")
@@ -5814,7 +6469,7 @@ def main() -> int:
         lap(f"11b (TPC-DS's 18 queries at {WL_SCALE} store_sales rows, in "
             f"this process and {CARD_HELPERS} more on the card)")
         # 13b: every second one of TPC-DS's other 85, then Mortgage
-        # here; TPCx-BB's 28 run by scripts/torch_workloads_phase.py (the
+        # here; TPCx-BB's 30 run by scripts/torch_workloads_phase.py (the
         # docstring's Cuts)
         ds_more = ds_phase(torch, dev, args.seed, GW, K,
                            queries=ds_rest_cut(), tables=tables, pool=pool,
@@ -5891,6 +6546,12 @@ def main() -> int:
         kernels[name]["catalog_device_ms"] = obs["catalog"][name]["mean_ms"]
         kernels[name]["catalog_reference_ms"] = \
             obs["catalog"][name]["reference_ms"]
+    for name in kernels:
+        kernels[name]["udf_launches"] = {
+            part: v[name] for part, v in udf["launches"].items()}
+        kernels[name]["udf_cases"] = [
+            {k: c[k] for k in case_keys if k in c}
+            for c in udf["cases"].get(name, [])]
     for name in ("window_group_sums", "grouped_sum"):
         kernels[name]["runtime_cases"] = [
             {k: runtime["15a"]["cases"][name][k] for k in case_keys
@@ -5917,7 +6578,7 @@ def main() -> int:
             "workload_cases", "io_launches", "io_cases",
             "runtime_launches", "runtime_cases", "shuffle_launches",
             "shuffle_cases", "observability_launches", "catalog_device_ms",
-            "catalog_reference_ms")
+            "catalog_reference_ms", "udf_launches", "udf_cases")
     line = {"kernels": [{k: v[k] for k in keys if k in v}
                         for v in kernels.values()]}
     print(json.dumps(line), flush=True)

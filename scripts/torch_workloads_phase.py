@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """chip_smoke.py's phase 13 for TPCx-BB and Mortgage alone on one NVIDIA
 card (scripts/torch_tpcds_phase.py --queries rest runs its TPC-DS
-part): the 28 TPCx-BB queries of spark_rapids_tpu_torch/models/
+part): the 30 TPCx-BB queries of spark_rapids_tpu_torch/models/
 tpcxbb.py (or those `--queries` names) and Mortgage's etl_plan and
 summary_plan.  The check holds the card's results against the CPU
 engine at chip_smoke's WL_CHECK_SCALE and WL_CHECK_SEED (20,000

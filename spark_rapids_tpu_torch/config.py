@@ -71,6 +71,10 @@ ALLOW_UNKNOWN_SPARK_VERSION = conf(
     "When no shim matches the Spark version exactly, fall back to the "
     "nearest same-minor shim with a warning instead of failing "
     "(default: fail).")
+EXPORT_COLUMNAR_RDD = conf(
+    "spark.rapids.sql.exportColumnarRdd", False,
+    "Allow ml.ColumnarRdd to hand a plan's device batches to ML code "
+    "as tensors that stay on the card.")
 FUSION_ENABLED = conf(
     "spark.rapids.sql.fusion.enabled", True,
     "Collapse Project/Filter chains between pipeline breaks into one "
@@ -460,9 +464,9 @@ HANG_INJECT_SITE = conf(
     "TEST ONLY: inject a hang at the named site so watchdog "
     "detection, cancellation and resource release are testable "
     "without a real wedge.  Sites: producer (prefetch producer loop), "
-    "oocore-merge (an out-of-core merge pass), compile (the first "
-    "kernel build).  The injected hang blocks until the query's "
-    "CancelToken fires.  Empty disables.")
+    "oocore-merge (an out-of-core merge pass), pyudf (a wedged Python "
+    "UDF worker), compile (the first kernel build).  The injected hang "
+    "blocks until the query's CancelToken fires.  Empty disables.")
 HANG_INJECT_AFTER = conf(
     "spark.rapids.memory.faultInjection.hangAfterBatches", 0,
     "TEST ONLY: the injected hang engages after this many units of "
@@ -827,6 +831,33 @@ MAX_BROADCAST_TABLE_BYTES = conf(
     "Hard cap on a broadcast build side's device bytes; exceeding it "
     "fails the query with a clear error instead of exhausting device "
     "memory (Spark's 8GB broadcast-table limit).")
+
+# --- Python UDFs (udf/, pyudf/) ----------------------------------------------
+UDF_COMPILER_ENABLED = conf(
+    "spark.rapids.sql.udfCompiler.enabled", True,
+    "Compile Python UDF bytecode to expressions that run on the card.")
+PYTHON_CONCURRENT_WORKERS = conf(
+    "spark.rapids.python.concurrentPythonWorkers", 0,
+    "Cap on concurrent Python UDF evaluations, and on the daemon's "
+    "worker processes (0 = unlimited; the daemon then takes one worker "
+    "per CPU core).")
+PYTHON_DAEMON_ENABLED = conf(
+    "spark.rapids.python.daemon.enabled", False,
+    "Run vectorized Python UDFs in out-of-process daemon workers (Arrow "
+    "IPC over pipes) instead of in-process: process isolation at one "
+    "host round trip of cost (reference python/rapids/daemon.py).")
+PYTHON_ON_TPU = conf(
+    "spark.rapids.python.onTpu.enabled", False,
+    "Let daemon UDF workers see the card.  Off by default: a worker "
+    "starts with CUDA_VISIBLE_DEVICES empty, so it can make no CUDA "
+    "context and takes no device memory from the executor (the "
+    "reference's RAPIDS_PYTHON_ENABLED gate, python/rapids/worker.py).")
+PYTHON_MEM_LIMIT = conf(
+    "spark.rapids.python.memory.limitBytes", 0,
+    "Address-space rlimit (RLIMIT_AS) per daemon UDF worker, 0 = "
+    "unlimited (the role of the reference's per-worker RMM pool size). "
+    "A worker allowed on the card with a limit below what CUDA maps at "
+    "initialization fails its first CUDA call.")
 
 
 def op_enable_key(kind: str, name: str) -> str:

@@ -3,10 +3,9 @@ reference `integration_tests/.../tpcxbb/TpcxbbLikeSpark.scala` + the
 `TpcxbbLikeBench` harness that produced the headline chart):
 clickstream and sales analytics shapes over the TPC-DS generator's
 tables (`tpcds_data`), a clickstream three times store_sales and a
-product_reviews table.  28 of the reference's 30 queries, built as the
-reference builds them; q18 and q27 run their text analysis through a
-compiled Python UDF (the reference's `spark_rapids_tpu/udf`), which the
-port does not have yet, so they are not here.
+product_reviews table.  All 30 of the reference's queries, built as
+the reference builds them; q18 and q27 run their text analysis through a
+Python UDF that the UDF compiler (udf/) turns into expressions.
 
 Each query is `fn(t, run) -> CpuNode` over `sources(tables, n)`;
 `run_query(name, tables)` runs one through the planner, on the card
@@ -23,7 +22,7 @@ from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec.joins import JoinType
 from spark_rapids_tpu_torch.exec.sort import asc, desc
-from spark_rapids_tpu_torch.exprs.aggregates import Count, Max, Sum
+from spark_rapids_tpu_torch.exprs.aggregates import Average, Count, Max, Sum
 from spark_rapids_tpu_torch.exprs.base import col, lit
 from spark_rapids_tpu_torch.exprs.conditional import CaseWhen, Coalesce, If
 from spark_rapids_tpu_torch.exprs.predicates import InSet
@@ -35,6 +34,7 @@ from spark_rapids_tpu_torch.models.tpch_bench import BENCH_CONF
 from spark_rapids_tpu_torch.plan.nodes import (CpuAggregate, CpuFilter,
                                                CpuHashJoin, CpuLimit,
                                                CpuProject, CpuSort, CpuUnion)
+from spark_rapids_tpu_torch.udf import tpu_udf
 
 CLICKS_SCHEMA = T.Schema.of(
     ("wcs_click_date_sk", T.INT64), ("wcs_user_sk", T.INT64),
@@ -657,6 +657,95 @@ QUERIES.update({
 })
 
 
-# The reference's q18 and q27 (`spark_rapids_tpu/models/tpcxbb.py`, its
-# round-3 block) score review text with Python UDFs compiled by
-# `spark_rapids_tpu/udf`; they wait for the port of that compiler.
+
+# q18 and q27: the reference's Q18Like/Q27Like throw ("uses UDF",
+# TpcxbbLikeSpark.scala:1455,1993); here the text analysis is a Python
+# UDF over the review content that the UDF compiler (udf/) turns into
+# expressions that run on the card.
+@tpu_udf(T.INT64)
+def review_sentiment(content):
+    """BigBench q18-style sentiment: -1 negative, +1 positive, else 0."""
+    if content is None:
+        return 0
+    if (content.find("bad") >= 0 or content.find("poor") >= 0 or
+            content.find("terrible") >= 0):
+        return -1
+    if (content.find("good") >= 0 or content.find("great") >= 0 or
+            content.find("excellent") >= 0):
+        return 1
+    return 0
+
+
+@tpu_udf(T.INT64)
+def mentions_aspect(content):
+    """BigBench q27-style extraction flag: does the review name the
+    product aspect competitors fight on (quality or value)."""
+    if content is None:
+        return 0
+    if content.find("quality") >= 0 or content.find("value") >= 0:
+        return 1
+    return 0
+
+
+def _join(left, right, lk, rk, jt=JoinType.INNER):
+    return CpuHashJoin(jt, [col(k) for k in lk], [col(k) for k in rk],
+                       left, right)
+
+
+def q18(t, run):
+    """q18-like: the sentiment of reviews of items sold by declining
+    stores (Q1 against Q2 sales), through the compiled sentiment UDF."""
+    # Q1 against Q2, not the halves: the generator's December holiday
+    # weight would make every store grow in H2
+    dd1 = CpuFilter((col("d_year") == lit(1999)) &
+                    (col("d_moy") <= lit(3)), t["date_dim"])
+    dd2 = CpuFilter((col("d_year") == lit(1999)) &
+                    (col("d_moy") >= lit(4)) &
+                    (col("d_moy") <= lit(6)), t["date_dim"])
+
+    def half(dd, alias, key):
+        j = _join(CpuProject([col("d_date_sk").alias(key)], dd),
+                  t["store_sales"], [key], ["ss_sold_date_sk"])
+        return CpuAggregate([col("ss_store_sk").alias(f"sk_{alias}")],
+                            [Sum(col("ss_net_paid")).alias(alias)], j)
+
+    declining = CpuFilter(
+        col("h2") < col("h1"),
+        _join(half(dd1, "h1", "d1sk"), half(dd2, "h2", "d2sk"),
+              ["sk_h1"], ["sk_h2"]))
+    # the items those stores sold
+    items = CpuAggregate(
+        [col("it")], [Count(None).alias("_c")],
+        _join(CpuProject([col("sk_h1").alias("decl_sk")], declining),
+              CpuProject([col("ss_store_sk").alias("st"),
+                          col("ss_item_sk").alias("it")],
+                         t["store_sales"]),
+              ["decl_sk"], ["st"]))
+    rv = _join(t["product_reviews"], items, ["pr_item_sk"], ["it"],
+               jt=JoinType.LEFT_SEMI)
+    scored = CpuProject(
+        [col("pr_item_sk"),
+         review_sentiment(col("pr_content")).alias("sentiment")], rv)
+    agg = CpuAggregate(
+        [col("sentiment")], [Count(None).alias("review_count")], scored)
+    return CpuSort([asc(col("sentiment"))], agg)
+
+
+def q27(t, run):
+    """q27-like: per-item counts of competitive-aspect mentions and the
+    rating, through the compiled extraction UDF."""
+    flagged = CpuProject(
+        [col("pr_item_sk"), col("pr_rating"),
+         mentions_aspect(col("pr_content")).alias("mention")],
+        t["product_reviews"])
+    agg = CpuAggregate(
+        [col("pr_item_sk")],
+        [Sum(col("mention")).alias("mentions"),
+         Count(None).alias("n_reviews"),
+         Average(col("pr_rating")).alias("avg_rating")], flagged)
+    out = CpuFilter(col("mentions") > lit(0), agg)
+    return CpuLimit(100, CpuSort(
+        [desc(col("mentions")), asc(col("pr_item_sk"))], out))
+
+
+QUERIES.update({"q18": q18, "q27": q27})

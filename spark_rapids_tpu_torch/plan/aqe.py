@@ -36,8 +36,7 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.exec.base import TpuExec
 from spark_rapids_tpu_torch.exec.joins import (BroadcastHashJoinExec,
                                                HashJoinExec, JoinType)
-from spark_rapids_tpu_torch.shuffle.exchange import (BroadcastExchangeExec,
-                                                     ShuffleExchangeExec)
+from spark_rapids_tpu_torch.shuffle.exchange import ShuffleExchangeExec
 
 log = logging.getLogger(__name__)
 
@@ -436,14 +435,19 @@ def _adapt_join(join: HashJoinExec, conf: C.RapidsConf) -> TpuExec:
     threshold = conf[C.AUTO_BROADCAST_THRESHOLD]
     # build side: right, except RIGHT_OUTER, which builds left; Spark
     # never broadcasts a FULL OUTER join
-    build_is_left = join.join_type == JoinType.RIGHT_OUTER
+    from spark_rapids_tpu_torch.shims import current_shims
+    shims = current_shims(conf)
+    build_is_left = shims.build_side_of(
+        join.join_type, shims.BUILD_LEFT
+        if join.join_type == JoinType.RIGHT_OUTER
+        else shims.BUILD_RIGHT) == shims.BUILD_LEFT
     build = left if build_is_left else right
     size = _stage_bytes(build)
     if (not isinstance(join, BroadcastHashJoinExec)
             and threshold is not None and int(threshold) >= 0
             and join.join_type != JoinType.FULL_OUTER
             and size is not None and size <= int(threshold)):
-        bcast = BroadcastExchangeExec(build)
+        bcast = shims.make_broadcast_exchange(build)
         new_left = bcast if build_is_left else left
         new_right = right if build_is_left else bcast
         log.info("AQE demoted %s to broadcast join (build side %d bytes)",

@@ -756,6 +756,32 @@ _DISPATCH = {
 }
 
 
+def _python_udf(e, df, schema):
+    """Row-apply of an uncompiled UDF (udf/__init__.py PythonUDF): the
+    CPU engine runs the Python original.  Nulls reach the function as
+    None; a body that is not null-safe raises on them, which gives null
+    (as the compiled expression propagates it), while an error on
+    non-null values surfaces."""
+    def values(a: pd.Series) -> list:
+        return [None if v is pd.NA or (isinstance(v, float) and v != v)
+                else v for v in a.tolist()]
+    cols = [values(_ev(a, df, schema)) for a in e.args]
+    out = []
+    for vals in zip(*cols) if cols else [()] * len(df):
+        if None in vals:
+            try:
+                out.append(e.fn(*vals))
+            except (TypeError, AttributeError):
+                out.append(None)
+        else:
+            out.append(e.fn(*vals))
+    s = pd.Series(out, index=df.index, dtype=object)
+    return s.astype(nullable_dtype(e.return_type))
+
+
+_DISPATCH["PythonUDF"] = _python_udf
+
+
 def nested_loop_join(ldf: pd.DataFrame, rdf: pd.DataFrame,
                      condition: Optional[E.Expression],
                      schema: T.Schema) -> pd.DataFrame:

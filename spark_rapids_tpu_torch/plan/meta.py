@@ -179,8 +179,9 @@ class PlanMeta(BaseMeta):
     def _convert_once(self, memo: dict):
         from spark_rapids_tpu_torch.exec.base import (CommonSubplanExec,
                                                       TpuExec)
-        from spark_rapids_tpu_torch.plan.transitions import (
-            ColumnarToRowExec, RowToColumnarExec)
+        from spark_rapids_tpu_torch.plan.transitions import \
+            RowToColumnarExec
+        from spark_rapids_tpu_torch.shims import current_shims
         kids = [c.convert_if_needed(memo) for c in self.child_plans]
         if self.can_this_be_replaced:
             out = self.rule.convert(self, [
@@ -190,9 +191,12 @@ class PlanMeta(BaseMeta):
             if self.ref_count > 1:
                 out = CommonSubplanExec(out)
             return out
+        # the device-exit transition is the session's version's
+        shims = current_shims(self.conf)
         node = copy.copy(self.node)  # never mutate the caller's plan
         node.children = [k if isinstance(k, CpuNode)
-                         else ColumnarToRowExec(k) for k in kids]
+                         else shims.columnar_to_row_transition(k)
+                         for k in kids]
         return node
 
     # -- explain -------------------------------------------------------------

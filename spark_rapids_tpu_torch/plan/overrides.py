@@ -447,12 +447,15 @@ def _conv_hash_join(meta, kids) -> TpuExec:
     if node.broadcast:
         # the build side (the left one of a RIGHT OUTER join) is
         # collected once and shared by every probe partition
-        from spark_rapids_tpu_torch.shuffle.exchange import \
-            BroadcastExchangeExec
-        if node.join_type == JoinType.RIGHT_OUTER:
-            left = BroadcastExchangeExec(left)
+        from spark_rapids_tpu_torch.shims import current_shims
+        shims = current_shims(meta.conf)
+        side = shims.build_side_of(
+            node.join_type, shims.BUILD_LEFT
+            if node.join_type == JoinType.RIGHT_OUTER else shims.BUILD_RIGHT)
+        if side == shims.BUILD_LEFT:
+            left = shims.make_broadcast_exchange(left)
         else:
-            right = BroadcastExchangeExec(right)
+            right = shims.make_broadcast_exchange(right)
         return BroadcastHashJoinExec(node.join_type, node.left_keys,
                                      node.right_keys, left, right,
                                      node.condition)
@@ -739,6 +742,53 @@ def _register_io_rules() -> None:
 _register_io_rules()
 
 
+# --- pandas UDF execs (pyudf/exec.py) --------------------------------------
+def _tag_pandas_exec(meta) -> None:
+    # off by default (reference GpuOverrides.scala:1821-1845): the exec's
+    # own enable key must be set
+    name = meta.node.name()
+    if not meta.conf.is_op_enabled("exec", name, default=False):
+        meta.will_not_work_on_gpu(
+            f"{name} is disabled by default; enable with "
+            f"{C.op_enable_key('exec', name)}")
+
+
+def _udf_args(n) -> list:
+    return [a for u in n.udfs for a in u.args]
+
+
+def _register_pyudf_rules() -> None:
+    from spark_rapids_tpu_torch.pyudf import exec as PX
+    for cpu, desc, conv, exprs_of in (
+            (PX.CpuArrowEvalPython, "vectorized python UDF evaluation",
+             lambda meta, kids: PX.ArrowEvalPythonExec(meta.node.udfs,
+                                                       kids[0]),
+             _udf_args),
+            (PX.CpuMapInPandas, "mapInPandas",
+             lambda meta, kids: PX.MapInPandasExec(meta.node, kids[0]),
+             lambda n: ()),
+            (PX.CpuFlatMapGroupsInPandas, "grouped applyInPandas",
+             lambda meta, kids: PX.FlatMapGroupsInPandasExec(meta.node,
+                                                             kids[0]),
+             lambda n: ()),
+            (PX.CpuAggregateInPandas, "grouped aggregate pandas UDF",
+             lambda meta, kids: PX.AggregateInPandasExec(meta.node,
+                                                         kids[0]),
+             _udf_args),
+            (PX.CpuWindowInPandas, "window pandas UDF",
+             lambda meta, kids: PX.WindowInPandasExec(meta.node, kids[0]),
+             _udf_args),
+            (PX.CpuFlatMapCoGroupsInPandas, "cogrouped applyInPandas",
+             lambda meta, kids: PX.FlatMapCoGroupsInPandasExec(
+                 meta.node, kids[0], kids[1]),
+             lambda n: ())):
+        register_exec(cpu, desc, conv, exprs_of=exprs_of,
+                      tag_extra=_tag_pandas_exec)
+
+
+_register_pyudf_rules()
+
+
 # ---------------------------------------------------------------------------
 def accelerate(cpu_plan: N.CpuNode, conf: Optional[C.RapidsConf] = None,
                device="cuda"):
@@ -754,6 +804,9 @@ def accelerate(cpu_plan: N.CpuNode, conf: Optional[C.RapidsConf] = None,
     from spark_rapids_tpu_torch.plan.transitions import (
         _coalesce_cpu_islands, _optimize_tpu, assert_is_on_tpu,
         insert_coalesce, optimize_transitions)
+    if conf[C.UDF_COMPILER_ENABLED]:
+        from spark_rapids_tpu_torch.udf import rewrite_udfs
+        cpu_plan = rewrite_udfs(cpu_plan)
     if conf[C.PRUNE_COLUMNS]:
         from spark_rapids_tpu_torch.plan.pruning import prune_columns
         cpu_plan = prune_columns(cpu_plan)

@@ -232,6 +232,59 @@ class ColumnarToRowExec(CpuNode):
         return [convert(it) for it in self.tpu_child.execute_partitions()]
 
 
+class AcceleratedColumnarToRowExec(ColumnarToRowExec):
+    """Spark 3.1.0's accelerated device-exit transition (reference
+    `getGpuColumnarToRowTransition`, spark310 shim): the fixed-width
+    columns of a batch and their validity leave the device in one packed
+    copy instead of one copy each."""
+
+    def execute(self):
+        def convert(it):
+            from spark_rapids_tpu_torch.utils import checks as CK
+            for batch in it:
+                CK.note_host_sync("transition.device_get")
+                df = _df_from_batch_packed(batch)
+                TpuSemaphore.get().release_if_necessary()
+                yield df
+        return [convert(it) for it in self.tpu_child.execute_partitions()]
+
+
+def _df_from_batch_packed(batch: ColumnarBatch) -> pd.DataFrame:
+    """df_from_batch with one device-to-host copy for every fixed-width
+    tensor of the batch (each padded to 8 bytes, so each slice of the
+    host buffer views back as its own dtype)."""
+    batch = batch.dense()
+    from spark_rapids_tpu_torch.utils import movement as MV
+    if MV.ledger() is not None:
+        MV.record(MV.EDGE_READBACK, batch.device_size_bytes(),
+                  site="collect.df_from_batch")
+    batch.verify_checks()
+    n = batch.num_rows
+    parts, layout = [], []
+    for c in batch.columns:
+        if c.dtype.is_string:
+            continue
+        for t in (c.data[:n], c.validity[:n]):
+            b = t.contiguous().view(torch.uint8)
+            pad = (-b.numel()) % 8
+            parts += [b, b.new_zeros(pad)] if pad else [b]
+            layout.append((t.dtype, b.numel(), pad))
+    host = torch.cat(parts).cpu() if parts else None
+    out, off, k = {}, 0, 0
+    for f, c in zip(batch.schema.fields, batch.columns):
+        if f.dtype.is_string:
+            vals, valid = c.to_numpy(n)
+        else:
+            pair = []
+            for dtype, nbytes, pad in layout[k:k + 2]:
+                pair.append(host[off:off + nbytes].view(dtype).numpy())
+                off += nbytes + pad
+            k += 2
+            vals, valid = pair
+        out[f.name] = series_from_column(f, vals, valid)
+    return pd.DataFrame(out)
+
+
 # ---------------------------------------------------------------------------
 def insert_coalesce(plan: TpuExec, conf: C.RapidsConf) -> TpuExec:
     """Insert CoalesceBatchesExec per each node's children_coalesce_goal

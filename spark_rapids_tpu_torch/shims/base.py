@@ -1,14 +1,16 @@
-"""The shim surface (port of spark_rapids_tpu/shims/base.py, cut to the
-methods the I/O layer, the exchange and the brute-force joins call): the
-hybrid-calendar rebase keys and modes, the shuffle exchange and
-nested-loop join constructors, file partition planning and the
-small-file scan copy.  The transitions, First/Last construction and AQE
-come with the layers that call them."""
+"""The shim surface (port of spark_rapids_tpu/shims/base.py; reference
+`SparkShims.scala:57-136`): everything that varies across the supported
+Spark versions routes through a `SparkShims` instance resolved from the
+session's Spark version: the device-exit transition, First/Last
+construction, the per-version shuffle manager class, AQE's map-output
+range reads and reader name, build sides, the exchange and join
+constructors, the query-stage prep rule, file partition planning, the
+hybrid-calendar rebase keys and modes, and per-version extra rules."""
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Sequence
+from typing import Optional, Sequence
 
 
 @dataclasses.dataclass(frozen=True, order=True)
@@ -43,6 +45,102 @@ class SparkShims:
     @property
     def version(self) -> ShimVersion:
         return ShimVersion.parse(self.VERSION_NAMES[0])
+
+    # -- transitions --------------------------------------------------------
+    def columnar_to_row_transition(self, tpu_child):
+        """The device-exit transition exec; 3.1.0 takes an accelerated
+        one (reference `getGpuColumnarToRowTransition`, spark310)."""
+        from spark_rapids_tpu_torch.plan.transitions import ColumnarToRowExec
+        return ColumnarToRowExec(tpu_child)
+
+    # -- expression construction drift --------------------------------------
+    def make_first_last(self, child, last: bool, ignore_nulls: bool):
+        """First/Last aggregate constructor (its ignoreNulls argument
+        became a plain boolean in 3.0.1; the reference's shims carry
+        per-version GpuFirst/GpuLast)."""
+        from spark_rapids_tpu_torch.exprs.aggregates import First, Last
+        return (Last if last else First)(child,
+                                         ignore_nulls=bool(ignore_nulls))
+
+    # -- shuffle / AQE ------------------------------------------------------
+    def shuffle_manager_class(self) -> str:
+        """The per-version shuffle manager users name in
+        spark.shuffle.manager (reference
+        `shims/spark300/.../RapidsShuffleManager.scala`)."""
+        return "spark_rapids_tpu_torch.shims.spark300.RapidsShuffleManager"
+
+    def shuffle_manager_type(self) -> type:
+        """The class `shuffle_manager_class()` names, imported."""
+        import importlib
+        mod, name = self.shuffle_manager_class().rsplit(".", 1)
+        return getattr(importlib.import_module(mod), name)
+
+    def supports_map_index_ranges(self) -> bool:
+        """Spark 3.0.x's getMapSizesByExecutorId cannot address a part
+        of the mappers; 3.1.0 can (AQE's skew-split reads)."""
+        return False
+
+    def get_map_sizes(self, registry, shuffle_id: int,
+                      start_map: int, end_map: Optional[int],
+                      start_part: int, end_part: int):
+        """Map output sizes of a reducer range (reference
+        `getMapSizesByExecutorId`): [(map_id, part_id, size_bytes)] of
+        the non-empty blocks in range."""
+        statuses = registry.outputs_for(shuffle_id)
+        all_maps = (max(statuses) + 1) if statuses else 0
+        hi = all_maps if end_map is None else end_map
+        if (start_map, hi) != (0, all_maps) \
+                and not self.supports_map_index_ranges():
+            raise NotImplementedError(
+                f"Spark {self.version} cannot fetch partial mapper ranges")
+        out = []
+        for map_id in range(start_map, hi):
+            if map_id not in statuses:
+                continue
+            sizes = statuses[map_id].partition_sizes
+            for part_id in range(start_part, end_part):
+                if sizes[part_id] > 0:
+                    out.append((map_id, part_id, sizes[part_id]))
+        return out
+
+    def aqe_shuffle_reader_name(self) -> str:
+        """The AQE shuffle reader's name in this version (upstream's
+        CustomShuffleReaderExec; Databricks forked its own)."""
+        return "CustomShuffleReaderExec"
+
+    def make_query_stage_prep_rule(self, conf, factory):
+        """The AQE query-stage prep rule of this version, built from the
+        session's conf (Databricks wraps it under its fork's name)."""
+        return factory(conf)
+
+    # -- join construction drift --------------------------------------------
+    BUILD_LEFT = "left"
+    BUILD_RIGHT = "right"
+
+    def build_side_of(self, join_type, preferred: str = "right") -> str:
+        """The build side (reference `getBuildSide`: BuildLeft and
+        BuildRight moved packages in 3.1, so the engine asks the shim).
+        Semi and anti joins always build the right side."""
+        from spark_rapids_tpu_torch.exec.joins import JoinType as JT
+        if join_type in (JT.LEFT_SEMI, JT.LEFT_ANTI):
+            return self.BUILD_RIGHT
+        return preferred
+
+    def make_broadcast_exchange(self, child):
+        """Broadcast exchange constructor (reference
+        `getGpuBroadcastExchangeExec`; 3.1 wraps BroadcastExchangeLike)."""
+        from spark_rapids_tpu_torch.shuffle.exchange import \
+            BroadcastExchangeExec
+        return BroadcastExchangeExec(child)
+
+    # -- rule extensions ----------------------------------------------------
+    def extra_exec_rules(self) -> dict:
+        """Per-version exec rules on top of the common set (reference
+        `SparkShims.getExecs`)."""
+        return {}
+
+    def extra_expr_rules(self) -> dict:
+        return {}
 
     # -- config drift -------------------------------------------------------
     def parquet_rebase_read_key(self) -> str:

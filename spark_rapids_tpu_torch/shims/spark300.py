@@ -1,0 +1,9 @@
+"""The spark300 package (port of spark_rapids_tpu/shims/spark300.py;
+reference `shims/spark300/.../RapidsShuffleManager.scala`): the
+version-named shuffle manager class users put in
+spark.shuffle.manager."""
+from spark_rapids_tpu_torch.shuffle.manager import TpuShuffleManager
+
+
+class RapidsShuffleManager(TpuShuffleManager):
+    SPARK_VERSION = "spark300"

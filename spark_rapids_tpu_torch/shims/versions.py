@@ -1,6 +1,6 @@
-"""Per-version shims (port of spark_rapids_tpu/shims/versions.py, with
-the overrides of the methods base.py ports).  Each class carries only
-what drifted from its parent."""
+"""Per-version shims (port of spark_rapids_tpu/shims/versions.py;
+reference `shims/spark300`, `spark300db`, `spark301`, `spark302`,
+`spark310`).  Each class carries only what drifted from its parent."""
 from __future__ import annotations
 
 from spark_rapids_tpu_torch.shims.base import SparkShims
@@ -12,8 +12,24 @@ class Spark300Shims(SparkShims):
 
 
 class Spark300dbShims(Spark300Shims):
-    """Databricks 3.0.0: its getPartitionSplitFiles packs whole files."""
+    """Databricks 3.0.0: its forked AQE classes, its own shuffle manager
+    package, and a getPartitionSplitFiles that packs whole files."""
     VERSION_NAMES = ("3.0.0-databricks",)
+
+    def aqe_shuffle_reader_name(self) -> str:
+        # the Databricks runtime forked AQE before upstream named it
+        return "DatabricksShuffleReaderExec"
+
+    def make_query_stage_prep_rule(self, conf, factory):
+        rule = factory(conf)
+
+        def db_rule(plan):
+            return rule(plan)
+        db_rule.__name__ = "DatabricksQueryStagePrepRule"
+        return db_rule
+
+    def shuffle_manager_class(self) -> str:
+        return "spark_rapids_tpu_torch.shims.spark300db.RapidsShuffleManager"
 
     def plan_file_partitions(self, files, max_bytes, open_cost,
                              min_partitions: int = 1):
@@ -24,8 +40,12 @@ class Spark300dbShims(Spark300Shims):
 
 
 class Spark301Shims(Spark300Shims):
-    """Spark 3.0.1: the renamed rebase confs, defaulting to EXCEPTION."""
+    """Spark 3.0.1: the renamed rebase confs, defaulting to EXCEPTION,
+    and its own shuffle manager package."""
     VERSION_NAMES = ("3.0.1",)
+
+    def shuffle_manager_class(self) -> str:
+        return "spark_rapids_tpu_torch.shims.spark301.RapidsShuffleManager"
 
     def parquet_rebase_read_key(self) -> str:
         return "spark.sql.legacy.parquet.datetimeRebaseModeInRead"
@@ -38,13 +58,30 @@ class Spark301Shims(Spark300Shims):
 
 
 class Spark302Shims(Spark301Shims):
-    """Spark 3.0.2: 3.0.1's surface."""
+    """Spark 3.0.2: 3.0.1's surface but for the shuffle manager
+    package."""
     VERSION_NAMES = ("3.0.2",)
+
+    def shuffle_manager_class(self) -> str:
+        return "spark_rapids_tpu_torch.shims.spark302.RapidsShuffleManager"
 
 
 class Spark310Shims(Spark301Shims):
-    """Spark 3.1.0: a user's repartition keeps its partition count."""
+    """Spark 3.1.0: the accelerated device-exit transition, map-index
+    range reads (AQE skew splits), and a user's repartition keeps its
+    partition count."""
     VERSION_NAMES = ("3.1.0", "3.1.1-SNAPSHOT")
+
+    def columnar_to_row_transition(self, tpu_child):
+        from spark_rapids_tpu_torch.plan.transitions import \
+            AcceleratedColumnarToRowExec
+        return AcceleratedColumnarToRowExec(tpu_child)
+
+    def supports_map_index_ranges(self) -> bool:
+        return True
+
+    def shuffle_manager_class(self) -> str:
+        return "spark_rapids_tpu_torch.shims.spark310.RapidsShuffleManager"
 
     def make_shuffle_exchange(self, partitioning, child,
                               can_change_num_partitions: bool = True):

@@ -182,8 +182,7 @@ class ShuffleExchangeExec(UnaryExecBase):
         through a ShuffleRecoveryDriver whose recompute re-runs only the
         lost map partitions of `self.child` on the reducing executor."""
         from spark_rapids_tpu_torch.exec import speculation as SPEC
-        from spark_rapids_tpu_torch.shuffle.manager import (
-            MapOutputRegistry, TpuShuffleManager)
+        from spark_rapids_tpu_torch.shuffle.manager import MapOutputRegistry
         from spark_rapids_tpu_torch.shuffle.recovery import (
             PeerHealth, ShuffleRecoveryDriver)
         from spark_rapids_tpu_torch.utils import metrics as M
@@ -193,8 +192,11 @@ class ShuffleExchangeExec(UnaryExecBase):
         n_execs = max(1, int(conf[C.SHUFFLE_LOCAL_EXECUTORS]))
         names = (["local"] if n_execs == 1
                  else [f"local-{i}" for i in range(n_execs)])
-        mgrs = [TpuShuffleManager.get_or_create(nm, device=dev)
-                for nm in names]
+        # the session's version names the manager class (the class
+        # users put in spark.shuffle.manager)
+        from spark_rapids_tpu_torch.shims import current_shims
+        manager_cls = current_shims(conf).shuffle_manager_type()
+        mgrs = [manager_cls.get_or_create(nm, device=dev) for nm in names]
         primary = mgrs[0]
         health = PeerHealth.get()
         shuffle_id = self._next_shuffle_id()

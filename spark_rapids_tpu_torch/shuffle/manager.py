@@ -277,7 +277,10 @@ class TpuShuffleManager:
         under concurrent queries, and the second server's loopback
         registration replaced the first's, whose catalog then answered
         fetches with no tables (silent partial data).  A manager over an
-        environment that was shut down since is replaced."""
+        environment that was shut down since is replaced.  A new manager
+        is of the class this is called on (a per-version
+        RapidsShuffleManager of shims/); an existing one is returned
+        whatever its class."""
         with cls._registry_lock:
             m = cls._managers.get(executor_id)
             if m is not None and env is None \
@@ -285,7 +288,7 @@ class TpuShuffleManager:
                 m.close()
                 m = None
             if m is None:
-                m = TpuShuffleManager(executor_id, env, conf, device)
+                m = cls(executor_id, env, conf, device)
             return m
 
     @classmethod

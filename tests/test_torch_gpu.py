@@ -987,3 +987,67 @@ def test_catalog_launches_equal_wrapper_counts_under_threads(cuda_device):
             assert tot["sampled"] > 0, name
     finally:
         KP.reset()
+
+
+@pytest.mark.gpu
+def test_plugin_brings_the_executor_up_on_the_card_and_back(cuda_device):
+    """plugin.activate() makes the ResourceEnv on the card and runs a UDF
+    that compiles there; deactivate() gives the device memory back."""
+    import gc
+
+    import pandas as pd
+
+    from spark_rapids_tpu_torch import plugin
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exec.base import TpuExec
+    from spark_rapids_tpu_torch.exprs.base import col
+    from spark_rapids_tpu_torch.memory.env import ResourceEnv
+    from spark_rapids_tpu_torch.plan import nodes as N
+    from spark_rapids_tpu_torch.plan.overrides import collect
+    from spark_rapids_tpu_torch.udf import tpu_udf
+
+    @tpu_udf(T.INT64)
+    def tag(s):
+        return 1 if s.find("ok") >= 0 else 0
+
+    gc.collect()
+    before = torch.cuda.memory_allocated(cuda_device)
+    conf = plugin.activate({"spark.rapids.sql.test.enabled": True})
+    try:
+        assert ResourceEnv.peek().device.type == "cuda"
+        rules = plugin.active_extensions().columnar_rules[0](conf)
+        plan = rules.pre_columnar_transitions(N.CpuProject(
+            [tag(col("s")).alias("t")], N.CpuSource.from_pandas(
+                pd.DataFrame({"s": ["ok", "no", "okay", None]}))))
+        assert isinstance(plan, TpuExec)
+        assert collect(plan)["t"].tolist() == [1, 0, 1, 0]
+        del plan
+    finally:
+        plugin.deactivate()
+    gc.collect()
+    torch.cuda.synchronize()
+    assert ResourceEnv.peek() is None
+    assert torch.cuda.memory_allocated(cuda_device) == before
+
+
+@pytest.mark.gpu
+def test_a_udf_worker_sees_no_card(cuda_device):
+    """A daemon worker on a machine with a card runs with
+    CUDA_VISIBLE_DEVICES empty: torch there finds no device."""
+    import pandas as pd
+
+    from spark_rapids_tpu_torch.pyudf import daemon
+
+    def probe(frame):
+        import os
+
+        import torch as t
+        return pd.DataFrame({"env": [os.environ["CUDA_VISIBLE_DEVICES"]],
+                             "cuda": [t.cuda.is_available()]})
+
+    pool = daemon.PythonWorkerPool(max_workers=1)
+    try:
+        out = pool.run_udf(probe, pd.DataFrame({"x": [0]}))
+    finally:
+        pool.close()
+    assert out["env"].tolist() == [""] and out["cuda"].tolist() == [False]

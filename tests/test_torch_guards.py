@@ -5,19 +5,29 @@ import ast
 from pathlib import Path
 
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
+from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import memory as M
+from spark_rapids_tpu_torch import plugin
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.serde import (deserialize_batch,
                                                    serialize_batch)
 from spark_rapids_tpu_torch.columnar.vector import ColumnVector
 from spark_rapids_tpu_torch.exec.basic import LocalBatchSource
+from spark_rapids_tpu_torch.exprs.base import col
+from spark_rapids_tpu_torch.ml import ColumnarRdd
 from spark_rapids_tpu_torch.models import (mortgage, tpcds_bench, tpcds_data,
                                            tpch, tpcxbb)
 from spark_rapids_tpu_torch.ops import grouped_window as GW
 from spark_rapids_tpu_torch.ops import kernels as K
+from spark_rapids_tpu_torch.plan.nodes import CpuSource
+from spark_rapids_tpu_torch.plan.overrides import accelerate
+from spark_rapids_tpu_torch.pyudf.exec import (CpuArrowEvalPython,
+                                               PandasUdfSpec)
 from spark_rapids_tpu_torch.utils import fuzzer
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -54,6 +64,37 @@ def test_the_import_guard_covers_the_observability_layer():
               "kernelprof", "telemetry"):
         assert f"spark_rapids_tpu_torch/utils/{f}.py" in names, f
     assert "scripts/torch_profile_phase.py" in names
+
+
+def test_the_import_guard_covers_the_udf_layer_plugin_and_ml():
+    """The UDF compiler, the pandas execs and their worker daemon, the
+    per-version shims, the plugin, the API audit and the ML export are
+    under the guard."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for f in ("udf/__init__.py", "udf/compiler.py", "pyudf/__init__.py",
+              "pyudf/semaphore.py", "pyudf/worker.py", "pyudf/daemon.py",
+              "pyudf/exec.py", "plugin.py", "api_validation.py",
+              "ml/__init__.py", "ml/columnar_rdd.py", "shims/spark300.py",
+              "shims/spark300db.py", "shims/spark301.py",
+              "shims/spark302.py", "shims/spark310.py"):
+        assert f"spark_rapids_tpu_torch/{f}" in names, f
+
+
+def test_the_udf_worker_imports_no_torch():
+    """`python -m spark_rapids_tpu_torch.pyudf.worker` loads the package
+    and its pyudf package lazily: neither imports torch at start-up."""
+    import subprocess
+    import sys
+    code = ("import sys, spark_rapids_tpu_torch.pyudf.worker as w; "
+            "w.initialize_worker_env(); import os; "
+            "print('torch' in sys.modules, "
+            "repr(os.environ['CUDA_VISIBLE_DEVICES']))")
+    env = {k: v for k, v in __import__("os").environ.items()
+           if k != "RAPIDS_PYTHON_ON_TPU"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "''"]
 
 
 def test_a_transport_class_of_the_jax_package_is_refused(monkeypatch):
@@ -144,6 +185,16 @@ _ENTRY_POINTS = {
         "q3", tpcds_data.gen_tables(np.random.default_rng(0), 2000)),
     "tpcxbb.run_query": lambda: tpcxbb.run_query(
         "q01", tpcxbb.gen_tables(np.random.default_rng(0), 2000)),
+    "tpcxbb.run_query(q27)": lambda: tpcxbb.run_query(
+        "q27", tpcxbb.gen_tables(np.random.default_rng(0), 2000)),
+    "plugin.activate": lambda: plugin.activate({}),
+    "ColumnarRdd.convert": lambda: ColumnarRdd.convert(
+        CpuSource.from_pandas(pd.DataFrame({"a": [1, 2]})),
+        C.RapidsConf({"spark.rapids.sql.exportColumnarRdd": True})),
+    "ArrowEvalPythonExec": lambda: accelerate(CpuArrowEvalPython(
+        [PandasUdfSpec("r", lambda s: s, T.INT64, (col("a"),))],
+        CpuSource.from_pandas(pd.DataFrame({"a": [1, 2]}))),
+        C.RapidsConf({"spark.rapids.sql.exec.CpuArrowEvalPython": True})),
     "mortgage.run_plan": lambda: mortgage.run_plan(
         mortgage.etl_plan, mortgage.gen_tables(np.random.default_rng(0),
                                                20, 2)),

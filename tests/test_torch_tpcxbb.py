@@ -1,5 +1,5 @@
-"""The 28 TPCx-BB queries without a UDF (models/tpcxbb.py) through
-spark_rapids_tpu_torch's planner on the CPU
+"""The 30 TPCx-BB queries (models/tpcxbb.py; q18 and q27 through the UDF
+compiler) through spark_rapids_tpu_torch's planner on the CPU
 (`tpcxbb.run_query(q, tables, device="cpu")`), against spark_rapids_tpu's
 CPU engine and the port's own CPU engine, over the reference fixture's
 tables (tests/test_workloads.py: scale 4,000, seed 4, two partitions),
@@ -58,5 +58,34 @@ def test_gen_tables_equal_the_reference(tables, ref_tables):
 
 
 def test_queries_are_the_reference_less_its_two_udf_queries():
-    assert set(X.QUERIES) == set(RX.QUERIES) - {"q18", "q27"}
-    assert len(X.QUERIES) == 28
+    """The port has all of the reference's queries, the two whose text
+    analysis is a Python UDF among them (the name is kept from when the
+    port lacked those two)."""
+    assert set(X.QUERIES) == set(RX.QUERIES)
+    assert len(X.QUERIES) == 30
+
+
+@pytest.mark.parametrize("name", ["q18", "q27"])
+def test_udf_queries_compile_and_run_wholly_on_the_device(tables, name):
+    """q18's and q27's UDFs compile, so under
+    spark.rapids.sql.test.enabled no CPU node is left; with the compiler
+    off the UDF's project is the only CPU node, and the results agree."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.exec.base import TpuExec
+    from spark_rapids_tpu_torch.models.tpch_bench import BENCH_CONF
+    from spark_rapids_tpu_torch.plan.overrides import accelerate
+    on = C.RapidsConf({**BENCH_CONF, "spark.rapids.sql.test.enabled": True})
+    plan = accelerate(X.QUERIES[name](X.sources(tables, 2), cpu_run), on,
+                      "cpu")
+    assert isinstance(plan, TpuExec)
+    got = X.run_query(name, tables, device="cpu", conf=on)
+    off = C.RapidsConf({**BENCH_CONF,
+                        "spark.rapids.sql.udfCompiler.enabled": False,
+                        "spark.rapids.sql.test.enabled": True,
+                        "spark.rapids.sql.test.allowedNonGpu": "CpuProject"})
+    with pytest.raises(AssertionError):
+        X.run_query(name, tables, device="cpu", conf=C.RapidsConf({
+            **BENCH_CONF, "spark.rapids.sql.udfCompiler.enabled": False,
+            "spark.rapids.sql.test.enabled": True}))
+    compare_frames(X.run_query(name, tables, device="cpu", conf=off), got,
+                   f"{name} compiled against the row-applied UDF")
