@@ -11,7 +11,9 @@ result cache, the watchdog and AQE (phase 15), the shuffle manager
 lane with the brute-force joins (phase 16), the observability layer
 (phase 17), and the UDF layer: TPCx-BB's q18 and q27 at SF1, the pandas
 execs through the worker daemon, the plugin, the shims, the API audit
-and the ML export (phase 18), on one NVIDIA card
+and the ML export (phase 18), and distribution: TPC-H over a device mesh
+with the SPMD lane, the graft entry's dry run (phase 19), on one NVIDIA
+card
 (59,986,052 lineitem rows, scale factor 10, in phases 4-6 and 14a, TPC-H
 spec 4.2.5; 50,000 TPC-DS store_sales rows in 11b and 13b, where SF1 has
 2,880,404, Table 3-2).
@@ -331,9 +333,26 @@ Phases, each of which raises on failure (exit code 1, no result line):
      before but for the wrappers' own state; throughout, accelerate and
      collect apart, the launches per plan, and the widest call of each
      kernel in each plan held against its twin;
- 19. print the kernels line (all three kernels, with their launches in
+ 19. distribution (parallel/, exec/spmd.py, graft_entry.py), after phase
+     18 over phases 7-9's SF1 tables and goldens: a mesh of MESH_SLOTS
+     slots spread round-robin over the cards (on one card all four
+     slots share it: the lane's routing, counts, capacity and gang code
+     run, no byte crosses an interconnect, and the script says so);
+     19a, TPC-H Q1, Q3, Q5 and Q9 at 4 partitions with the mesh active,
+     spark.rapids.sql.spmd.enabled, test.enabled and profiling on (the
+     collective edge), one new plan each, against phases 6-8's float64
+     goldens (keys and counts exact, sums rtol 1e-3): each join query's
+     hash exchanges run the mesh all-to-all, every query dispatches
+     gangs, the collective edge's bytes and sites, the launches, the
+     widest call of each kernel held against its twin, device memory
+     back after each; 19b, graft_entry.dryrun_multichip(MESH_SLOTS) on
+     the card (filter, project, the mesh all-to-all, grouped_sum per
+     slot, the hash-grouping lane, checked in numpy) and entry()'s Q1
+     step with the q1_fused kernel against the plain step (keys and
+     counts exact, sums rtol 1e-5);
+ 20. print the kernels line (all three kernels, with their launches in
      every phase: `launches` the main path's, then per phase and per
-     part of phases 15-18, and phase 17's catalog mean beside the
+     part of phases 15-19, and phase 17's catalog mean beside the
      kernel timed alone) and, last, the device line.
 Cuts, to keep the script within 950 s of its 1,200 s limit, in this
 order: (1) TPCx-BB's queries left 13b (13a still checks them at 20,000 rows;
@@ -2726,6 +2745,9 @@ def spread(queries, here, there, pool, done) -> None:
             except Exception as e:  # noqa: BLE001 -- handed to done
                 res, err = None, e
             done(q, res, err)
+            # a failed query's error holds its plan's frames, and with
+            # them its device memory: not through the next query
+            res = err = None
             drain()
         for t in feeders:
             t.join()
@@ -5878,6 +5900,174 @@ def udf_phase(torch, dev, tables: dict, gold: dict, spec: tuple, GW, K,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: distribution, the device mesh
+MESH_SLOTS = 4
+MESH_QUERIES = (1, 3, 5, 9)
+
+
+def mesh_conf(q: int):
+    """The TPC bench conf with test.enabled, the SPMD lane on and the
+    query profiled, so its movement ledger carries the collective edge."""
+    from spark_rapids_tpu_torch import config as C
+    return tpch_conf(q, **{C.SPMD_ENABLED.key: True,
+                           C.PROFILE_ENABLED.key: True})
+
+
+def mesh_query(torch, dev, mesh, q: int, tables: dict, gold: dict, GW, K,
+               cases) -> dict:
+    """One TPC-H query as a user submits it with `mesh` active, over
+    MESH_SLOTS partitions: the result against its golden, accelerate and
+    collect apart, the mesh exchanges and gang dispatches it ran, the
+    collective edge's bytes, the launches, the widest call of each
+    kernel held against its twin, peak device memory; device memory back
+    to its value before the query once the plan is dropped."""
+    import threading
+
+    from spark_rapids_tpu_torch.exec import aggregate as AGG
+    from spark_rapids_tpu_torch.exec import spmd as SP
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.parallel.mesh import active_mesh
+    from spark_rapids_tpu_torch.shuffle.exchange import ShuffleExchangeExec
+    from spark_rapids_tpu_torch.utils import profile as P
+    grouped_case, window_case = cases
+    label = f"19a q{q}"
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    state0 = kernel_state_bytes(GW, K)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches0 = launch_counts(GW, K)
+    ShuffleExchangeExec._MESH_EXCHANGES_RUN = 0
+    splits0 = ShuffleExchangeExec._OVERSIZED_SPLITS
+    SP.reset_spmd_stats()
+    wcalls, gcalls, AGG.window_group_sums, AGG.grouped_sum = \
+        threadsafe_recorders(GW, K, threading.Lock())
+    try:
+        with active_mesh(mesh):
+            df, sub, sec = submit_tpch(
+                torch, dev, q, tables, mesh_conf(q), label,
+                source=TD.sources(tables, MESH_SLOTS))
+    finally:
+        AGG.window_group_sums = GW.window_group_sums
+        AGG.grouped_sum = K.grouped_sum
+    launches = {k: v - launches0[k] for k, v in launch_counts(GW, K).items()}
+    rel = check_tpch(q, df, gold, sub)
+    gang = SP.spmd_stats()
+    exchanges = ShuffleExchangeExec._MESH_EXCHANGES_RUN
+    prof = P.last_profile()
+    edge = (prof.movement or {}).get("edges", {}).get("collective", {})
+    sites = {k: int(v["bytes"]) for k, v in edge.get("sites", {}).items()}
+    del prof
+    out = {**sec, "rel": rel, "rows": len(df), "launches": launches,
+           "mesh_exchanges": exchanges,
+           "oversized_splits": ShuffleExchangeExec._OVERSIZED_SPLITS
+           - splits0, "gang": gang,
+           "collective_bytes": int(edge.get("bytes", 0)),
+           "collective_sites": sites,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    print(f"mesh {label} {sf_of(tables)} over {mesh.size} slots: accelerate "
+          f"{sec['accelerate']:.3f} s, collect {sec['collect']:.3f} s, "
+          f"{len(df)} rows, rel err {rel:.3g}; mesh exchanges {exchanges} "
+          f"({out['oversized_splits']} oversized batches cut), gang "
+          f"dispatches {gang['gang_dispatches']} over "
+          f"{gang['gang_batches']} batches in {gang['gang_slots']} slots, "
+          f"deopts {gang['deopts']}; collective edge {out['collective_bytes']}"
+          f" bytes {sites}; peak device memory {out['peak_gib']:.2f} GiB; "
+          f"launches {launches}", flush=True)
+    if q != 1:
+        require(exchanges > 0, f"{label}: no exchange took the mesh lane")
+    require(gang["gang_dispatches"] > 0, f"{label}: no gang dispatched")
+    require(out["collective_bytes"] > 0,
+            f"{label}: nothing on the collective edge")
+    out["cases"] = {}
+    if wcalls:
+        gid, vals, cap = wcalls
+        case = window_case(gid, vals, cap)
+        case.update(query=q, launches=launches["window_group_sums"],
+                    shape=f"{label} widest call: capacity {gid.numel()}, "
+                    f"out_cap {cap}, M={len(vals)}")
+        print(kernel_text("window_group_sums", case), flush=True)
+        out["cases"]["window_group_sums"] = case
+        del gid, vals
+    if gcalls:
+        keys, gvals, nrows, groups = gcalls
+        case = grouped_case(keys, gvals, nrows, groups, None)
+        case.update(query=q, launches=launches["grouped_sum"],
+                    shape=f"{label} widest call: capacity {keys.numel()}, "
+                    f"G={groups}, M={len(gvals)}, tier {case['tier']}")
+        print(kernel_text("grouped_sum", case), flush=True)
+        out["cases"]["grouped_sum"] = case
+        del keys, gvals
+    for name in ("window_group_sums", "grouped_sum"):
+        require(not launches[name] or name in out["cases"],
+                f"{label}: {name} launched but no call was recorded")
+    del wcalls[:], gcalls[:], wcalls, gcalls, sub
+    out["memory"] = settled_memory(torch, dev, GW, K, before, state0,
+                                   f"mesh {label}")
+    return out
+
+
+def mesh_phase(torch, dev, tables: dict, gold: dict, GW, K, cases) -> dict:
+    """Phase 19 (see the module docstring): 19a and 19b, each part's wall
+    printed.  Returns each query's figures and the launches per part."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch import graft_entry as GE
+    from spark_rapids_tpu_torch.parallel.mesh import make_mesh
+    cards = torch.cuda.device_count()
+    mesh = make_mesh(MESH_SLOTS, slots_per_device=-(-MESH_SLOTS // cards))
+    where = ", ".join(f"{d} x{len(s)}" for d, s in mesh.groups)
+    print(f"mesh: {mesh.size} slots over {len(mesh.groups)} of {cards} "
+          f"card(s) ({where})"
+          + ("; one card: no byte crossed an interconnect, the collective "
+             "edge counts the lane's payload within the card" if
+             len(mesh.groups) == 1 else ""), flush=True)
+    out: dict = {"19a": {}, "launches": {}}
+    t_part = time.perf_counter()
+    for q in MESH_QUERIES:
+        out["19a"][q] = mesh_query(torch, dev, mesh, q, tables, gold, GW, K,
+                                   cases)
+        out["launches"][f"19a q{q}"] = out["19a"][q]["launches"]
+    print(f"phase 19a: {time.perf_counter() - t_part:.1f} s wall",
+          flush=True)
+    t_part = time.perf_counter()
+    launches0 = launch_counts(GW, K)
+    dry = GE.dryrun_multichip(MESH_SLOTS, device=dev)
+    require(dry["grouped_sum_launches"] == MESH_SLOTS,
+            f"19b dryrun: grouped_sum launched {dry['grouped_sum_launches']}"
+            f" times, not once a slot")
+    out["launches"]["19b dryrun"] = {
+        k: v - launches0[k] for k, v in launch_counts(GW, K).items()}
+    # entry()'s step on the card: the q1_fused kernel against the plain
+    # torch step over the same batch
+    launches0 = launch_counts(GW, K)
+    with C.session(C.RapidsConf({C.PALLAS_Q1_ENABLED.key: True})):
+        fn, args = GE.entry(device=dev)
+        got = [t.cpu().numpy() for t in fn(*args)]
+    out["launches"]["19b entry"] = {
+        k: v - launches0[k] for k, v in launch_counts(GW, K).items()}
+    fn, args = GE.entry(device=dev)
+    want = [t.cpu().numpy() for t in fn(*args)]
+    require(out["launches"]["19b entry"]["q1_fused"] >= 1,
+            "19b entry: q1_fused never launched")
+    for i in (0, 1, 7):
+        require(np.array_equal(got[i], want[i]),
+                f"19b entry: output {i} differs from the plain step")
+    entry_rel = max(float(np.max(np.abs(got[i] - want[i])
+                                 / np.maximum(np.abs(want[i]), 1.0)))
+                    for i in range(2, 7))
+    require(entry_rel <= 1e-5, f"19b entry rel err {entry_rel}")
+    print(f"19b: dryrun_multichip({MESH_SLOTS}) {dry}; entry() step with "
+          f"q1_fused against the plain step: keys and counts exact, max "
+          f"rel err {entry_rel:.3g}; launches {out['launches']['19b dryrun']}"
+          f" and {out['launches']['19b entry']}", flush=True)
+    print(f"phase 19b: {time.perf_counter() - t_part:.1f} s wall",
+          flush=True)
+    out["dryrun"] = dry
+    out["entry_rel"] = entry_rel
+    return out
+
+
 def kernel_cases(torch, dev, GW, K):
     """(grouped_case, window_case): a kernel's call on `dev` held
     against its plain twin, its second call's bits, and its times (the
@@ -6427,10 +6617,20 @@ def main() -> int:
         torch, dev, tables, {1: gold_q1, 6: gold_q6, **gold, **gold_parts,
                              **gold_rest},
         (args.seed, JOIN_SF), GW, K, (grouped_case, window_case))
-    del tables
     lap("18 (the UDF layer: TPCx-BB q18 and q27 at SF1, the pandas execs "
         "through the worker daemon, plugin.activate(), the shims, the API "
         "audit, the ML export)")
+
+    # 19. distribution: Q1, Q3, Q5 and Q9 over a mesh of MESH_SLOTS slots
+    # with the SPMD lane on, then the graft entry's multi-slot dry run and
+    # its Q1 step
+    mesh = mesh_phase(
+        torch, dev, tables, {1: gold_q1, **gold, **gold_parts}, GW, K,
+        (grouped_case, window_case))
+    del tables
+    lap(f"19 (distribution: TPC-H Q1, Q3, Q5, Q9 at SF1 over a "
+        f"{MESH_SLOTS}-slot mesh with the SPMD lane, the multi-slot dry "
+        f"run, the entry step)")
     io_more = {i["label"]: i for i in list(io_b["queries"].values())
                + list(gaps.values())}
     for name, cases in plan_cases("14b and 14c", io_more, window_case,
@@ -6552,6 +6752,13 @@ def main() -> int:
         kernels[name]["udf_cases"] = [
             {k: c[k] for k in case_keys if k in c}
             for c in udf["cases"].get(name, [])]
+    for name in kernels:
+        kernels[name]["mesh_launches"] = {
+            part: v[name] for part, v in mesh["launches"].items()}
+        kernels[name]["mesh_cases"] = [
+            {k: c["cases"][name][k] for k in case_keys
+             if k in c["cases"][name]}
+            for c in mesh["19a"].values() if name in c["cases"]]
     for name in ("window_group_sums", "grouped_sum"):
         kernels[name]["runtime_cases"] = [
             {k: runtime["15a"]["cases"][name][k] for k in case_keys
@@ -6578,7 +6785,8 @@ def main() -> int:
             "workload_cases", "io_launches", "io_cases",
             "runtime_launches", "runtime_cases", "shuffle_launches",
             "shuffle_cases", "observability_launches", "catalog_device_ms",
-            "catalog_reference_ms", "udf_launches", "udf_cases")
+            "catalog_reference_ms", "udf_launches", "udf_cases",
+            "mesh_launches", "mesh_cases")
     line = {"kernels": [{k: v[k] for k in keys if k in v}
                         for v in kernels.values()]}
     print(json.dumps(line), flush=True)

@@ -80,6 +80,21 @@ FUSION_ENABLED = conf(
     "Collapse Project/Filter chains between pipeline breaks into one "
     "stage, and fold a chain that feeds a partial or complete "
     "aggregation into the aggregate's update lane.")
+SPMD_ENABLED = conf(
+    "spark.rapids.sql.spmd.enabled", False,
+    "Run each fused stage as one gang over the active device mesh "
+    "(exec/spmd.py): the stage's partition batches are stacked along a "
+    "slot axis, padded to one capacity with per-slot row masks so ragged "
+    "partitions stay exact, and the composed project/filter chain runs "
+    "once per physical device over all its slots: one launch sequence "
+    "per stage instead of one per partition.  Requires an active mesh "
+    "(spark_rapids_tpu_torch.parallel.mesh.set_active_mesh); without "
+    "one, or for a stage the gang cannot run (uneven narrow shadows, an "
+    "expression that reads the task context, a failed stack), the stage "
+    "runs on the per-partition lane (numSpmdDeopts).  Also changes the "
+    "plan's shape: fusible chains stay standalone FusedStageExec nodes "
+    "(single operators included) instead of folding into the "
+    "aggregate's update lane.  Off (default): the per-partition engine.")
 DENSE_JOIN_ENABLED = conf(
     "spark.rapids.tpu.denseJoin.enabled", True,
     "Direct-address equi-join fast path: when a single integral build "
@@ -100,9 +115,13 @@ RAPIDS_SHUFFLE_ENABLED = conf(
     "shuffle/manager.py) instead of the in-process exchange.")
 MESH_EXCHANGE_ENABLED = conf(
     "spark.rapids.shuffle.meshExchange.enabled", True,
-    "Route hash exchanges through a device-mesh all-to-all when a mesh "
-    "is active.  Not ported yet: the port has no active mesh, so the "
-    "local exchange lane runs.")
+    "Route hash exchanges through the device-mesh all-to-all "
+    "(parallel/collective_exchange.py) when a mesh is active "
+    "(spark_rapids_tpu_torch.parallel.mesh.set_active_mesh) and the "
+    "exchange is mesh-routable (hash keys are plain columns, partition "
+    "count == mesh size; the planner plans hash exchanges at the mesh "
+    "size while one is active).  Otherwise the manager or local lane "
+    "runs.")
 
 # --- the shuffle manager lane (shuffle/manager.py and its transport) -------
 SHUFFLE_TRANSPORT_CLASS = conf(
@@ -238,6 +257,15 @@ INCOMPATIBLE_OPS = conf(
     "Enable operators producing results that differ slightly from Spark "
     "(the transcendental functions, whose last bit may differ from the "
     "JVM's).")
+IMPROVED_FLOAT = conf(
+    "spark.rapids.sql.improvedFloatOps.enabled", False,
+    "Enable improved-precision float transcendental ops.  Declared with "
+    "the reference's default; no operator of either package reads it.")
+HAS_NANS = conf(
+    "spark.rapids.sql.hasNans", True,
+    "Assume floating point data may contain NaNs.  Declared with the "
+    "reference's default; every operator handles NaN whatever its "
+    "value.")
 CASTS_FLOAT_TO_STRING = conf(
     "spark.rapids.sql.castFloatToString.enabled", False,
     "Enable the float->string cast (formatting may differ from Java's at "
@@ -339,6 +367,11 @@ HBM_BUDGET_BYTES = conf(
     "external (spill-backed) algorithms instead of split-retrying to "
     "the row floor — bounded-HBM execution on data larger than device "
     "memory.")
+HBM_DEBUG = conf(
+    "spark.rapids.memory.gpu.debug", "NONE",
+    "Allocation debug logging: NONE, STDOUT, STDERR.  Declared with the "
+    "reference's default; the port allocates through PyTorch's caching "
+    "allocator and logs nothing for it.")
 HOST_SPILL_STORAGE = conf("spark.rapids.memory.host.spillStorageSize",
                           1073741824, "Host memory for spilled device data.")
 PINNED_POOL_SIZE = conf("spark.rapids.memory.pinnedPool.size", 0,
@@ -465,7 +498,8 @@ HANG_INJECT_SITE = conf(
     "detection, cancellation and resource release are testable "
     "without a real wedge.  Sites: producer (prefetch producer loop), "
     "oocore-merge (an out-of-core merge pass), pyudf (a wedged Python "
-    "UDF worker), compile (the first kernel build).  The injected hang "
+    "UDF worker), compile (the first kernel build), collective (a mesh "
+    "exchange round or SPMD gang dispatch).  The injected hang "
     "blocks until the query's CancelToken fires.  Empty disables.")
 HANG_INJECT_AFTER = conf(
     "spark.rapids.memory.faultInjection.hangAfterBatches", 0,
@@ -831,6 +865,17 @@ MAX_BROADCAST_TABLE_BYTES = conf(
     "Hard cap on a broadcast build side's device bytes; exceeding it "
     "fails the query with a clear error instead of exhausting device "
     "memory (Spark's 8GB broadcast-table limit).")
+
+KERNEL_CACHE_MAX_ENTRIES = conf(
+    "spark.rapids.sql.kernelCache.maxEntries", 512,
+    "Entry bound of the reference's compiled-kernel cache.  Declared so "
+    "one conf drives both packages; the port runs eagerly and has no "
+    "kernel cache, so there is nothing for it to bound.")
+METRICS_LEVEL = conf(
+    "spark.rapids.sql.metrics.level", "MODERATE",
+    "Operator metric detail: ESSENTIAL, MODERATE, DEBUG.  Declared with "
+    "the reference's default; every metric is collected whatever its "
+    "value.")
 
 # --- Python UDFs (udf/, pyudf/) ----------------------------------------------
 UDF_COMPILER_ENABLED = conf(

@@ -268,6 +268,10 @@ class TpuExec:
                 # assemble the QueryProfile LAST so the plan report sees
                 # every metric this query charged
                 P.end_query(prof_owner, self, error=prof_error)
+            # the error's traceback holds this frame: keeping the error
+            # here too would make a cycle that holds every frame of the
+            # failed plan, and its tensors, until the next collection
+            prof_error = None
             scope.close()
 
     def _collect_attempts(self) -> ColumnarBatch:

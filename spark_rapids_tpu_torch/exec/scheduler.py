@@ -36,7 +36,9 @@ kernel attribution start lazily on the first query whose conf enables
 them (utils/telemetry.py, utils/kernelprof.py), and the in-flight query
 count feeds the telemetry sampler.
 
-Not ported: the whole-mesh dispatch gate (multi-device).
+`whole_mesh_dispatch` is the whole-mesh gate of the mesh lanes (an SPMD
+gang, a mesh exchange round): one such step holds every slot of the
+active mesh, so the gate serializes them process-wide.
 """
 from __future__ import annotations
 
@@ -542,6 +544,48 @@ class CollectScope:
             self.plan._plan_lock.release()
             self._plan_locked = False
         self._qscope.close(end_profile=False)
+
+
+# ---------------------------------------------------------------------------
+# the whole-mesh dispatch gate (exec/spmd.py gangs, shuffle/exchange.py's
+# mesh rounds)
+#
+# Task-level sharing of a device is the TpuSemaphore's job and per-query
+# memory admission the ledger's, but a whole-mesh step (a gang, an
+# exchange round) occupies every slot of the mesh at once.  In the
+# reference two threads enqueueing such programs could invert the queue
+# order on two devices and deadlock their rendezvous; the port's steps
+# copy between the slots' devices, so the gate keeps the same rule: one
+# whole-mesh step at a time, process-wide.  The wait is a bounded poll
+# that honours the calling query's CancelToken; reentrant, so a lane that
+# composes steps (the count and data phases) holds it across both.
+
+_MESH_GATE = threading.RLock()
+_MESH_GATE_STATS = {"dispatches": 0, "longest_wait_ms": 0}
+_MESH_GATE_STATS_LOCK = threading.Lock()
+
+
+@contextmanager
+def whole_mesh_dispatch(label: str = "spmd"):
+    """Hold the process-wide whole-mesh slot for one mesh step."""
+    from spark_rapids_tpu_torch.utils import watchdog as W
+    t0 = time.monotonic()
+    while not _MESH_GATE.acquire(timeout=0.05):
+        W.check_cancelled()
+    waited_ms = int((time.monotonic() - t0) * 1e3)
+    with _MESH_GATE_STATS_LOCK:
+        _MESH_GATE_STATS["dispatches"] += 1
+        _MESH_GATE_STATS["longest_wait_ms"] = max(
+            _MESH_GATE_STATS["longest_wait_ms"], waited_ms)
+    try:
+        yield
+    finally:
+        _MESH_GATE.release()
+
+
+def mesh_gate_stats() -> dict:
+    with _MESH_GATE_STATS_LOCK:
+        return dict(_MESH_GATE_STATS)
 
 
 def _plan_device(plan):

@@ -22,6 +22,15 @@ literal folding, then common-subexpression dedup, so a subtree shared
 by several outputs evaluates once per batch).  PyTorch runs eagerly, so
 the reference's compile cache and its trace-failure deopt lane have no
 counterpart here.  Gate: spark.rapids.sql.fusion.enabled (default on).
+
+SPMD mode (spark.rapids.sql.spmd.enabled, exec/spmd.py): the pass plans
+for whole-mesh execution instead.  Fusible chains stay standalone
+`FusedStageExec` nodes, a lone operator included (one gang dispatch
+replaces one dispatch per partition), rather than folding into the
+aggregate's update lane, so the gang sees them.  At execution time
+`FusedStageExec.execute_partitions` hands the stage to the SPMD lane
+while a mesh is active; otherwise (no mesh, a gang that cannot run) the
+per-partition lane below runs.
 """
 from __future__ import annotations
 
@@ -146,6 +155,8 @@ class FusedStageExec(UnaryExecBase):
         self.stage = stage
         self._schema = stage.schema
         self._fused_reported = False
+        #: set once the SPMD lane fell back for this exec (exec/spmd.py)
+        self._spmd_deopt = False
 
     def output_schema(self) -> T.Schema:
         return self._schema
@@ -156,7 +167,18 @@ class FusedStageExec(UnaryExecBase):
 
     def describe(self):
         return (f"FusedStageExec({self.stage.describe_ops()}, "
-                f"exprs={self.stage.expr_count})")
+                f"exprs={self.stage.expr_count}"
+                + (", spmd-deopt" if self._spmd_deopt else "") + ")")
+
+    def execute_partitions(self):
+        # the SPMD lane (exec/spmd.py): one gang dispatch for every
+        # partition of this stage while the conf enables it and a mesh
+        # is active; None = the per-partition lane
+        from spark_rapids_tpu_torch.exec import spmd as SP
+        lane = SP.maybe_execute_spmd(self)
+        if lane is not None:
+            return lane
+        return super().execute_partitions()
 
     @property
     def fused_members(self) -> list:
@@ -208,19 +230,20 @@ def fuse_plan(plan, conf: Optional[C.RapidsConf] = None):
     conf = conf or C.get_active_conf()
     if not conf[C.FUSION_ENABLED]:
         return plan
+    spmd = bool(conf[C.SPMD_ENABLED])
     if isinstance(plan, TpuExec):
-        return _fuse_node(plan)
-    _fuse_islands(plan)
+        return _fuse_node(plan, spmd)
+    _fuse_islands(plan, spmd)
     return plan
 
 
-def _fuse_islands(node) -> None:
+def _fuse_islands(node, spmd: bool = False) -> None:
     from spark_rapids_tpu_torch.plan.transitions import ColumnarToRowExec
     if isinstance(node, ColumnarToRowExec):
-        node.tpu_child = _fuse_node(node.tpu_child)
+        node.tpu_child = _fuse_node(node.tpu_child, spmd)
         return
     for c in getattr(node, "children", []):
-        _fuse_islands(c)
+        _fuse_islands(c, spmd)
 
 
 def _collect_chain(node: TpuExec):
@@ -240,21 +263,22 @@ def _agg_fusible(node: TpuExec) -> bool:
             and node._pre_stage is None)
 
 
-def _fuse_segment(run: list, base: TpuExec) -> TpuExec:
+def _fuse_segment(run: list, base: TpuExec, spmd: bool = False) -> TpuExec:
     """One bottom-up run of fusible members over `base` as one fused
-    stage; a lone operator stays as it is, and an identity projection
-    disappears."""
+    stage; a lone operator stays as it is (SPMD mode fuses it too: the
+    gang amortizes over partitions, not over chain length), and an
+    identity projection disappears."""
     stage = compose_chain(list(reversed(run)), base.output_schema())
     if not stage.preds and is_identity_projection(
             stage.out_exprs, stage.in_schema, stage.schema):
         return base
-    if len(run) < 2:
+    if len(run) < 2 and not spmd:
         run[0]._children[0] = base
         return run[0]
     return FusedStageExec(stage, base)
 
 
-def _fuse_chain(chain: list, base: TpuExec) -> TpuExec:
+def _fuse_chain(chain: list, base: TpuExec, spmd: bool = False) -> TpuExec:
     """Rebuild a top-down Project/Filter chain over `base`, fusing each
     maximal run of fusible members; a member that is not fusible stays
     per-operator between them."""
@@ -265,7 +289,7 @@ def _fuse_chain(chain: list, base: TpuExec) -> TpuExec:
         while j < len(members) and _member_fusible(members[j]):
             j += 1
         if j > i:
-            cur = _fuse_segment(members[i:j], cur)
+            cur = _fuse_segment(members[i:j], cur, spmd)
             i = j
         else:
             members[i]._children[0] = cur
@@ -274,12 +298,14 @@ def _fuse_chain(chain: list, base: TpuExec) -> TpuExec:
     return cur
 
 
-def _fuse_node(node: TpuExec) -> TpuExec:
+def _fuse_node(node: TpuExec, spmd: bool = False) -> TpuExec:
     from spark_rapids_tpu_torch.plan.transitions import RowToColumnarExec
     if isinstance(node, RowToColumnarExec):
-        _fuse_islands(node.cpu_child)
+        _fuse_islands(node.cpu_child, spmd)
         return node
-    if _agg_fusible(node):
+    if _agg_fusible(node) and not spmd:
+        # in SPMD mode the chain stays a standalone stage below, which the
+        # gang runs over the mesh, and the aggregate consumes its outputs
         chain, base = _collect_chain(node.child)
         if chain and all(_member_fusible(m) for m in chain):
             return HashAggregateExec(
@@ -288,7 +314,7 @@ def _fuse_node(node: TpuExec) -> TpuExec:
                 pre_stage=compose_chain(chain, base.output_schema()))
     if isinstance(node, _FUSIBLE):
         chain, base = _collect_chain(node)
-        return _fuse_chain(chain, _fuse_node(base))
+        return _fuse_chain(chain, _fuse_node(base, spmd), spmd)
     for i, c in enumerate(node.children):
-        node._children[i] = _fuse_node(c)
+        node._children[i] = _fuse_node(c, spmd)
     return node

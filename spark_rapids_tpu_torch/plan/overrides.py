@@ -431,14 +431,28 @@ def _conv_aggregate(meta, kids) -> TpuExec:
         keys = [col(f.name) for f in fields[:len(node.group_exprs)]]
         # a final aggregation needs key clustering only, so a small
         # partial output may skip the split
-        ex = ShuffleExchangeExec(HashPartitioning(keys, nparts), partial,
-                                 coalesce_small=True)
+        ex = ShuffleExchangeExec(
+            HashPartitioning(keys, _exchange_partitions(nparts, meta.conf)),
+            partial, coalesce_small=True)
     else:
         ex = ShuffleExchangeExec(SinglePartitioning(), partial)
     return HashAggregateExec(
         [Alias(col(f.name), f.name)
          for f in fields[:len(node.group_exprs)]],
         node.aggregates, ex, AggMode.FINAL)
+
+
+def _exchange_partitions(nparts: int, conf: C.RapidsConf) -> int:
+    """The partition count of a planned hash exchange: the mesh's size
+    while a mesh is active and its exchange lane is on, so that slot d
+    owns output partition d and the exchange routes through the mesh
+    all-to-all (shuffle/exchange.py `_mesh_routable`)."""
+    from spark_rapids_tpu_torch.parallel import mesh as PM
+    active = PM.get_active_mesh()
+    if active is not None and conf[C.MESH_EXCHANGE_ENABLED]:
+        mesh, axis = active
+        return mesh.shape[axis]
+    return nparts
 
 
 def _conv_hash_join(meta, kids) -> TpuExec:
@@ -463,6 +477,7 @@ def _conv_hash_join(meta, kids) -> TpuExec:
                  right.output_partition_count())
     if nparts > 1:
         # co-partition both sides by their keys
+        nparts = _exchange_partitions(nparts, meta.conf)
         left = ShuffleExchangeExec(
             HashPartitioning(node.left_keys, nparts), left)
         right = ShuffleExchangeExec(
@@ -905,6 +920,8 @@ def _collect(plan, conf: C.RapidsConf):
         raise
     finally:
         scope.close(error=error)
+        # no cycle through this frame (TpuExec.collect says why)
+        error = None
 
 
 def _collect_inner(plan, conf: C.RapidsConf):

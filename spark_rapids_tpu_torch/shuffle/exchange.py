@@ -17,10 +17,16 @@ replicas ride on it when their keys are on.  The reduce side merges a
 partition's batches up to the consolidation target, as the local lane
 does.
 
-The reference's third lane, the device-mesh all-to-all, is not ported:
-the port has no active mesh, so its key engages nothing.  Neither side
-of either lane prefetches, as the reference's do: the map side is device
-work that a producer thread cannot overlap (exec/pipeline.py), and the
+Mesh lane (a mesh active, parallel/mesh.py): a hash exchange over as
+many partitions as the mesh has slots, on plain key columns, runs as one
+all-to-all over the mesh (parallel/collective_exchange.py), tried before
+the other two lanes as in the reference: slot d owns output partition d.
+The inputs are dealt round-robin to the slots (a batch past the row cap
+is first cut across them), a count phase sizes the receive side from the
+real totals, and the data phase pushes every row to its slot.
+
+No lane prefetches, as the reference's do: the map side is device work
+that a producer thread cannot overlap (exec/pipeline.py), and the
 manager's reads already run a fetch thread.  `BroadcastExchangeExec`
 collects a small build side once for a broadcast hash join.
 """
@@ -79,9 +85,111 @@ class ShuffleExchangeExec(UnaryExecBase):
                 f"n={self.partitioning.num_partitions})")
 
     def execute_partitions(self):
+        mesh_axis = self._mesh_routable()
+        if mesh_axis is not None:
+            return self._execute_via_mesh(*mesh_axis)
         if C.get_active_conf()[C.RAPIDS_SHUFFLE_ENABLED]:
             return self._execute_via_manager()
         return [self._merged_reader(bs) for bs in self._materialize()]
+
+    def _mesh_routable(self):
+        """(mesh, axis) when the mesh lane applies: the conf enables it, a
+        mesh is active on this plan's device, and the partitioning is a
+        murmur3 hash over plain bound columns into as many partitions as
+        the mesh has slots.  Otherwise None, and the manager or local lane
+        runs (the reference's UCX data plane likewise takes over only
+        inside the shuffle manager, RapidsShuffleInternalManager.scala:199)."""
+        from spark_rapids_tpu_torch.exprs.base import BoundReference
+        from spark_rapids_tpu_torch.parallel import mesh as PM
+        from spark_rapids_tpu_torch.shuffle.partitioning import (
+            HashPartitioning)
+        if not C.get_active_conf()[C.MESH_EXCHANGE_ENABLED]:
+            return None
+        active = PM.get_active_mesh()
+        if active is None:
+            return None
+        mesh, axis = active
+        part = self.partitioning
+        if not isinstance(part, HashPartitioning) \
+                or part.num_partitions != mesh.shape[axis]:
+            return None
+        if not all(isinstance(e, BoundReference) for e in part.exprs):
+            return None
+        if not PM.same_device(mesh.home, self.device()):
+            return None
+        return mesh, axis
+
+    #: exchanges routed through the mesh lane, and single batches past the
+    #: row cap cut across the mesh before it (process-wide counters)
+    _MESH_EXCHANGES_RUN = 0
+    _OVERSIZED_SPLITS = 0
+
+    def _execute_via_mesh(self, mesh, axis):
+        """The mesh lane: the input dealt to the slots, one count phase and
+        one data phase over the mesh, one output batch per slot."""
+        from spark_rapids_tpu_torch.exec import scheduler as S
+        from spark_rapids_tpu_torch.parallel.collective_exchange import (
+            MeshRound, stack_batches, stacked_payload_bytes,
+            unstack_batches, watched_collective)
+        from spark_rapids_tpu_torch.utils import metrics as M
+        from spark_rapids_tpu_torch.utils import movement as MV
+        n = self.partitioning.num_partitions
+        max_rows = int(C.get_active_conf()[C.MAX_BATCH_ROWS])
+        groups: list = [[] for _ in range(n)]
+        slot = 0
+        for it in self.child.execute_partitions():
+            for b in it:
+                if not b.maybe_nonempty():
+                    continue
+                # a lazy count is bounded by the capacity: only a batch
+                # that may pass the row cap pays the count's readback
+                est = b.num_rows if b.num_rows_known else b.capacity
+                if est > max_rows and b.num_rows > max_rows:
+                    # one batch past the cap is cut across the mesh
+                    # before the all-to-all, not landed whole on a slot
+                    per = -(-b.num_rows // n)
+                    ShuffleExchangeExec._OVERSIZED_SPLITS += 1
+                    for lo in range(0, b.num_rows, per):
+                        groups[slot % n].append(
+                            b.slice(lo, min(per, b.num_rows - lo)))
+                        slot += 1
+                else:
+                    groups[slot % n].append(b)
+                    slot += 1
+        locals_ = [concat_batches(g).dense() if g
+                   else empty_batch(self._schema, self.device())
+                   for g in groups]
+        cap = max(b.capacity for b in locals_)
+        key_idx = tuple(e.ordinal for e in self.partitioning.exprs)
+        ShuffleExchangeExec._MESH_EXCHANGES_RUN += 1
+        # the gate covers both phases: one whole-mesh step at a time
+        with self.metrics.timed(M.TOTAL_TIME), \
+                P.span("mesh-exchange", cat=P.CAT_SHUFFLE), \
+                S.whole_mesh_dispatch(label="mesh-exchange"):
+            arrs, num_rows = stack_batches(locals_, cap)
+            del locals_, groups
+            payload = count_bytes = 0
+            if MV.ledger() is not None:
+                payload = stacked_payload_bytes(arrs)
+                count_bytes = n * n * 8
+                self.metrics.add(M.COLLECTIVE_BYTES, payload + count_bytes)
+            rnd = MeshRound(arrs, num_rows, self._schema, key_idx, mesh,
+                            axis, cap)
+            del arrs
+            # the count phase sizes the receive side from the real totals
+            CK.note_host_sync("exchange.mesh", nbytes=4 * n)
+            totals = watched_collective(
+                lambda: rnd.recv_totals().cpu().tolist(),
+                label="mesh-count", nbytes=count_bytes)
+            out_cap = bucket_capacity(max(max(totals), 1))
+            out_arrs, _ = watched_collective(
+                lambda: rnd.exchange(out_cap), label="mesh-exchange",
+                nbytes=payload)
+            del rnd
+            out = unstack_batches(out_arrs, totals, self._schema)
+        for b in out:
+            self.metrics.add("dataSize", b.device_size_bytes())
+        return [iter([b] if b.num_rows > 0 else []) for b in out]
 
     def _materialize(self) -> list[list[ColumnarBatch]]:
         """Run the map side: split every input batch; bucket by target."""

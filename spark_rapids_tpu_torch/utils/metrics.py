@@ -53,6 +53,11 @@ NUM_WATCHDOG_TIMEOUTS = "numWatchdogTimeouts"
 NUM_CANCELS = "numCancels"
 WATCHDOG_DUMPS = "watchdogDumps"
 SLOWEST_HEARTBEAT = "slowestHeartbeatMs"
+# the SPMD lane (exec/spmd.py): a fused stage's gang dispatches over the
+# mesh (one per stage execution, whatever the partition count) and gangs
+# that fell back to the per-partition lane
+NUM_SPMD_DISPATCHES = "numSpmdDispatches"
+NUM_SPMD_DEOPTS = "numSpmdDeopts"
 # the shuffle manager lane's recovery (shuffle/recovery.py, plan/aqe.py)
 # residency ledger (utils/residency.py): tracked buffers still
 # attributed to a query when it finished, charged to the collected plan
@@ -72,6 +77,9 @@ NUM_HEDGED_WINS = "numHedgedWins"
 REPLICATED_BYTES = "replicatedBytes"
 NUM_REPLICA_PROMOTIONS = "numReplicaPromotions"
 NUM_WIRE_CORRUPTIONS = "numWireCorruptions"
+# the payload bytes a mesh exchange or SPMD gang put on the collective
+# edge (parallel/collective_exchange.py stacked_payload_bytes)
+COLLECTIVE_BYTES = "collectiveBytes"
 # wire bytes a manager-lane exchange's readers pulled, compressed and not
 SHUFFLE_COMPRESSED_BYTES = "shuffleCompressedBytes"
 SHUFFLE_RAW_BYTES = "shuffleUncompressedBytes"

@@ -29,10 +29,13 @@ Edge classes:
   is visible.  Edge totals count the send side only — in-process runs
   see both directions in one ledger, and summing them would double the
   traffic.
-* ``collective`` — collective payloads of a multi-device exchange.  The
-  port has no multi-device lane yet, so nothing records to this edge;
-  the edge and its roofline entry exist so the report's shape matches
-  the reference's.
+* ``collective`` — payloads of the mesh lanes: a mesh exchange's
+  stacked columns (site ``mesh-exchange``; its count phase, site
+  ``mesh-count``, moves n ints and records nothing) and an SPMD gang's
+  outputs (site ``spmd-stage``), in one convention
+  (`parallel/collective_exchange.py stacked_payload_bytes`).  The bytes
+  are the lane's logical payload: slots that share a card move them
+  within its memory, not over an interconnect.
 
 Discipline (the profiler's): with profiling disabled the hot path pays
 ONE module-global read — `ledger()` resolves through

@@ -59,8 +59,7 @@ TIER_DISK = "disk"
 KIND_STORE = "store"
 #: an OOM-harness output reservation (memory/retry.py)
 KIND_RESERVATION = "reservation"
-#: pinned inputs of one whole-mesh dispatch (the reference's
-#: exec/spmd.py; no port counterpart yet)
+#: the stacked inputs of one SPMD gang dispatch (exec/spmd.py)
 KIND_GANG = "gang"
 
 #: bound on leaked-record provenance lines a dump/report renders

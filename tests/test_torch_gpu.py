@@ -1051,3 +1051,85 @@ def test_a_udf_worker_sees_no_card(cuda_device):
     finally:
         pool.close()
     assert out["env"].tolist() == [""] and out["cuda"].tolist() == [False]
+
+
+@pytest.mark.gpu
+def test_a_plan_that_raises_out_of_memory_frees_its_memory_at_once(
+        cuda_device, monkeypatch):
+    """The card twin of tests/test_torch_tpch.py
+    test_a_dropped_plan_is_freed_at_once for a query that raises
+    torch.cuda.OutOfMemoryError partway: once its error is dropped, with
+    the cycle collector off, the card's memory is back where it was
+    before the query."""
+    import gc
+
+    from spark_rapids_tpu_torch.columnar.vector import ColumnVector
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    tables = TD.gen_tables(np.random.default_rng(7), 20_000)
+    TB.run_query(3, tables, device=cuda_device)  # the wrappers' own state
+    orig = ColumnVector.gather
+    calls = [0]
+
+    def gather(self, indices, index_valid=None):
+        out = orig(self, indices, index_valid)
+        calls[0] += 1
+        if calls[0] == 120:
+            raise torch.cuda.OutOfMemoryError("injected for the test")
+        return out
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_device)
+    monkeypatch.setattr(ColumnVector, "gather", gather)
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        err = None
+        try:
+            TB.run_query(3, tables, device=cuda_device)
+        except torch.cuda.OutOfMemoryError as e:
+            err = e
+        assert err is not None and calls[0] == 120
+        held = torch.cuda.memory_allocated(cuda_device)
+        del err
+        torch.cuda.synchronize()
+        assert held > before
+        assert torch.cuda.memory_allocated(cuda_device) == before
+    finally:
+        if was_enabled:
+            gc.enable()
+
+
+@pytest.mark.gpu
+def test_mesh_lanes_on_the_card(cuda_device):
+    """A 4-slot mesh over the visible cards (all four on one card when
+    there is one): TPC-H Q3 and Q5 with the SPMD lane on run their hash
+    exchanges through the mesh all-to-all and their fused stages as
+    gangs, and equal the CPU engine (keys and counts exact, floats rtol
+    1e-5)."""
+    from parity import compare_frames
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.exec import spmd as SP
+    from spark_rapids_tpu_torch.models import tpch_bench as TB
+    from spark_rapids_tpu_torch.models import tpch_data as TD
+    from spark_rapids_tpu_torch.models.tpch_queries import QUERIES
+    from spark_rapids_tpu_torch.parallel.mesh import active_mesh, make_mesh
+    from spark_rapids_tpu_torch.shuffle.exchange import ShuffleExchangeExec
+    cards = torch.cuda.device_count()
+    mesh = make_mesh(4, slots_per_device=-(-4 // cards))
+    tables = TD.gen_tables(np.random.default_rng(11), 20_000)
+    conf = C.RapidsConf({**TB.BENCH_CONF, C.TEST_ENABLED.key: True,
+                         C.SPMD_ENABLED.key: True})
+    for query in (3, 5):
+        ShuffleExchangeExec._MESH_EXCHANGES_RUN = 0
+        SP.reset_spmd_stats()
+        with active_mesh(mesh):
+            got = TB.run_query(query, tables, device=cuda_device, conf=conf,
+                               num_partitions=4)
+        assert ShuffleExchangeExec._MESH_EXCHANGES_RUN > 0
+        st = SP.spmd_stats()
+        assert st["gang_dispatches"] > 0 and st["deopts"] == 0, st
+        want = QUERIES[query](TD.sources(tables, 4),
+                              lambda plan: plan.collect()).collect()
+        compare_frames(want, got, f"q{query} over the mesh on the card")

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import graft_entry
 from spark_rapids_tpu_torch import memory as M
 from spark_rapids_tpu_torch import plugin
 from spark_rapids_tpu_torch import types as T
@@ -24,6 +25,7 @@ from spark_rapids_tpu_torch.models import (mortgage, tpcds_bench, tpcds_data,
                                            tpch, tpcxbb)
 from spark_rapids_tpu_torch.ops import grouped_window as GW
 from spark_rapids_tpu_torch.ops import kernels as K
+from spark_rapids_tpu_torch.parallel.mesh import make_mesh
 from spark_rapids_tpu_torch.plan.nodes import CpuSource
 from spark_rapids_tpu_torch.plan.overrides import accelerate
 from spark_rapids_tpu_torch.pyudf.exec import (CpuArrowEvalPython,
@@ -157,6 +159,17 @@ def test_port_imports_neither_jax_nor_the_reference(path):
             f"{path.name} imports {mod}"
 
 
+def test_the_import_guard_covers_the_distribution_layer():
+    """The mesh, the mesh all-to-all, the SPMD gangs, the graft entry's
+    twin and the script that runs their phase are under the guard."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for f in ("parallel/__init__.py", "parallel/mesh.py",
+              "parallel/collective_exchange.py", "exec/spmd.py",
+              "graft_entry.py"):
+        assert f"spark_rapids_tpu_torch/{f}" in names, f
+    assert "scripts/torch_mesh_phase.py" in names
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
@@ -195,6 +208,9 @@ _ENTRY_POINTS = {
         [PandasUdfSpec("r", lambda s: s, T.INT64, (col("a"),))],
         CpuSource.from_pandas(pd.DataFrame({"a": [1, 2]}))),
         C.RapidsConf({"spark.rapids.sql.exec.CpuArrowEvalPython": True})),
+    "make_mesh": lambda: make_mesh(4, slots_per_device=4),
+    "graft_entry.entry": lambda: graft_entry.entry(),
+    "graft_entry.dryrun_multichip": lambda: graft_entry.dryrun_multichip(4),
     "mortgage.run_plan": lambda: mortgage.run_plan(
         mortgage.etl_plan, mortgage.gen_tables(np.random.default_rng(0),
                                                20, 2)),
